@@ -11,25 +11,31 @@
 // C = 24 up the fp32 SIMT rate bounds it, not memory. What the TPU kernel
 // keeps out of device memory, this one does too: the (S, 4C) hidden
 // activations exist only chunk by chunk in shared memory.
-// Design: one block per (batch, 64-column tile), 256 threads.
+// Design: one block per (batch, kS-column tile), 256 threads; kS = 64 up to
+// C = 192 and 32 above, so that the (C, kS) tile, the staged input and the
+// accumulators fit (C = 512: 64 KB + 16 KB + 80 KB of shared memory, 64
+// accumulators per thread).
 //   1. stage x with a halo of (k-1)d/2 columns in shared memory, zero outside
-//      [0, T); depthwise conv and ChannelNorm into an (C, 64) tile.
-//   2. walk the 4C hidden units in chunks of 64: each thread computes a 4x4
-//      (hidden x column) block of h = W1 a + b1 from float4 loads, applies the
-//      activation and writes it to shared memory; then each thread adds
-//      W2'[chunk] h into its own (channel x 4 column) accumulators in
-//      registers.
+//      [0, T); depthwise conv and ChannelNorm into a (C, kS) tile.
+//   2. walk the 4C hidden units in chunks of 4 G (G = 256 / (kS / 4) thread
+//      groups): each thread computes a 4x4 (hidden x column) block of
+//      h = W1 a + b1 from float4 loads, applies the activation and writes it
+//      to shared memory; then each thread adds W2'[chunk] h into its own
+//      (channel x 4 column) accumulators in registers.
 //   3. add the folded bias and the residual and store.
 // Products are SIMT fp32 FMAs; wgmma is later work.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kS = 64;         // time columns per block
 constexpr int kThreads = 256;
-constexpr int kMC = 64;        // hidden units per chunk
-constexpr int kGroups = kThreads / (kS / 4);  // 16 thread groups of 16 column quads
+constexpr int kNarrowMaxC = 192;  // widest C at the 64-column tile
 constexpr float kNormEps = 1e-8f;
+
+// kS time columns per block; kGroups thread groups of kS / 4 column quads;
+// kMC hidden units per chunk (one quad per group)
+template <int kS> constexpr int kGroups = kThreads / (kS / 4);
+template <int kS> constexpr int kMC = 4 * kGroups<kS>;
 
 struct Args {
   const float* x;
@@ -47,21 +53,25 @@ struct Args {
   long long sB, sC, sT;
 };
 
+template <int kS>
 __host__ __device__ inline int x_stride(int K, int dil) {
   // staged row length, odd so that column-wise stores do not collide in banks
   return (kS + (K - 1) * dil) | 1;
 }
 
-template <int CPT>  // channels per thread group in the output product: ceil(C / 16)
+// CPT: channels per thread group in the output product, ceil(C / kGroups)
+template <int CPT, int kS>
 __global__ void __launch_bounds__(kThreads) conv_unit_kernel(Args a) {
+  constexpr int kG = kGroups<kS>;
+  constexpr int kM = kMC<kS>;
   extern __shared__ __align__(16) float smem[];
   const int C = a.C, C4 = 4 * a.C;
   const int halo = (a.K - 1) * a.dil / 2;
   const int XW = kS + 2 * halo;
-  const int XP = x_stride(a.K, a.dil);
+  const int XP = x_stride<kS>(a.K, a.dil);
   float* an = smem;                // (C, kS) normalized dw output
-  float* hs = an + C * kS;         // (kMC, kS) hidden chunk
-  float* mu = hs + kMC * kS;       // (kS)
+  float* hs = an + C * kS;         // (kM, kS) hidden chunk
+  float* mu = hs + kM * kS;        // (kS)
   float* sd = mu + kS;             // (kS)
   float* xs = sd + kS;             // (C, XP) staged input
 
@@ -112,14 +122,14 @@ __global__ void __launch_bounds__(kThreads) conv_unit_kernel(Args a) {
 
   // 2. hidden chunks
   const int jq = tid % (kS / 4);   // column quad: columns 4 jq .. 4 jq + 3
-  const int grp = tid / (kS / 4);  // 0 .. 15
+  const int grp = tid / (kS / 4);  // 0 .. kG - 1
   float acc[CPT][4];
 #pragma unroll
   for (int q = 0; q < CPT; ++q)
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) acc[q][jj] = 0.0f;
 
-  for (int m0 = 0; m0 < C4; m0 += kMC) {
+  for (int m0 = 0; m0 < C4; m0 += kM) {
     const int m = m0 + 4 * grp;  // this thread's hidden quad
     float h[4][4];
     if (m < C4) {
@@ -164,13 +174,13 @@ __global__ void __launch_bounds__(kThreads) conv_unit_kernel(Args a) {
           make_float4(h[mi][0], h[mi][1], h[mi][2], h[mi][3]);
     __syncthreads();
 
-    const int mlen = min(kMC, C4 - m0);
+    const int mlen = min(kM, C4 - m0);
     for (int mm = 0; mm < mlen; ++mm) {
       const float4 hv = *reinterpret_cast<const float4*>(hs + mm * kS + 4 * jq);
       const float* wr = a.w2f + static_cast<long long>(m0 + mm) * C;
 #pragma unroll
       for (int q = 0; q < CPT; ++q) {
-        const int c = grp + kGroups * q;
+        const int c = grp + kG * q;
         if (c < C) {
           const float w = __ldg(wr + c);
           acc[q][0] += w * hv.x;
@@ -187,7 +197,7 @@ __global__ void __launch_bounds__(kThreads) conv_unit_kernel(Args a) {
   float* ob = a.out + b * a.sB;
 #pragma unroll
   for (int q = 0; q < CPT; ++q) {
-    const int c = grp + kGroups * q;
+    const int c = grp + kG * q;
     if (c >= C) continue;
     const float bc = a.b2f[c];
 #pragma unroll
@@ -199,18 +209,18 @@ __global__ void __launch_bounds__(kThreads) conv_unit_kernel(Args a) {
   }
 }
 
-template <int CPT>
+template <int CPT, int kS>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
-      (static_cast<size_t>(a.C) * kS + kMC * kS + 2 * kS +
-       static_cast<size_t>(a.C) * x_stride(a.K, a.dil));
+      (static_cast<size_t>(a.C) * kS + kMC<kS> * kS + 2 * kS +
+       static_cast<size_t>(a.C) * x_stride<kS>(a.K, a.dil));
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(conv_unit_kernel<CPT>,
+  cudaError_t err = cudaFuncSetAttribute(conv_unit_kernel<CPT, kS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   dim3 grid(l3ac::ceil_div(a.T, kS), B);
-  conv_unit_kernel<CPT><<<grid, kThreads, smem, stream>>>(a);
+  conv_unit_kernel<CPT, kS><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -230,19 +240,34 @@ extern "C" int l3ac_conv_unit(const float* x, float* out, const float* dw_w,
   const Args a{x, out, dw_w, dw_b, norm_w, norm_b, w1t, b1, alpha, w2f, b2f,
                C, T, K, dil, sB, sC, sT};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((C + kGroups - 1) / kGroups) {
-    case 1: return launch<1>(a, B, s);
-    case 2: return launch<2>(a, B, s);
-    case 3: return launch<3>(a, B, s);
-    case 4: return launch<4>(a, B, s);
-    case 5: return launch<5>(a, B, s);
-    case 6: return launch<6>(a, B, s);
-    case 7: return launch<7>(a, B, s);
-    case 8: return launch<8>(a, B, s);
-    case 9: return launch<9>(a, B, s);
-    case 10: return launch<10>(a, B, s);
-    case 11: return launch<11>(a, B, s);
-    case 12: return launch<12>(a, B, s);
+  if (C <= kNarrowMaxC) {  // 64-column tile, 16 groups
+    switch ((C + kGroups<64> - 1) / kGroups<64>) {
+      case 1: return launch<1, 64>(a, B, s);
+      case 2: return launch<2, 64>(a, B, s);
+      case 3: return launch<3, 64>(a, B, s);
+      case 4: return launch<4, 64>(a, B, s);
+      case 5: return launch<5, 64>(a, B, s);
+      case 6: return launch<6, 64>(a, B, s);
+      case 7: return launch<7, 64>(a, B, s);
+      case 8: return launch<8, 64>(a, B, s);
+      case 9: return launch<9, 64>(a, B, s);
+      case 10: return launch<10, 64>(a, B, s);
+      case 11: return launch<11, 64>(a, B, s);
+      case 12: return launch<12, 64>(a, B, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  switch ((C + kGroups<32> - 1) / kGroups<32>) {  // 32-column tile, 32 groups
+    case 7: return launch<7, 32>(a, B, s);
+    case 8: return launch<8, 32>(a, B, s);
+    case 9: return launch<9, 32>(a, B, s);
+    case 10: return launch<10, 32>(a, B, s);
+    case 11: return launch<11, 32>(a, B, s);
+    case 12: return launch<12, 32>(a, B, s);
+    case 13: return launch<13, 32>(a, B, s);
+    case 14: return launch<14, 32>(a, B, s);
+    case 15: return launch<15, 32>(a, B, s);
+    case 16: return launch<16, 32>(a, B, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,14 +1,20 @@
-"""Norm holders and the residual ConvUnit (``l3ac_tpu/models/layers.py:19-130``).
+"""Norm holders, the residual ConvUnit and the LegacyUnit
+(``l3ac_tpu/models/layers.py:19-170``).
 
 ConvUnit: ``x + pw2(GRN(act(pw1(ChannelNorm(dwconv7(x))))))``, act = snake or
 exact GELU. Its forward is the ``conv_unit_ct`` kernel on (B, C, T) or the
 ``conv_unit`` kernel on (B, T, C) (plain versions on the CPU).
+
+LegacyUnit: snake -> conv k7 at dilation d -> snake -> conv k1, residual
+outside. It holds the weights of one unit of the decoder's legacy tail, which
+runs as one kernel with its plain version beside it
+(``ops/kernels/legacy_tail.py``).
 """
 
 import torch
 from torch import nn
 
-from ..ops import channel_norm
+from ..ops import channel_norm, instance_norm
 from ..ops.kernels.conv_unit import ConvUnitWeights, conv_unit, conv_unit_ct
 from ..ops.norms import EPS
 from ..utils import init as pinit
@@ -26,6 +32,20 @@ class ChannelNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         return channel_norm(x, self.weight, self.bias, self.eps, dim)
+
+
+class InstanceNorm(nn.Module):
+    """Affine normalization over time per channel, eps 1e-5 (the EnhanceBlock's
+    ``InstanceNorm1d(affine=True)``)."""
+
+    def __init__(self, dim: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, C, T)."""
+        return instance_norm(x, self.weight, self.bias, dim=1)
 
 
 class GRN(nn.Module):
@@ -67,3 +87,19 @@ class ConvUnit(nn.Module):
         """Residual unit: x (B, T, C) if ``channels_last`` else (B, C, T)."""
         fn = conv_unit if channels_last else conv_unit_ct
         return fn(x, self.kernel_weights(), dilation=self.dilation)
+
+
+class LegacyUnit(nn.Module):
+    """Weights of one tail unit; its dilation is fixed by its place in the
+    tail (``legacy_tail.DILATIONS``)."""
+
+    def __init__(self, dim: int, device=None):
+        super().__init__()
+        self.alpha1 = nn.Parameter(torch.ones(dim, device=device))
+        self.conv1 = nn.Conv1d(dim, dim, 7, device=device)
+        self.alpha2 = nn.Parameter(torch.ones(dim, device=device))
+        self.conv2 = nn.Conv1d(dim, dim, 1, device=device)
+
+    def init_weights(self, gen: torch.Generator) -> None:
+        pinit.weight_norm_layer_(self.conv1, gen)
+        pinit.weight_norm_layer_(self.conv2, gen)

@@ -1,4 +1,4 @@
-"""Local-window transformer stacks of the encode path
+"""Local-window transformer stacks of the encode and decode paths
 (``l3ac_tpu/models/local_transformer.py``).
 
 Per layer ``x = LocalMHA(x) + x; x = FF(x) + x`` with pre-LayerNorms (eps
@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import conv1d_strided_matmul, geglu, layer_norm, linear
+from ..ops import conv1d_strided_matmul, geglu, layer_norm, linear, upsample_linear
 from ..ops.attention import dynamic_position_bias
 from ..ops.kernels.local_attention import local_attention
 from ..ops.norms import LAYER_NORM_EPS
@@ -165,6 +165,13 @@ def plain_encoder_config(mc) -> TransConfig:
                        dynamic_pos=mc.en_coder_dynamic_pos)
 
 
+def plain_decoder_config(mc) -> TransConfig:
+    # reference: LocalDecoder(depth=en_coder_depth)
+    return TransConfig(dim=mc.feature_dim, depth=mc.en_coder_depth,
+                       window_size=mc.en_coder_window_size,
+                       dynamic_pos=mc.en_coder_dynamic_pos)
+
+
 def compressed_encoder_configs(mc) -> dict:
     """DownTrans(window = (win + cache) * rate, depth 1), then
     LocalTrans(window = win + cache, depth 2)."""
@@ -206,3 +213,40 @@ class CompressedEncoder(nn.Module):
         x = conv1d_strided_matmul(x, self.down_conv.weight, self.down_conv.bias,
                                   channels_last=True)
         return self.post_trans(x)
+
+
+def compressed_decoder_configs(mc) -> dict:
+    """LocalTrans(window = win + cache, depth = en_coder_depth - 2), then
+    UpTransV2 = linear upsample x rate -> LocalTrans(window = (win + cache) *
+    rate, depth 2)."""
+    win = mc.en_coder_window_size + mc.en_coder_cache_size
+    rate = mc.en_coder_compress_rate
+    return {
+        "pre": TransConfig(dim=mc.feature_dim, depth=mc.en_coder_depth - 2,
+                           window_size=win, dynamic_pos=mc.en_coder_dynamic_pos),
+        "up": TransConfig(dim=mc.feature_dim, depth=2, window_size=win * rate,
+                          dynamic_pos=mc.en_coder_dynamic_pos),
+    }
+
+
+class CompressedDecoder(nn.Module):
+    """pre_trans -> linear upsample x compress rate -> up_trans."""
+
+    def __init__(self, mc, device=None):
+        super().__init__()
+        cfgs = compressed_decoder_configs(mc)
+        self.rate = mc.en_coder_compress_rate
+        self.pre_trans = LocalTrans(cfgs["pre"], device=device)
+        self.up_trans = LocalTrans(cfgs["up"], device=device)
+
+    def init_weights(self, gen: torch.Generator) -> None:
+        self.pre_trans.init_weights(gen)
+        self.up_trans.init_weights(gen)
+
+    def attach_bias_cache(self) -> None:
+        self.pre_trans.attach_bias_cache()
+        self.up_trans.attach_bias_cache()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.pre_trans(x)
+        return self.up_trans(upsample_linear(x, self.rate, dim=1))

@@ -1,7 +1,7 @@
 """VQ embed wrapper: proj_in -> FSQ -> proj_out (``l3ac_tpu/models/quantizer.py``).
 
 Plain Linear feature_dim -> codebook_dim and back (none when they are
-equal). Eval path only.
+equal). Eval path only; ``indices_to_features`` is the closed-form decode.
 """
 
 import torch
@@ -35,3 +35,8 @@ class Quantizer(nn.Module):
         q_z, indices, li = fsq.quantize(self.project_in(x), self.levels)
         q = linear(q_z, self.proj_out.weight, self.proj_out.bias) if self.has_proj else q_z
         return q, indices, li
+
+    def indices_to_features(self, indices: torch.Tensor) -> torch.Tensor:
+        """indices (B, T) -> fp32 features (B, T, feature_dim)."""
+        codes = fsq.indices_to_codes(indices, self.levels)
+        return linear(codes, self.proj_out.weight, self.proj_out.bias) if self.has_proj else codes

@@ -1,5 +1,6 @@
-"""User-facing model zoo and codec facade (``l3ac_tpu/models/zoo.py``),
-encode path: ``get_model(name)`` and ``L3AC.encode_audio``.
+"""User-facing model zoo and codec facade (``l3ac_tpu/models/zoo.py``):
+``get_model(name)`` and ``L3AC.encode_audio`` / ``decode_audio`` /
+``roundtrip``.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; there
 the kernels' plain versions run. Without CUDA, the default raises rather
@@ -24,7 +25,7 @@ def _resolve_device(device) -> torch.device:
 
 
 class L3AC:
-    """Holds a config and the encode modules on one device."""
+    """Holds a config and the codec's modules on one device."""
 
     def __init__(self, config: CodecConfig, codec: fcodec.Codec):
         self.config = config
@@ -55,6 +56,29 @@ class L3AC:
         """(B, T) audio -> (q_trans_feature (B, T'', C), indices (B, T''))."""
         padded, _ = self.preprocess(audio)
         return self.codec.encode(padded.contiguous())
+
+    @torch.inference_mode()
+    def decode_audio(self, audio_feature=None, indices=None,
+                     audio_length: int | None = None) -> torch.Tensor:
+        """Features (B, T'', C) or indices (B, T'') -> (B, T) audio, cropped
+        to ``audio_length`` when given."""
+        if audio_feature is not None:
+            out = self.codec.decode(self._on_device(audio_feature).float().contiguous())
+        else:
+            out = self.codec.decode_indices(self._on_device(indices))
+        return out if audio_length is None else out[..., :audio_length]
+
+    @torch.inference_mode()
+    def roundtrip(self, audio) -> torch.Tensor:
+        """Encode then decode, cropped to the input length."""
+        padded, length = self.preprocess(audio)
+        q, _ = self.codec.encode(padded.contiguous())
+        return self.codec.decode(q)[..., :length]
+
+    def _on_device(self, t) -> torch.Tensor:
+        if isinstance(t, np.ndarray):
+            t = torch.from_numpy(t)
+        return t.to(self.device)
 
 
 def get_model(name: str, *, pretrained: bool = False, device=None, seed: int = 0,

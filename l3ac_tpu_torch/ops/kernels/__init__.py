@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels for the H100 (``sm_90a``), one per TPU kernel
-of the encode path, and their wrappers.
+"""Hand-written CUDA kernels for the H100 (``sm_90a``), one for each TPU
+kernel of the encode and decode paths, and their wrappers.
 
 Each wrapper:
 - checks device, dtype (fp32 only), shape and contiguity, and raises on what
@@ -13,7 +13,9 @@ Each wrapper:
 import torch
 
 LAUNCHES: dict[str, int] = {"first_block": 0, "conv_unit_ct": 0,
-                            "conv_unit": 0, "local_attention": 0}
+                            "conv_unit": 0, "local_attention": 0,
+                            "up_fused_ct": 0, "up_fused": 0,
+                            "legacy_tail_poly_ct": 0, "legacy_tail_ct": 0}
 
 
 def reset_launches() -> None:

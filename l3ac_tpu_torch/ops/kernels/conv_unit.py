@@ -16,11 +16,13 @@ two differ by at most ``1e-8 / ||h||`` relative.
 
 Bound on the H100: 16 C^2 + O(C) fp32 operations per column against 8 C bytes
 moved, so from C = 24 up the fp32 rate bounds it, not memory. What the TPU
-kernel keeps out of device memory, this one does too: per (batch, 64-column
+kernel keeps out of device memory, this one does too: per (batch, column
 tile) block the depthwise conv and ChannelNorm go to shared memory, and the
-(4C, 64) hidden activation exists only 64 hidden units at a time in shared
-memory, between the two products. The products are SIMT fp32 FMAs
-(``wgmma`` is later work).
+(4C, S) hidden activation exists only one chunk of hidden units at a time in
+shared memory, between the two products. The tile is S = 64 columns up to
+C = 192 and 32 above (the decoder's C = 256 and 512), which keeps a block
+within shared memory and 64 accumulators per thread. The products are SIMT
+fp32 FMAs (``wgmma`` is later work).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from ..activations import gelu, snake
 from ..norms import channel_norm, grn
 from . import _build
 
-MAX_C = 192  # the kernel keeps ceil(C / 16) x 4 accumulators per thread
+MAX_C = 512  # ceil(C / 16) x 4 accumulators per thread up to C = 192, ceil(C / 32) x 4 above
 
 
 class ConvUnitWeights(NamedTuple):

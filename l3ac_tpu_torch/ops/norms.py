@@ -5,6 +5,9 @@
 - grn: Global Response Norm with the reference's per-batch scalar norm,
   ``g = ||x||_2`` over all of (C, T) for each batch element, so
   ``n = g / (g + eps)``. Kept as it is; do not make it per-channel.
+- instance_norm: per (batch, channel) over time, eps = 1e-5 inside the sqrt,
+  ``torch.nn.InstanceNorm1d(affine=True)`` as the EnhanceBlock uses it
+  (``l3ac_tpu/ops/norms.py:instance_norm``, ``transposed.py:instance_norm_t``).
 
 ``dim`` names the channel axis: -1 for (B, T, C), 1 for (B, C, T). fp32 only.
 """
@@ -13,6 +16,7 @@ import torch
 
 EPS = 1e-8
 LAYER_NORM_EPS = 1e-5
+INSTANCE_NORM_EPS = 1e-5
 
 
 def _along(v: torch.Tensor, x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -40,3 +44,14 @@ def grn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     g = torch.sqrt((x * x).sum(dim=tuple(range(1, x.dim())), keepdim=True))
     n = g / (g + eps)
     return _along(gamma, x, dim) * (x * n) + _along(beta, x, dim) + x
+
+
+def instance_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                  eps: float = INSTANCE_NORM_EPS, dim: int = -1) -> torch.Tensor:
+    """Normalize over time: the axis of (B, ., .) that is not the channel
+    axis ``dim``."""
+    t_dim = 1 if dim in (-1, 2) else 2
+    u = x.mean(dim=t_dim, keepdim=True)
+    s = ((x - u) ** 2).mean(dim=t_dim, keepdim=True)
+    xn = (x - u) / torch.sqrt(s + eps)
+    return _along(weight, x, dim) * xn + _along(bias, x, dim)

@@ -1,12 +1,14 @@
-"""Where the time of one encode request goes, on a CUDA card.
+"""Where the time of one encode request (or, with ``--decode``, one decode
+request from FSQ indices) goes, on a CUDA card.
 
-    python3 -m l3ac_tpu_torch.profile_encode [--model 1kbps] [--batch 8] [--seconds 10]
+    python3 -m l3ac_tpu_torch.profile_encode [--model 1kbps] [--batch 8] [--seconds 10] [--decode]
 
 Builds the model with seeded random weights, warms it up on the request
 shape, then traces three requests with ``torch.profiler`` and prints, per
 request: host wall time, summed kernel (device) time, the device's idle
-share of the wall, and device time by kernel name, largest first. With
-``--trace`` it also writes a Chrome trace there.
+share of the wall, and device time by kernel name, largest first. A decode
+request decodes seeded random indices, as many tokens as the audio length
+gives. With ``--trace`` it also writes a Chrome trace there.
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ def main() -> int:
     ap.add_argument("--model", default="1kbps")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seconds", type=float, default=10.0)
+    ap.add_argument("--decode", action="store_true",
+                    help="profile decode_audio(indices=...) instead of encode_audio")
     ap.add_argument("--trace", default=None, help="write a Chrome trace to this path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -48,16 +52,28 @@ def main() -> int:
 
     model = get_model(args.model, device="cuda", seed=0)
     n = int(args.seconds * model.config.sample_rate)
-    audio = torch.from_numpy((np.random.default_rng(0).standard_normal((args.batch, n))
-                              * 0.1).astype(np.float32)).cuda()
+    rng = np.random.default_rng(0)
+    if args.decode:
+        n_tok = -(-n // model.mc.hop_length)
+        idx = torch.from_numpy(rng.integers(0, model.mc.vq.codebook_size, (args.batch, n_tok))
+                               .astype(np.int32)).cuda()
+
+        def request():
+            return model.decode_audio(indices=idx)
+    else:
+        audio = torch.from_numpy((rng.standard_normal((args.batch, n)) * 0.1)
+                                 .astype(np.float32)).cuda()
+
+        def request():
+            return model.encode_audio(audio)
     for _ in range(3):
-        model.encode_audio(audio)
+        request()
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(REQUESTS):
-            model.encode_audio(audio)
+            request()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / REQUESTS
     if args.trace:
@@ -70,7 +86,8 @@ def main() -> int:
         raise SystemExit("profile_encode: the trace holds no device time")
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    print(f"[{card}] {args.model} B={args.batch} x {args.seconds} s: wall {wall_ms:.3f} ms "
+    what = "decode" if args.decode else "encode"
+    print(f"[{card}] {args.model} {what} B={args.batch} x {args.seconds} s: wall {wall_ms:.3f} ms "
           f"per request, device {device_ms:.3f} ms, idle share "
           f"{max(0.0, 1 - device_ms / wall_ms):.3f}, {sum(r[2] for r in rows)} kernels")
     for key, ms, cnt in rows[:25]:

@@ -4,9 +4,11 @@ drawn from an explicit ``torch.Generator``.
 - Weight-normed convs and linears of the reference: trunc_normal(std=.02)
   (at std .02 the +-2 truncation is +-100 sigma, so a plain normal) and a
   zero bias.
-- Plain torch layers (transformer linears, VQ projections): torch's default,
-  U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight and bias.
-- Norm weights 1 and biases 0; GRN gamma and beta 0; snake alpha 1.
+- Plain torch layers (transformer linears, VQ projections, the EnhanceBlock's
+  merge conv): torch's default, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight
+  and bias.
+- Norm weights 1 and biases 0 (ChannelNorm, InstanceNorm); GRN gamma and beta
+  0; snake alphas 1 (ConvUnit, LegacyUnit, the decoder tail).
 
 The numbers differ from JAX's for the same seed: tests that compare the two
 packages carry JAX's weights across with ``weights.from_jax_params``.

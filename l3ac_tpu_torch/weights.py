@@ -10,11 +10,11 @@ to ``a/b/[i]/w`` keys). ``from_jax_params`` maps such a tree onto the port's
 - layouts: 3-D conv weights (K, Cin/g, Cout) -> (Cout, Cin/g, K); 2-D linear
   weights (Cin, Cout) -> (Cout, Cin); vectors as they are.
 
-It is strict: every parameter of the encode path must be present with its
-shape, and a key left over in the encode subtrees (``encoder``,
-``quantizer``, ``en_encoder``) is an error. ``decoder`` and ``en_decoder``
-are skipped by name until the decode path is ported, and ``bias_cache``
-leaves are dropped: the port recomputes them from the MLP weights.
+It is strict: every parameter of the port's ``Codec`` must be present with
+its shape, and a key left over in any of the five subtrees (``encoder``,
+``quantizer``, ``decoder``, ``en_encoder``, ``en_decoder``) is an error.
+``bias_cache`` leaves are dropped: the port recomputes them from the MLP
+weights.
 """
 
 from __future__ import annotations
@@ -26,8 +26,7 @@ import torch
 
 from .config import ModelConfig
 
-ENCODE_SUBTREES = ("encoder", "quantizer", "en_encoder")
-SKIPPED_SUBTREES = ("decoder", "en_decoder")
+SUBTREES = ("encoder", "quantizer", "decoder", "en_encoder", "en_decoder")
 _LEAF_NAMES = {"w": "weight", "b": "bias"}
 
 
@@ -93,11 +92,11 @@ def from_jax_params(tree: dict, mc: ModelConfig) -> dict[str, torch.Tensor]:
     (fp32 CPU tensors)."""
     from .models.codec import Codec
 
-    unknown = set(tree) - set(ENCODE_SUBTREES) - set(SKIPPED_SUBTREES)
+    unknown = set(tree) - set(SUBTREES)
     if unknown:
         raise KeyError(f"unknown top-level param subtrees: {sorted(unknown)}")
     flat: dict = {}
-    for sub in ENCODE_SUBTREES:
+    for sub in SUBTREES:
         if sub not in tree:
             raise KeyError(f"param subtree {sub!r} is missing")
         flat.update(convert_subtree(tree[sub], f"{sub}."))
@@ -113,6 +112,6 @@ def from_jax_params(tree: dict, mc: ModelConfig) -> dict[str, torch.Tensor]:
                              f"expects {tuple(ref.shape)}")
         out[name] = torch.from_numpy(np.array(a, order="C"))
     if flat:
-        raise KeyError(f"JAX params hold keys the encode path does not use: "
+        raise KeyError(f"JAX params hold keys the port does not use: "
                        f"{sorted(flat)[:10]}")
     return out

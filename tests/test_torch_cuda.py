@@ -1,6 +1,7 @@
 """CUDA kernels against their plain versions on the card, at small shapes and
-with the options the 1kbps encode path does not take (no ChannelNorm, GELU,
-dilation, narrow debug widths, ragged tiles, no bias). Needs a CUDA device;
+with the options the 1kbps paths do not take (no ChannelNorm, GELU,
+dilation, narrow debug widths, ragged tiles, no bias), and at the decoder's
+wide conv_unit widths (C = 256, 512). Needs a CUDA device;
 skips without one. This file imports no JAX, so it runs on a machine
 without it:
 
@@ -43,6 +44,9 @@ def _check(got, want):
     (100, 333, 1, False, False, True),
     (192, 70, 9, True, True, True),
     (16, 200, 1, True, True, True),
+    (256, 101, 1, True, True, True),
+    (512, 77, 1, True, True, True),
+    (200, 40, 3, False, False, True),
 ])
 def test_conv_unit_kernel(dev, C, T, dilation, norm, snake, channels_last):
     from l3ac_tpu_torch.ops.kernels import conv_unit as cu
@@ -85,6 +89,52 @@ def test_local_attention_kernel(dev, n, W, D, with_bias):
            la.local_attention_plain(q, k, v, window_size=n, bias=bias))
 
 
+@pytest.mark.parametrize("channels_last", [True, False])
+@pytest.mark.parametrize("scale", [2, 3, 5])
+def test_up_fused_kernel(dev, channels_last, scale):
+    from l3ac_tpu_torch.ops.kernels import up_fused as uf
+    rng = np.random.default_rng(scale)
+    Ci, Co, T = (256, 96, 150) if channels_last else (48, 24, 333)
+    w = uf.UpWeights(_t(rng, (Co, Ci), Ci ** -0.5, dev), _t(rng, (Co,), 0.3, dev),
+                     1.0 + _t(rng, (Co,), 0.2, dev), _t(rng, (Co,), 0.2, dev))
+    x = _t(rng, (2, T, Ci) if channels_last else (2, Ci, T), 1.0, dev)
+    cd = 2 if channels_last else 1
+    if channels_last:
+        _check(uf.up_fused(x, w, scale=scale), uf.up_fused_plain(x, w, scale=scale, channel_dim=cd))
+    else:
+        _check(uf.up_fused_ct(x, w, scale=scale),
+               uf.up_fused_plain(x, w, scale=scale, channel_dim=cd))
+        got = uf.up_fused_ct(x, w, scale=scale, phase_split=True)
+        want = uf.up_fused_plain(x, w, scale=scale, channel_dim=cd, phase_split=True)
+        _check(torch.stack(got), torch.stack(want))
+
+
+def test_up_fused_kernel_without_norm_at_scale_one(dev):
+    from l3ac_tpu_torch.ops.kernels import up_fused as uf
+    rng = np.random.default_rng(1)
+    w = uf.UpWeights(_t(rng, (12, 16), 0.25, dev), _t(rng, (12,), 0.3, dev), None, None)
+    x = _t(rng, (2, 16, 70), 1.0, dev)
+    _check(uf.up_fused_ct(x, w, scale=1), uf.up_fused_plain(x, w, scale=1, channel_dim=1))
+
+
+@pytest.mark.parametrize("C,T", [(24, 2000), (24, 51), (8, 1500)])
+@pytest.mark.parametrize("poly", [True, False])
+def test_legacy_tail_kernel(dev, C, T, poly):
+    from l3ac_tpu_torch.ops.kernels import legacy_tail as lt
+    rng = np.random.default_rng(C + T)
+    pos = lambda shape: 1.0 + _t(rng, shape, 0.3, dev).abs()
+    w = lt.TailWeights(pos((3, C)), _t(rng, (3, C, C, 7), 0.1, dev), _t(rng, (3, C), 0.1, dev),
+                       pos((3, C)), _t(rng, (3, C, C), 0.1, dev), _t(rng, (3, C), 0.1, dev),
+                       pos((C,)), _t(rng, (1, C, 7), 0.1, dev), _t(rng, (1,), 0.05, dev))
+    x = _t(rng, (2, C, T - T % 2 if poly else T), 1.0, dev)
+    want = lt.legacy_tail_plain(x, w)
+    if poly:
+        got = lt.legacy_tail_poly_ct(x[..., 0::2].contiguous(), x[..., 1::2].contiguous(), w)
+    else:
+        got = lt.legacy_tail_ct(x, w)
+    _check(got, want)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     from l3ac_tpu_torch.ops.kernels import local_attention as la
     q = torch.zeros(1, 2, 32, 64, device=dev)
@@ -93,6 +143,31 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     q = torch.zeros(1, 2, 30, 32, device=dev)
     with pytest.raises(ValueError, match="multiple"):
         la.local_attention(q, q, q, window_size=16)
+    from l3ac_tpu_torch.ops.kernels import legacy_tail as lt
+    from l3ac_tpu_torch.ops.kernels import up_fused as uf
+    w = uf.UpWeights(torch.zeros(6, 8, device=dev), torch.zeros(6, device=dev), None, None)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        uf.up_fused_ct(torch.zeros(1, 8, 10, device=dev), w, scale=2)
+    tw = lt.TailWeights(*(torch.zeros(s, device=dev) for s in
+                          ((3, 20), (3, 20, 20, 7), (3, 20), (3, 20), (3, 20, 20), (3, 20),
+                           (20,), (1, 20, 7), (1,))))
+    with pytest.raises(ValueError, match="C in"):
+        lt.legacy_tail_ct(torch.zeros(1, 20, 10, device=dev), tw)
+
+
+def test_debug_decode_matches_cpu(dev):
+    """Every decode kernel on the debug path (and the interleaved tail with a
+    last rate of 3) against the CPU plain path."""
+    from l3ac_tpu_torch.models.zoo import get_model
+    from l3ac_tpu_torch.ops import kernels as K
+    idx = np.random.default_rng(1).integers(0, 125, (2, 30)).astype(np.int32)
+    for net, tail in (({}, "legacy_tail_poly_ct"), ({"decode_rates": [2, 2, 3]}, "legacy_tail_ct")):
+        gpu = get_model("debug", device=dev, seed=4, network_config=net)
+        cpu = get_model("debug", device="cpu", seed=4, network_config=net)
+        K.reset_launches()
+        a_g = gpu.decode_audio(indices=idx)
+        assert K.LAUNCHES[tail] == 1 and K.LAUNCHES["up_fused_ct"] > 0, K.LAUNCHES
+        assert (a_g.cpu() - cpu.decode_audio(indices=idx)).abs().max().item() <= 1e-3
 
 
 def test_debug_encode_matches_cpu(dev):
@@ -103,6 +178,7 @@ def test_debug_encode_matches_cpu(dev):
     audio = (np.random.default_rng(0).standard_normal((2, 8000)) * 0.1).astype(np.float32)
     K.reset_launches()
     q_g, i_g = gpu.encode_audio(audio)
-    assert all(K.LAUNCHES[k] > 0 for k in K.LAUNCHES), K.LAUNCHES
+    encode = ("first_block", "conv_unit_ct", "conv_unit", "local_attention")
+    assert all(K.LAUNCHES[k] > 0 for k in encode), K.LAUNCHES
     q_c, i_c = cpu.encode_audio(audio)
     assert (i_g.cpu() == i_c).float().mean().item() >= 0.999

@@ -163,3 +163,59 @@ def test_base_block_matches_jax():
             br.bias.copy_(torch.from_numpy(np.array(p["b"])))
         got = m(torch.from_numpy(x).transpose(1, 2))
     _close(got.transpose(1, 2), want, atol=1e-6)
+
+
+@pytest.mark.parametrize("scale", [2, 3, 5])
+@pytest.mark.parametrize("channels_last", [True, False])
+def test_upsample_linear(scale, channels_last):
+    """torch's align_corners=False rule: the edge frame repeats at both
+    edges. Same blend formula as JAX, so equal to fp32 rounding."""
+    from l3ac_tpu.ops import transposed as jtx
+    x = _np((2, 17, 6), 2.0)
+    if channels_last:
+        want = np.asarray(jops.upsample_linear(jnp.asarray(x), scale))
+        got = tops.upsample_linear(torch.from_numpy(x), scale, dim=1)
+    else:
+        xt = np.ascontiguousarray(x.transpose(0, 2, 1))
+        want = np.asarray(jtx.upsample_linear_t(jnp.asarray(xt), scale))
+        got = tops.upsample_linear(torch.from_numpy(xt), scale, dim=2)
+    _close(got, want, rtol=0, atol=1e-6)
+    t_axis = 1 if channels_last else 2
+    first = np.take(want, range(scale // 2), axis=t_axis)
+    edge = np.take(x if channels_last else x.transpose(0, 2, 1), [0], axis=t_axis)
+    np.testing.assert_allclose(first, np.broadcast_to(edge, first.shape), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dim", [-1, 1])
+def test_instance_norm(dim):
+    """Over time per channel, eps 1e-5 inside the sqrt."""
+    from l3ac_tpu.ops import transposed as jtx
+    x, g, b = _np((2, 40, 4), 3.0) + 2.0, _np((4,)) + 1.0, _np((4,))
+    if dim == -1:
+        want = jops.instance_norm(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b))
+        got = tops.instance_norm(torch.from_numpy(x), torch.from_numpy(g), torch.from_numpy(b))
+    else:
+        xt = np.ascontiguousarray(x.transpose(0, 2, 1))
+        want = jtx.instance_norm_t(jnp.asarray(xt), jnp.asarray(g), jnp.asarray(b))
+        got = tops.instance_norm(torch.from_numpy(xt), torch.from_numpy(g),
+                                 torch.from_numpy(b), dim=1)
+    _close(got, want, atol=1e-5)
+
+
+def test_indices_to_codes_whole_range():
+    """Every index of the 7^6 codebook unpacks to JAX's level indices and
+    codes exactly; 0 and 7^6 - 1 are the all -1 and all +1 codes."""
+    levels = (7, 7, 7, 7, 7, 7)
+    idx = np.arange(7 ** 6, dtype=np.int32).reshape(7 ** 3, 7 ** 3)
+    want_li = np.asarray(jfsq.indices_to_level_indices(jnp.asarray(idx), levels))
+    want = np.asarray(jfsq.indices_to_codes(jnp.asarray(idx), levels))
+    got_li = tfsq.indices_to_level_indices(torch.from_numpy(idx), levels)
+    got = tfsq.indices_to_codes(torch.from_numpy(idx), levels)
+    np.testing.assert_array_equal(got_li.numpy(), want_li)
+    np.testing.assert_array_equal(got.numpy(), want)
+    ends = tfsq.indices_to_codes(torch.tensor([0, 7 ** 6 - 1]), levels)
+    assert ends.tolist() == [[-1.0] * 6, [1.0] * 6]
+    # unpack inverts the pack of quantize
+    _, packed, li = tfsq.quantize(torch.from_numpy(_np((50, 6), 2.0)), levels)
+    np.testing.assert_array_equal(tfsq.indices_to_level_indices(packed, levels).numpy(),
+                                  li.numpy())

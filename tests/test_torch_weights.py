@@ -66,15 +66,46 @@ def test_missing_key_wrong_shape_and_unknown_subtree_raise(npz_tree):
         weights.from_jax_params(dict(tree, extra={}), mc)
 
 
-def test_decoder_subtrees_are_skipped(npz_tree):
+def test_every_decode_key_is_consumed(npz_tree):
+    """decoder and en_decoder load strictly, with their layouts."""
     tree, mc = npz_tree
-    without = {k: v for k, v in tree.items() if k not in ("decoder", "en_decoder")}
-    a, b = weights.from_jax_params(tree, mc), weights.from_jax_params(without, mc)
-    assert set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+    sd = weights.from_jax_params(tree, mc)
+    names = [k for k in sd if k.startswith(("decoder.", "en_decoder."))]
+    assert len(names) > 50 and set(sd) == set(Codec(mc).state_dict())
+    dec = tree["decoder"]
+    st = dec["stages"][0]
+    checks = {
+        "decoder.stages.0.enhance.merge.weight": st["enhance"]["merge"]["w"].transpose(2, 1, 0),
+        "decoder.stages.0.enhance.in_norm.weight": st["enhance"]["in_norm"]["w"],
+        "decoder.stages.0.enhance.base.branches.3.weight":
+            st["enhance"]["base"]["branches"][3]["w"].transpose(2, 1, 0),
+        "decoder.stages.0.up_conv.weight": st["up_conv"]["w"].transpose(2, 1, 0),
+        "decoder.tail_units.2.conv1.weight": dec["tail_units"][2]["conv1"]["w"].transpose(2, 1, 0),
+        "decoder.tail_units.2.alpha2": dec["tail_units"][2]["alpha2"],
+        "decoder.tail_alpha": dec["tail_alpha"],
+        "decoder.out_conv.weight": dec["out_conv"]["w"].transpose(2, 1, 0),
+        "en_decoder.up_trans.layers.1.ff.w1.weight":
+            tree["en_decoder"]["up_trans"]["layers"][1]["ff"]["w1"]["w"].T,
+    }
+    for name, want in checks.items():
+        np.testing.assert_array_equal(sd[name].numpy(), want)
+    assert sd["decoder.stages.0.enhance.merge.weight"].shape == (mc.decoder_dims[0], 4, 1)
+    assert sd["decoder.out_conv.weight"].shape == (1, mc.decoder_dims[-1], 7)
+
+
+def test_stray_key_in_the_decoder_raises(npz_tree):
+    tree, mc = npz_tree
+    dec = dict(tree["decoder"], stray={"w": np.zeros((1, 2, 3), np.float32)})
+    with pytest.raises(KeyError, match="decoder.stray.weight"):
+        weights.from_jax_params(dict(tree, decoder=dec), mc)
+    missing = {k: v for k, v in tree.items() if k != "en_decoder"}
+    with pytest.raises(KeyError, match="en_decoder"):
+        weights.from_jax_params(missing, mc)
 
 
 def test_plain_en_encoder_config_keys():
-    """3kbps uses the plain (uncompressed) transformer stack."""
+    """3kbps uses the plain (uncompressed) transformer stacks, en_encoder and
+    en_decoder."""
     mc = get_config("3kbps").network_config
     assert not mc.uses_compressed_transformer
     sd = weights.from_jax_params(jc.init_codec(jax.random.PRNGKey(1), mc), mc)
