@@ -3,7 +3,12 @@
 
 ConvUnit: ``x + pw2(GRN(act(pw1(ChannelNorm(dwconv7(x))))))``, act = snake or
 exact GELU. Its forward is the ``conv_unit_ct`` kernel on (B, C, T) or the
-``conv_unit`` kernel on (B, T, C) (plain versions on the CPU).
+``conv_unit`` kernel on (B, T, C) (plain versions on the CPU). With int8
+weights (``ops.quantized.quantize_params``) it follows the JAX dispatch
+(``l3ac_tpu/models/layers.py:74-130``), whose fused kernels take dense
+weights only: on (B, T, C) the unfused body runs, its two products through
+the ``int8_matmul`` kernel; on (B, C, T) the weights are dequantized on every
+call (no dense copy is kept) and ``conv_unit_ct`` runs on them.
 
 LegacyUnit: snake -> conv k7 at dilation d -> snake -> conv k1, residual
 outside. It holds the weights of one unit of the decoder's legacy tail, which
@@ -15,8 +20,9 @@ import torch
 from torch import nn
 
 from ..ops import channel_norm, instance_norm
-from ..ops.kernels.conv_unit import ConvUnitWeights, conv_unit, conv_unit_ct
+from ..ops.kernels.conv_unit import ConvUnitWeights, conv_unit, conv_unit_ct, unit_body
 from ..ops.norms import EPS
+from ..ops.quantized import Int8Linear
 from ..utils import init as pinit
 
 
@@ -75,18 +81,32 @@ class ConvUnit(nn.Module):
         pinit.weight_norm_layer_(self.pw1, gen)
         pinit.weight_norm_layer_(self.pw2, gen)
 
-    def kernel_weights(self) -> ConvUnitWeights:
+    def kernel_weights(self, dense: bool = True) -> ConvUnitWeights:
+        """The fused kernels' weights, int8 layers dequantized (fp32); with
+        ``dense=False`` the two product weights are left out (None)."""
         n = self.norm
+        pw1_w, pw2_w = ((_dense_weight(self.pw1), _dense_weight(self.pw2))
+                        if dense else (None, None))
         return ConvUnitWeights(
             self.dw.weight, self.dw.bias,
             None if n is None else n.weight, None if n is None else n.bias,
-            self.pw1.weight, self.pw1.bias, self.alpha,
-            self.grn.gamma, self.grn.beta, self.pw2.weight, self.pw2.bias)
+            pw1_w, self.pw1.bias, self.alpha,
+            self.grn.gamma, self.grn.beta, pw2_w, self.pw2.bias)
 
     def forward(self, x: torch.Tensor, *, channels_last: bool) -> torch.Tensor:
         """Residual unit: x (B, T, C) if ``channels_last`` else (B, C, T)."""
+        if channels_last and isinstance(self.pw1, Int8Linear):
+            # JAX conv_unit_apply's unfused body: elementwise steps in plain
+            # PyTorch, pw1 / pw2 as modules (int8_matmul), the exact GRN
+            return x + unit_body(x, self.kernel_weights(dense=False),
+                                 lambda h: self.pw1(h.contiguous()), self.pw2,
+                                 channel_dim=2, dilation=self.dilation)
         fn = conv_unit if channels_last else conv_unit_ct
         return fn(x, self.kernel_weights(), dilation=self.dilation)
+
+
+def _dense_weight(lin: nn.Module) -> torch.Tensor:
+    return lin.dequantized() if isinstance(lin, Int8Linear) else lin.weight
 
 
 class LegacyUnit(nn.Module):

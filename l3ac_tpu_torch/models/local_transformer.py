@@ -5,6 +5,9 @@ Per layer ``x = LocalMHA(x) + x; x = FF(x) + x`` with pre-LayerNorms (eps
 1e-5), a GEGLU feed-forward and one DynamicPositionBias shared by the
 stack's layers. dim_head = dim // 4, heads = 6, ff inner = int(dim * 4 * 2 / 3).
 The attention is the ``local_attention`` kernel (plain version on the CPU).
+The linear layers are called as modules, so that an ``Int8Linear`` that
+``ops.quantized.quantize_params`` put in their place runs the ``int8_matmul``
+kernel.
 
 All released configs use the dynamic position bias; the rotary path the
 reference takes without it is not ported yet.
@@ -20,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import conv1d_strided_matmul, geglu, layer_norm, linear, upsample_linear
+from ..ops import conv1d_strided_matmul, geglu, layer_norm, upsample_linear
 from ..ops.attention import dynamic_position_bias
 from ..ops.kernels.local_attention import local_attention
 from ..ops.norms import LAYER_NORM_EPS
@@ -88,7 +91,7 @@ class Attention(nn.Module):
         B, T, _ = x.shape
         tc = self.tc
         h = layer_norm(x, self.norm.weight, self.norm.bias)
-        q, k, v = linear(h, self.qkv.weight).chunk(3, dim=-1)
+        q, k, v = self.qkv(h).chunk(3, dim=-1)
 
         def heads(t):
             return t.reshape(B, T, tc.heads, tc.dim_head).permute(0, 2, 1, 3).contiguous()
@@ -96,7 +99,7 @@ class Attention(nn.Module):
         out = local_attention(heads(q), heads(k), heads(v),
                               window_size=tc.window_size, bias=bias)
         out = out.permute(0, 2, 1, 3).reshape(B, T, tc.inner_dim)
-        return linear(out, self.out.weight)
+        return self.out(out)
 
 
 class FeedForward(nn.Module):
@@ -108,7 +111,7 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = layer_norm(x, self.norm.weight, self.norm.bias)
-        return linear(geglu(linear(h, self.w1.weight)), self.w2.weight)
+        return self.w2(geglu(self.w1(h)))
 
 
 class Layer(nn.Module):

@@ -1,9 +1,10 @@
-"""1-D convolutions and dense layers with torch-layout weights.
+"""1-D convolutions with torch-layout weights.
 
-Weights are in torch layout: conv ``(C_out, C_in // groups, K)``, linear
-``(C_out, C_in)``. The JAX package keeps conv weights as
-``(K, C_in // groups, C_out)`` and linear weights as ``(C_in, C_out)``;
+Weights are in torch layout, ``(C_out, C_in // groups, K)``. The JAX package
+keeps them as ``(K, C_in // groups, C_out)``;
 ``l3ac_tpu_torch.weights.from_jax_params`` transposes them once at load time.
+Dense layers are ``nn.Linear`` modules (or ``ops.quantized.Int8Linear``),
+called as modules so that an int8 layer reaches its kernel.
 
 Strided convs with ``kernel_size == stride`` (the encoder's downsampling
 convs) have non-overlapping windows and run as a reshape plus one matrix
@@ -40,9 +41,3 @@ def conv1d_strided_matmul(x: torch.Tensor, w: torch.Tensor,
         return y if b is None else y + b
     y = torch.einsum("bctk,ock->bot", x.reshape(B, C, T // K, K), w)
     return y if b is None else y + b[:, None]
-
-
-def linear(x: torch.Tensor, w: torch.Tensor,
-           b: torch.Tensor | None = None) -> torch.Tensor:
-    """Dense layer over the last axis. w: (Cout, Cin)."""
-    return F.linear(x, w, b)

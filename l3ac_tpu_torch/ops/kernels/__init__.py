@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels for the H100 (``sm_90a``), one for each TPU
-kernel of the encode and decode paths, and their wrappers.
+kernel of the encode and decode paths and of int8 weight-only inference,
+and their wrappers.
 
 Each wrapper:
 - checks device, dtype (fp32 only), shape and contiguity, and raises on what
@@ -15,7 +16,8 @@ import torch
 LAUNCHES: dict[str, int] = {"first_block": 0, "conv_unit_ct": 0,
                             "conv_unit": 0, "local_attention": 0,
                             "up_fused_ct": 0, "up_fused": 0,
-                            "legacy_tail_poly_ct": 0, "legacy_tail_ct": 0}
+                            "legacy_tail_poly_ct": 0, "legacy_tail_ct": 0,
+                            "int8_matmul": 0}
 
 
 def reset_launches() -> None:
@@ -27,7 +29,7 @@ def check_input(t: torch.Tensor, name: str, ndim: int | None = None) -> None:
     """The checks every kernel input passes before its pointer is taken."""
     if t.dtype != torch.float32:
         raise TypeError(f"{name}: float32 only, got {t.dtype} (bf16 is not "
-                        "supported yet)")
+                        "supported yet, ROADMAP A6)")
     if ndim is not None and t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
 

@@ -28,6 +28,7 @@ fp32 FMAs (``wgmma`` is later work).
 from __future__ import annotations
 
 import ctypes
+from collections.abc import Callable
 from typing import NamedTuple
 
 import torch
@@ -46,13 +47,35 @@ class ConvUnitWeights(NamedTuple):
     dw_b: torch.Tensor            # (C,)
     norm_w: torch.Tensor | None   # (C,) ChannelNorm, or None without norm
     norm_b: torch.Tensor | None
-    pw1_w: torch.Tensor           # (4C, C) nn.Linear layout
+    pw1_w: torch.Tensor | None    # (4C, C) nn.Linear layout; None where unit_body
+                                  # gets the products as callables
     pw1_b: torch.Tensor           # (4C,)
     alpha: torch.Tensor | None    # (4C,) snake, or None for exact GELU
     grn_gamma: torch.Tensor       # (4C,)
     grn_beta: torch.Tensor        # (4C,)
-    pw2_w: torch.Tensor           # (C, 4C)
+    pw2_w: torch.Tensor | None    # (C, 4C); likewise
     pw2_b: torch.Tensor           # (C,)
+
+
+def unit_body(x: torch.Tensor, w: ConvUnitWeights, pw1: Callable, pw2: Callable, *,
+              channel_dim: int, dilation: int = 1) -> torch.Tensor:
+    """The unit's step chain without the residual: depthwise conv ->
+    ChannelNorm -> ``pw1`` -> snake or exact GELU -> exact GRN -> ``pw2``, on
+    x (B, C, T) (``channel_dim`` 1) or (B, T, C) (2). The two products are
+    callables over that layout; of ``w`` only the other weights are read."""
+    k = w.dw_w.shape[-1]
+    xt = x if channel_dim == 1 else x.transpose(1, 2)
+    y = F.conv1d(xt, w.dw_w, w.dw_b, padding=(k - 1) * dilation // 2,
+                 dilation=dilation, groups=xt.shape[1])
+    y = y if channel_dim == 1 else y.transpose(1, 2)
+    if w.norm_w is not None:
+        y = channel_norm(y, w.norm_w, w.norm_b, dim=channel_dim)
+    y = pw1(y)
+    if w.alpha is not None:
+        y = snake(y, w.alpha[:, None] if channel_dim == 1 else w.alpha)
+    else:
+        y = gelu(y)
+    return pw2(grn(y, w.grn_gamma, w.grn_beta, dim=channel_dim))
 
 
 def conv_unit_plain(x: torch.Tensor, w: ConvUnitWeights, *, channel_dim: int,
@@ -60,16 +83,10 @@ def conv_unit_plain(x: torch.Tensor, w: ConvUnitWeights, *, channel_dim: int,
     """The residual unit in plain PyTorch, with the exact GRN. ``channel_dim``
     is 1 for (B, C, T) and 2 for (B, T, C)."""
     xt = x if channel_dim == 1 else x.transpose(1, 2)
-    C = xt.shape[1]
-    k = w.dw_w.shape[-1]
-    y = F.conv1d(xt, w.dw_w, w.dw_b, padding=(k - 1) * dilation // 2,
-                 dilation=dilation, groups=C)
-    if w.norm_w is not None:
-        y = channel_norm(y, w.norm_w, w.norm_b, dim=1)
-    y = torch.einsum("oc,bct->bot", w.pw1_w, y) + w.pw1_b[:, None]
-    y = snake(y, w.alpha[:, None]) if w.alpha is not None else gelu(y)
-    y = grn(y, w.grn_gamma, w.grn_beta, dim=1)
-    y = torch.einsum("oc,bct->bot", w.pw2_w, y) + w.pw2_b[:, None]
+    y = unit_body(xt, w,
+                  lambda h: torch.einsum("oc,bct->bot", w.pw1_w, h) + w.pw1_b[:, None],
+                  lambda h: torch.einsum("oc,bct->bot", w.pw2_w, h) + w.pw2_b[:, None],
+                  channel_dim=1, dilation=dilation)
     out = xt + y
     return out if channel_dim == 1 else out.transpose(1, 2)
 

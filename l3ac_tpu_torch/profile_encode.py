@@ -1,14 +1,15 @@
 """Where the time of one encode request (or, with ``--decode``, one decode
 request from FSQ indices) goes, on a CUDA card.
 
-    python3 -m l3ac_tpu_torch.profile_encode [--model 1kbps] [--batch 8] [--seconds 10] [--decode]
+    python3 -m l3ac_tpu_torch.profile_encode [--model 1kbps] [--batch 8] [--seconds 10] [--decode] [--int8]
 
 Builds the model with seeded random weights, warms it up on the request
 shape, then traces three requests with ``torch.profiler`` and prints, per
 request: host wall time, summed kernel (device) time, the device's idle
 share of the wall, and device time by kernel name, largest first. A decode
 request decodes seeded random indices, as many tokens as the audio length
-gives. With ``--trace`` it also writes a Chrome trace there.
+gives. ``--int8`` quantizes the weights first (``ops.quantized.quantize_params``).
+With ``--trace`` it also writes a Chrome trace there.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from .models.zoo import get_model
+from .ops.quantized import quantize_params
 
 REQUESTS = 3
 
@@ -40,6 +42,8 @@ def main() -> int:
     ap.add_argument("--seconds", type=float, default=10.0)
     ap.add_argument("--decode", action="store_true",
                     help="profile decode_audio(indices=...) instead of encode_audio")
+    ap.add_argument("--int8", action="store_true",
+                    help="int8 weight-only: quantize_params(model.codec) before profiling")
     ap.add_argument("--trace", default=None, help="write a Chrome trace to this path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -51,6 +55,8 @@ def main() -> int:
                           check=True).stdout.strip().splitlines()[0]
 
     model = get_model(args.model, device="cuda", seed=0)
+    if args.int8:
+        quantize_params(model.codec)
     n = int(args.seconds * model.config.sample_rate)
     rng = np.random.default_rng(0)
     if args.decode:
@@ -86,7 +92,7 @@ def main() -> int:
         raise SystemExit("profile_encode: the trace holds no device time")
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    what = "decode" if args.decode else "encode"
+    what = ("int8 " if args.int8 else "") + ("decode" if args.decode else "encode")
     print(f"[{card}] {args.model} {what} B={args.batch} x {args.seconds} s: wall {wall_ms:.3f} ms "
           f"per request, device {device_ms:.3f} ms, idle share "
           f"{max(0.0, 1 - device_ms / wall_ms):.3f}, {sum(r[2] for r in rows)} kernels")

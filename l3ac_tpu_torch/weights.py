@@ -8,11 +8,17 @@ to ``a/b/[i]/w`` keys). ``from_jax_params`` maps such a tree onto the port's
 - names: ``/`` -> ``.``, ``[i]`` -> ``i``, and the leaves ``w`` / ``b`` ->
   ``weight`` / ``bias`` (the port's modules are named after the JAX tree);
 - layouts: 3-D conv weights (K, Cin/g, Cout) -> (Cout, Cin/g, K); 2-D linear
-  weights (Cin, Cout) -> (Cout, Cin); vectors as they are.
+  weights (Cin, Cout) -> (Cout, Cin); vectors as they are;
+- int8 leaves of a tree that JAX's ``quantize_params`` made: ``w_q`` stays
+  int8 and goes (Cin, Cout) -> (Cout, Cin); ``w_scale`` (1, Cout) -> (Cout,).
+  Every other leaf is cast to fp32.
 
-It is strict: every parameter of the port's ``Codec`` must be present with
-its shape, and a key left over in any of the five subtrees (``encoder``,
-``quantizer``, ``decoder``, ``en_encoder``, ``en_decoder``) is an error.
+It is strict: every parameter and buffer of the port's ``Codec`` (quantized
+by ``ops.quantized.quantize_params`` when the tree holds int8 leaves, with
+the default selection that JAX's ``quantize_params`` makes too) must be
+present with its shape and dtype, and a key left
+over in any of the five subtrees (``encoder``, ``quantizer``, ``decoder``,
+``en_encoder``, ``en_decoder``) is an error.
 ``bias_cache`` leaves are dropped: the port recomputes them from the MLP
 weights.
 """
@@ -79,18 +85,29 @@ def _to_torch_layout(a: np.ndarray) -> np.ndarray:
     return a
 
 
+def _convert(name: str, a: np.ndarray) -> np.ndarray:
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf == "w_q":                      # kept as it is: a float here must fail
+        return a.T if a.ndim == 2 else a
+    if leaf == "w_scale":
+        return np.asarray(a, np.float32).reshape(-1)
+    return _to_torch_layout(np.asarray(a, np.float32))
+
+
 def convert_subtree(tree, prefix: str = "") -> dict[str, np.ndarray]:
-    """A JAX param (sub)tree -> {port name: torch-layout fp32 array}, with no
-    check of which names the port expects."""
+    """A JAX param (sub)tree -> {port name: torch-layout array} (fp32, int8
+    for ``w_q``), with no check of which names the port expects."""
     flat: dict = {}
     _flatten(tree, prefix, flat)
-    return {k: _to_torch_layout(np.asarray(v, np.float32)) for k, v in flat.items()}
+    return {k: _convert(k, v) for k, v in flat.items()}
 
 
 def from_jax_params(tree: dict, mc: ModelConfig) -> dict[str, torch.Tensor]:
     """JAX codec params (arrays or numpy) -> the port's ``Codec`` state dict
-    (fp32 CPU tensors)."""
+    (CPU tensors). A tree with int8 leaves maps onto a codec quantized by
+    ``quantize_params(codec)``."""
     from .models.codec import Codec
+    from .ops.quantized import quantize_params
 
     unknown = set(tree) - set(SUBTREES)
     if unknown:
@@ -101,16 +118,22 @@ def from_jax_params(tree: dict, mc: ModelConfig) -> dict[str, torch.Tensor]:
             raise KeyError(f"param subtree {sub!r} is missing")
         flat.update(convert_subtree(tree[sub], f"{sub}."))
 
-    expected = Codec(mc, device="meta").state_dict()
+    codec = Codec(mc, device="meta")
+    if any(k.endswith(".w_q") for k in flat):
+        quantize_params(codec)
     out = {}
-    for name, ref in expected.items():
+    for name, ref in codec.state_dict().items():
         if name not in flat:
             raise KeyError(f"JAX params lack {name!r}")
         a = flat.pop(name)
         if a.shape != tuple(ref.shape):
             raise ValueError(f"{name}: JAX shape gives {a.shape}, the port "
                              f"expects {tuple(ref.shape)}")
-        out[name] = torch.from_numpy(np.array(a, order="C"))
+        t = torch.from_numpy(np.array(a, order="C"))
+        if t.dtype != ref.dtype:
+            raise TypeError(f"{name}: JAX dtype gives {t.dtype}, the port "
+                            f"expects {ref.dtype}")
+        out[name] = t
     if flat:
         raise KeyError(f"JAX params hold keys the port does not use: "
                        f"{sorted(flat)[:10]}")

@@ -1,7 +1,8 @@
 """CUDA kernels against their plain versions on the card, at small shapes and
 with the options the 1kbps paths do not take (no ChannelNorm, GELU,
-dilation, narrow debug widths, ragged tiles, no bias), and at the decoder's
-wide conv_unit widths (C = 256, 512). Needs a CUDA device;
+dilation, narrow debug widths, ragged tiles, no bias, upsample rate 4), at
+the decoder's wide conv_unit widths (C = 256, 512), and int8_matmul at
+ragged M, K and N. Needs a CUDA device;
 skips without one. This file imports no JAX, so it runs on a machine
 without it:
 
@@ -90,7 +91,7 @@ def test_local_attention_kernel(dev, n, W, D, with_bias):
 
 
 @pytest.mark.parametrize("channels_last", [True, False])
-@pytest.mark.parametrize("scale", [2, 3, 5])
+@pytest.mark.parametrize("scale", [2, 3, 4, 5])
 def test_up_fused_kernel(dev, channels_last, scale):
     from l3ac_tpu_torch.ops.kernels import up_fused as uf
     rng = np.random.default_rng(scale)
@@ -153,6 +154,38 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
                            (20,), (1, 20, 7), (1,))))
     with pytest.raises(ValueError, match="C in"):
         lt.legacy_tail_ct(torch.zeros(1, 20, 10, device=dev), tw)
+
+
+@pytest.mark.parametrize("M,K,N,bias", [(1, 1, 1, True), (5, 64, 32, True), (300, 341, 128, False),
+                                         (129, 128, 682, True), (333, 2048, 65, True),
+                                         (1000, 100, 1000, False)])
+def test_int8_matmul_kernel(dev, M, K, N, bias):
+    from l3ac_tpu_torch.ops.kernels import int8_matmul as im
+    from l3ac_tpu_torch.ops.quantized import quantize_weight
+    rng = np.random.default_rng(M + K + N)
+    w_q, scale = quantize_weight(_t(rng, (N, K), K ** -0.5, dev))
+    b = _t(rng, (N,), 0.3, dev) if bias else None
+    x = _t(rng, (2, M, K), 1.0, dev)
+    _check(im.int8_matmul(x, w_q, scale, b), im.int8_matmul_plain(x, w_q, scale, b))
+
+
+def test_int8_matmul_rejects_what_the_kernel_does_not_take(dev):
+    from l3ac_tpu_torch.ops.kernels import int8_matmul as im
+    from l3ac_tpu_torch.ops.quantized import quantize_weight
+    w_q, scale = quantize_weight(torch.ones(8, 16, device=dev))
+    x = torch.ones(4, 16, device=dev)
+    with pytest.raises(TypeError, match="A6"):
+        im.int8_matmul(x.bfloat16(), w_q, scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        im.int8_matmul(torch.ones(4, 32, device=dev)[:, ::2], w_q, scale)
+    with pytest.raises(ValueError, match="cuda"):
+        im.int8_matmul(x, w_q.cpu(), scale)
+    with pytest.raises(ValueError, match="on cpu"):
+        im.int8_matmul(x, w_q, scale.cpu())
+    with pytest.raises(TypeError, match="int8"):
+        im.int8_matmul(x, w_q.float(), scale)
+    with pytest.raises(ValueError, match="do not match"):
+        im.int8_matmul(torch.ones(4, 15, device=dev), w_q, scale)
 
 
 def test_debug_decode_matches_cpu(dev):

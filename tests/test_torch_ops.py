@@ -63,10 +63,14 @@ def test_conv1d_strided_matmul(channels_last):
 
 
 def test_linear():
+    """The port's dense layers are ``nn.Linear`` modules holding the JAX weight
+    transposed, as ``weights.from_jax_params`` loads it."""
     x, w, b = _np((2, 9, 16)), _np((16, 24)), _np((24,))
     want = jops.conv.linear(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
-    _close(tops.linear(torch.from_numpy(x), torch.from_numpy(w.T.copy()), torch.from_numpy(b)),
-           want, atol=1e-5)
+    lin = torch.nn.Linear(16, 24)
+    lin.load_state_dict({"weight": torch.from_numpy(w.T.copy()), "bias": torch.from_numpy(b)})
+    with torch.no_grad():
+        _close(lin(torch.from_numpy(x)), want, atol=1e-5)
 
 
 @pytest.mark.parametrize("dim", [-1, 1])
