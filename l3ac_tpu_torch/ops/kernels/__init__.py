@@ -1,10 +1,10 @@
 """Hand-written CUDA kernels for the H100 (``sm_90a``), one for each TPU
-kernel of the encode and decode paths and of int8 weight-only inference,
-and their wrappers.
+kernel of the encode and decode paths, of int8 weight-only inference and of
+the two ``tools/`` probes, and their wrappers.
 
 Each wrapper:
-- checks device, dtype (fp32 only), shape and contiguity, and raises on what
-  its kernel does not take;
+- checks device, dtype (fp32, or bf16 for the two probe kernels), shape and
+  contiguity, and raises on what its kernel does not take;
 - on a CUDA tensor launches its kernel or raises; there is no fallback;
 - on a CPU tensor runs the plain PyTorch version in the same module;
 - adds one to ``LAUNCHES[name]`` where it launches its kernel, and nowhere
@@ -17,7 +17,8 @@ LAUNCHES: dict[str, int] = {"first_block": 0, "conv_unit_ct": 0,
                             "conv_unit": 0, "local_attention": 0,
                             "up_fused_ct": 0, "up_fused": 0,
                             "legacy_tail_poly_ct": 0, "legacy_tail_ct": 0,
-                            "int8_matmul": 0}
+                            "int8_matmul": 0, "interleave": 0,
+                            "conv_unit_stages": 0}
 
 
 def reset_launches() -> None:
@@ -25,11 +26,14 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def check_input(t: torch.Tensor, name: str, ndim: int | None = None) -> None:
+def check_input(t: torch.Tensor, name: str, ndim: int | None = None,
+                dtype: torch.dtype = torch.float32) -> None:
     """The checks every kernel input passes before its pointer is taken."""
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: float32 only, got {t.dtype} (bf16 is not "
-                        "supported yet, ROADMAP A6)")
+    if t.dtype != dtype:
+        if dtype == torch.float32:
+            raise TypeError(f"{name}: float32 only, got {t.dtype} (bf16 is not "
+                            "supported yet, ROADMAP A6)")
+        raise TypeError(f"{name}: {dtype} only, got {t.dtype}")
     if ndim is not None and t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
 
@@ -44,12 +48,13 @@ def route(x: torch.Tensor, name: str) -> bool:
     raise RuntimeError(f"{name}: no kernel for device {x.device}")
 
 
-def check_cuda(ts: dict, device: torch.device) -> None:
-    """Every operand of a launch is a contiguous fp32 tensor on ``device``."""
+def check_cuda(ts: dict, device: torch.device,
+               dtype: torch.dtype = torch.float32) -> None:
+    """Every operand of a launch is a contiguous ``dtype`` tensor on ``device``."""
     for name, t in ts.items():
         if t is None:
             continue
-        check_input(t, name)
+        check_input(t, name, dtype=dtype)
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
         if not t.is_contiguous():

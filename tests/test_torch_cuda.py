@@ -1,8 +1,10 @@
 """CUDA kernels against their plain versions on the card, at small shapes and
 with the options the 1kbps paths do not take (no ChannelNorm, GELU,
 dilation, narrow debug widths, ragged tiles, no bias, upsample rate 4), at
-the decoder's wide conv_unit widths (C = 256, 512), and int8_matmul at
-ragged M, K and N. Needs a CUDA device;
+the decoder's wide conv_unit widths (C = 256, 512), int8_matmul at ragged M, K
+and N, and the two bf16 probe kernels (interleave in both layouts and store
+strategies; conv_unit_stages in all seven modes, bit-equal where the chain
+has no sum over channels). Needs a CUDA device;
 skips without one. This file imports no JAX, so it runs on a machine
 without it:
 
@@ -215,3 +217,63 @@ def test_debug_encode_matches_cpu(dev):
     assert all(K.LAUNCHES[k] > 0 for k in encode), K.LAUNCHES
     q_c, i_c = cpu.encode_audio(audio)
     assert (i_g.cpu() == i_c).float().mean().item() >= 0.999
+
+
+def _bf16(rng, shape, std, dev):
+    return _t(rng, shape, std, dev).bfloat16()
+
+
+@pytest.mark.parametrize("shape,s", [((2, 24, 333), 2), ((1, 8, 100), 3), ((2, 5, 77), 4),
+                                     ((1, 16, 40), 8), ((3, 1, 9), 1)])
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("packed", [False, True])
+def test_interleave_kernel_is_bit_equal(dev, shape, s, channels_last, packed):
+    from l3ac_tpu_torch.ops.kernels import interleave as il
+    x = _bf16(np.random.default_rng(s), shape, 1.0, dev)
+    got = il.interleave(x, s, channels_last=channels_last, packed=packed)
+    torch.cuda.synchronize()
+    want = il.interleave_plain(x, s, channels_last=channels_last)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+STAGE_TOL = 2.0 ** -6  # max abs error <= STAGE_TOL * max(1, max |plain|): ~2 bf16 ulps
+
+
+@pytest.mark.parametrize("B,C,T,tile", [(2, 24, 512, 128), (1, 48, 300, 100), (2, 96, 256, 64),
+                                        (1, 5, 96, 96), (1, 192, 130, 65)])
+def test_conv_unit_stages_kernel(dev, B, C, T, tile):
+    from l3ac_tpu_torch.ops.kernels import conv_unit_stages as cs
+    rng = np.random.default_rng(C + T)
+    x = _bf16(rng, (B, C, T), 1.0, dev)
+    w = (_bf16(rng, (C, 7), 1.0, dev), _bf16(rng, (4 * C, C), 0.05, dev),
+         _bf16(rng, (C, 4 * C), 0.05, dev))
+    for mode in cs.MODES:
+        got = cs.conv_unit_stages(x, *w, tile, mode)
+        torch.cuda.synchronize()
+        want = cs.conv_unit_stages_plain(x, *w, tile, mode)
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        if mode in ("copy", "halo_only", "dw"):
+            assert torch.equal(got.view(torch.int16), want.view(torch.int16)), mode
+        else:
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= STAGE_TOL * max(1.0, want.float().abs().max().item()), (mode, err)
+
+
+def test_probe_kernels_reject_what_they_do_not_take(dev):
+    from l3ac_tpu_torch.ops.kernels import conv_unit_stages as cs
+    from l3ac_tpu_torch.ops.kernels import interleave as il
+    x = torch.zeros(1, 8, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        il.interleave(x.float(), 2)
+    w = (torch.zeros(8, 7, device=dev, dtype=torch.bfloat16),
+         torch.zeros(32, 8, device=dev, dtype=torch.bfloat16),
+         torch.zeros(8, 32, device=dev, dtype=torch.bfloat16))
+    with pytest.raises(TypeError, match="bfloat16"):
+        cs.conv_unit_stages(x.float(), *w, 32, "dw")
+    with pytest.raises(TypeError, match="bfloat16"):
+        cs.conv_unit_stages(x, w[0].float(), *w[1:], 32, "dw")
+    with pytest.raises(ValueError, match="multiple of tile"):
+        cs.conv_unit_stages(x, *w, 48, "full")
+    with pytest.raises(ValueError, match="contiguous"):
+        cs.conv_unit_stages(torch.zeros(1, 8, 128, device=dev, dtype=torch.bfloat16)[..., ::2],
+                            *w, 32, "copy")

@@ -20,7 +20,8 @@ PORT = REPO / "l3ac_tpu_torch"
 def test_import_pulls_in_no_jax():
     code = ("import sys, l3ac_tpu_torch, l3ac_tpu_torch.weights, "
             "l3ac_tpu_torch.ops.kernels.local_attention, l3ac_tpu_torch.models.zoo, "
-            "l3ac_tpu_torch.ops.quantized, l3ac_tpu_torch.ops.kernels.int8_matmul; "
+            "l3ac_tpu_torch.ops.quantized, l3ac_tpu_torch.ops.kernels.int8_matmul, "
+            "l3ac_tpu_torch.tools.bisect_kernel, l3ac_tpu_torch.tools.interleave_probe; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'l3ac_tpu' or m.startswith('l3ac_tpu.')]; "
             "assert not bad, bad; print('clean')")
