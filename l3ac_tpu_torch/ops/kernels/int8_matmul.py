@@ -5,15 +5,18 @@ Replaces ``l3ac_tpu/ops/pallas/int8_matmul.py:int8_matmul`` (body
 layout, ``w_q`` (N, K) int8 with ``scale`` (N,) fp32; x is (..., K) fp32 and
 the output (..., N) fp32.
 
-Bound on the H100: 2 M K N fp32 operations against 4 M (K + N) + K N bytes,
-so every shape of the codec (K, N <= 2048, M in the thousands) is bound by
-the fp32 rate, not memory. The TPU kernel holds the whole (K, N) weight in
-VMEM and tiles only M; here the weight is tiled in N and K as well. Each
-block computes a 128 x 64 output tile: per step of 32 along K it stages the
-x chunk and the int8 weight chunk, dequantized on chip as ``float(q) *
-scale``, in shared memory, and each thread keeps an 8 x 4 tile of fp32 sums
-in registers. Device memory sees only the 1-byte weight. SIMT fp32 FMAs: with
-fp32 activations and TF32 off no tensor-core path gives the same numbers.
+Bound on the H100: 2 M K N operations against 4 M (K + N) + K N bytes. The
+kernel runs on the tensor-core GEMM core (``csrc/tc_gemm.cuh``): ``q`` is
+exact in bf16, so x alone is split, into three bf16 terms
+(``tc_gemm.split_bf16x3``, 24 bits), and the product takes three bf16
+passes (two TF32 passes measured slower, ``tools/tc_variants.py``). The
+scale moves to the epilogue, so the kernel rounds as ``scale * sum(x q) + b`` where the plain
+version (and the JAX package) rounds as ``sum(x (q scale)) + b``; the two
+agree within fp32 rounding, far inside the ``1e-4`` tolerance the card is
+held to. The TPU kernel holds the whole (K, N) weight in VMEM and tiles only
+M; here each block computes a 128 x 128 output tile, streaming K in steps of
+32 through shared memory, where the int8 weight tile is widened to fp32.
+Device memory sees only the 1-byte weight.
 """
 
 from __future__ import annotations

@@ -6,10 +6,13 @@ request from FSQ indices) goes, on a CUDA card.
 Builds the model with seeded random weights, warms it up on the request
 shape, then traces three requests with ``torch.profiler`` and prints, per
 request: host wall time, summed kernel (device) time, the device's idle
-share of the wall, and device time by kernel name, largest first. A decode
-request decodes seeded random indices, as many tokens as the audio length
-gives. ``--int8`` quantizes the weights first (``ops.quantized.quantize_params``).
-With ``--trace`` it also writes a Chrome trace there.
+share of the wall, and device time by kernel name, largest first; then the
+same time summed by the port's kernel families (``FAMILIES``: the wrapper
+calls behind each, and the GEMM core's int8 and fp32 instances apart) beside
+the wrappers' launch counts per request. A decode request decodes seeded
+random indices, as many tokens as the audio length gives. ``--int8``
+quantizes the weights first (``ops.quantized.quantize_params``). With
+``--trace`` it also writes a Chrome trace there.
 """
 
 from __future__ import annotations
@@ -23,9 +26,23 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from .models.zoo import get_model
+from .ops import kernels as K
 from .ops.quantized import quantize_params
 
 REQUESTS = 3
+# (family, substrings of the device kernel names): the CUDA kernels behind
+# each wrapper; one conv_unit call on the tensor-core path is three launches
+# (dw_norm_kernel, gemm_kernel<false, snake or gelu>, gemm_kernel<false, residual>)
+FAMILIES = (
+    ("int8_matmul: tc_gemm int8 (3 bf16 passes)", ("gemm_kernel<true",)),
+    ("conv_unit (C % 64 == 0): tc_gemm fp32 (3xTF32)", ("gemm_kernel<false",)),
+    ("conv_unit (C % 64 == 0): dw conv + ChannelNorm", ("dw_norm_kernel",)),
+    ("conv_unit_ct / conv_unit (SIMT)", ("conv_unit_kernel",)),
+    ("local_attention", ("local_attention",)),
+    ("up_fused_ct / up_fused", ("up_fused",)),
+    ("legacy_tail", ("legacy_tail",)),
+    ("first_block", ("first_block",)),
+)
 
 
 def _device_us(evt) -> float:
@@ -76,6 +93,7 @@ def main() -> int:
         request()
     torch.cuda.synchronize()
 
+    K.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(REQUESTS):
@@ -98,6 +116,14 @@ def main() -> int:
           f"{max(0.0, 1 - device_ms / wall_ms):.3f}, {sum(r[2] for r in rows)} kernels")
     for key, ms, cnt in rows[:25]:
         print(f"  {ms:9.4f} ms  {100 * ms / device_ms:5.1f} %  x{cnt:<4d} {key[:110]}")
+    print(f"  by family (wrapper launches per request: "
+          f"{ {k: v // REQUESTS for k, v in K.LAUNCHES.items() if v} }):")
+    for family, keys in FAMILIES:
+        mine = [r for r in rows if any(k in r[0] for k in keys)]
+        if mine:
+            ms = sum(r[1] for r in mine)
+            print(f"  {ms:9.4f} ms  {100 * ms / device_ms:5.1f} %  x{sum(r[2] for r in mine):<4d} "
+                  f"{family}")
     return 0
 
 

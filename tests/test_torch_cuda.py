@@ -1,8 +1,9 @@
 """CUDA kernels against their plain versions on the card, at small shapes and
 with the options the 1kbps paths do not take (no ChannelNorm, GELU,
 dilation, narrow debug widths, ragged tiles, no bias, upsample rate 4), at
-the decoder's wide conv_unit widths (C = 256, 512), int8_matmul at ragged M, K
-and N, and the two bf16 probe kernels (interleave in both layouts and store
+the wide conv_unit widths on the tensor-core path (C = 192, 256, 512 at
+dilations 1, 3, 9) and its shape rule, int8_matmul at ragged M, K and N, and
+the two bf16 probe kernels (interleave in both layouts and store
 strategies; conv_unit_stages in all seven modes, bit-equal where the chain
 has no sum over channels). Needs a CUDA device;
 skips without one. This file imports no JAX, so it runs on a machine
@@ -67,6 +68,78 @@ def test_conv_unit_kernel(dev, C, T, dilation, norm, snake, channels_last):
     _check(fn(x, w, dilation=dilation),
            cu.conv_unit_plain(x, w, channel_dim=2 if channels_last else 1,
                               dilation=dilation))
+
+
+def _unit_weights(rng, C, norm, snake, dev):
+    from l3ac_tpu_torch.ops.kernels import conv_unit as cu
+    return cu.ConvUnitWeights(
+        _t(rng, (C, 1, 7), 0.4, dev), _t(rng, (C,), 0.1, dev),
+        (1.0 + _t(rng, (C,), 0.1, dev)) if norm else None,
+        _t(rng, (C,), 0.1, dev) if norm else None,
+        _t(rng, (4 * C, C), C ** -0.5, dev), _t(rng, (4 * C,), 0.1, dev),
+        (1.0 + _t(rng, (4 * C,), 0.2, dev).abs()) if snake else None,
+        _t(rng, (4 * C,), 0.1, dev), _t(rng, (4 * C,), 0.1, dev),
+        _t(rng, (C, 4 * C), (4 * C) ** -0.5, dev), _t(rng, (C,), 0.1, dev))
+
+
+@pytest.mark.parametrize("norm,snake", [(True, True), (False, True), (True, False)])
+@pytest.mark.parametrize("dilation", [1, 3, 9])
+@pytest.mark.parametrize("C", [192, 256, 512])
+def test_conv_unit_tensor_core_path(dev, C, dilation, norm, snake):
+    """The wide units on conv_unit_tc.cu; B T = 2 x 203 rows is no multiple of
+    the 128-row tile, and T is shorter than the dilated kernel's reach at
+    d = 9 only at the edges."""
+    from l3ac_tpu_torch.ops.kernels import conv_unit as cu
+    rng = np.random.default_rng(C + dilation)
+    w = _unit_weights(rng, C, norm, snake, dev)
+    x = _t(rng, (2, 203, C), 1.0, dev)
+    _check(cu.conv_unit(x, w, dilation=dilation),
+           cu.conv_unit_plain(x, w, channel_dim=2, dilation=dilation))
+
+
+def test_conv_unit_dispatch_is_a_shape_rule(dev, monkeypatch):
+    """C % 64 == 0 takes the tensor-core path, any other C the SIMT kernel;
+    one count per call either way, and a refused path raises."""
+    from l3ac_tpu_torch.ops import kernels as K
+    from l3ac_tpu_torch.ops.kernels import conv_unit as cu
+    rng = np.random.default_rng(7)
+
+    def refuse(*a, **k):
+        raise RuntimeError("refused")
+
+    w16, x16 = _unit_weights(rng, 16, True, True, dev), _t(rng, (2, 50, 16), 1.0, dev)
+    w64, x64 = _unit_weights(rng, 64, True, True, dev), _t(rng, (2, 50, 64), 1.0, dev)
+    before = K.LAUNCHES["conv_unit"]
+    with monkeypatch.context() as m:
+        m.setattr(cu, "_launch_tc", refuse)
+        _check(cu.conv_unit(x16, w16), cu.conv_unit_plain(x16, w16, channel_dim=2))
+        with pytest.raises(RuntimeError, match="refused"):
+            cu.conv_unit(x64, w64)
+    with monkeypatch.context() as m:
+        m.setattr(cu, "conv_unit_simt", refuse)
+        _check(cu.conv_unit(x64, w64), cu.conv_unit_plain(x64, w64, channel_dim=2))
+    assert K.LAUNCHES["conv_unit"] == before + 2
+
+
+def test_conv_unit_tensor_core_path_rejects_a_strided_input(dev):
+    from l3ac_tpu_torch.ops.kernels import conv_unit as cu
+    w = _unit_weights(np.random.default_rng(8), 192, True, True, dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        cu.conv_unit(torch.zeros(2, 100, 192, device=dev)[:, ::2], w)
+
+
+def test_conv_unit_reuses_prepared_weights_until_they_change(dev):
+    from l3ac_tpu_torch.ops.kernels import conv_unit as cu
+    rng = np.random.default_rng(9)
+    w = _unit_weights(rng, 64, True, True, dev)
+    x = _t(rng, (1, 40, 64), 1.0, dev)
+    cu.conv_unit(x, w)
+    p = cu.prepared_weights(w)
+    cu.conv_unit(x, w)
+    assert cu.prepared_weights(w) is p
+    w.pw2_w.mul_(2.0)
+    _check(cu.conv_unit(x, w), cu.conv_unit_plain(x, w, channel_dim=2))
+    assert cu.prepared_weights(w) is not p
 
 
 @pytest.mark.parametrize("T,Cout", [(1, 8), (30, 8), (300, 24), (777, 64)])
@@ -168,6 +241,22 @@ def test_int8_matmul_kernel(dev, M, K, N, bias):
     w_q, scale = quantize_weight(_t(rng, (N, K), K ** -0.5, dev))
     b = _t(rng, (N,), 0.3, dev) if bias else None
     x = _t(rng, (2, M, K), 1.0, dev)
+    _check(im.int8_matmul(x, w_q, scale, b), im.int8_matmul_plain(x, w_q, scale, b))
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("K,N", [(341, 128), (128, 682)])
+@pytest.mark.parametrize("M", [1, 127, 18000])
+def test_int8_matmul_tensor_core_ragged(dev, M, K, N, bias):
+    """The GEGLU widths: K = 341 (fp32 rows of 1364 B, int8 rows of 341 B, no
+    16-byte copies) and N = 682, at one row, a ragged tile and the window-750
+    M of an 8 x 10 s request."""
+    from l3ac_tpu_torch.ops.kernels import int8_matmul as im
+    from l3ac_tpu_torch.ops.quantized import quantize_weight
+    rng = np.random.default_rng(M + K + N)
+    w_q, scale = quantize_weight(_t(rng, (N, K), K ** -0.5, dev))
+    b = _t(rng, (N,), 0.3, dev) if bias else None
+    x = _t(rng, (M, K), 1.0, dev)
     _check(im.int8_matmul(x, w_q, scale, b), im.int8_matmul_plain(x, w_q, scale, b))
 
 
