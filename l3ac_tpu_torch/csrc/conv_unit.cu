@@ -1,8 +1,12 @@
-// Residual ConvUnit as one fused kernel, for both activation layouts.
+// Residual ConvUnit as one fused SIMT kernel, for both activation layouts.
 //
-// Replaces l3ac_tpu/ops/pallas/conv_unit.py:conv_unit_ct (body _kernel_t,
-// (B, C, T)) and :conv_unit (body _kernel, (B, T, C)). One kernel takes the
-// batch, channel and time strides, so it serves both.
+// Replaces l3ac_tpu/ops/pallas/conv_unit.py:conv_unit (body _kernel,
+// (B, T, C)) at the channels-last widths that are not a multiple of 64
+// (debug's 16; the released configs' 192 / 256 / 512 run conv_unit_tc.cu).
+// It takes the batch, channel and time strides, so it also runs on
+// (B, C, T), the layout of :conv_unit_ct (body _kernel_t): there it is not on
+// any path (conv_unit_ct runs conv_unit_narrow.cu) and is only timed beside
+// the narrow kernel (chip_smoke.py's simt_ms column).
 //   depthwise conv k, dilation d, zero pad -> ChannelNorm (eps 1e-8 inside the
 //   sqrt) -> pw1 C->4C -> snake (or exact GELU) -> pw2 4C->C with GRN folded
 //   into it by the caller (n = 1) -> + x

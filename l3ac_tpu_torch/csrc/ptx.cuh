@@ -1,8 +1,9 @@
-// The PTX the tensor-core GEMM core (tc_gemm.cuh) is built from, one small
-// device function each: asynchronous copies into shared memory, ldmatrix,
-// the TF32 and bf16 mma, and the TF32 and bf16 roundings. Kept apart so that a host twin of
-// exactly these functions can stand in for them when the kernels are
-// rehearsed without a card (.claude/skills/verify/SKILL.md).
+// The PTX the tensor-core kernels (tc_gemm.cuh, conv_unit_narrow.cu,
+// conv_unit_stages.cu) are built from, one small device function each:
+// asynchronous copies into shared memory, ldmatrix, the TF32 and bf16 mma,
+// and the TF32 and bf16 roundings. Kept apart so that a host twin of exactly
+// these functions can stand in for them when the kernels are rehearsed
+// without a card (.claude/skills/verify/SKILL.md).
 #pragma once
 
 #include <cstdint>
@@ -35,10 +36,10 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Four 8 x 8 b16 matrices, i.e. four 8-row x 4-word fp32 tiles: lanes 8q..8q+7
-// give the row addresses of tile q; lane l receives word l % 4 of row l / 4 of
-// tile q in r[q].
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const float* p) {
+// Four 8 x 8 b16 matrices, i.e. four 8-row x 4-word tiles (fp32, or bf16
+// pairs): lanes 8q..8q+7 give the row addresses of tile q; lane l receives
+// word l % 4 of row l / 4 of tile q in r[q].
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));

@@ -7,8 +7,12 @@ exact GELU. Its forward is the ``conv_unit_ct`` kernel on (B, C, T) or the
 weights (``ops.quantized.quantize_params``) it follows the JAX dispatch
 (``l3ac_tpu/models/layers.py:74-130``), whose fused kernels take dense
 weights only: on (B, T, C) the unfused body runs, its two products through
-the ``int8_matmul`` kernel; on (B, C, T) the weights are dequantized on every
-call (no dense copy is kept) and ``conv_unit_ct`` runs on them.
+the ``int8_matmul`` kernel. On (B, C, T) JAX runs the unfused body on the
+dequantized weights; the port's CPU path does the same (``conv_unit_ct``'s
+plain version on weights dequantized per call, no dense copy kept), and on
+the card ``conv_unit_ct``'s kernel runs on operands prepared once from the
+int8 weights (:meth:`ConvUnit.prepared`), which differ from that body only
+by the GRN fold (``ops/kernels/conv_unit.py``).
 
 LegacyUnit: snake -> conv k7 at dilation d -> snake -> conv k1, residual
 outside. It holds the weights of one unit of the decoder's legacy tail, which
@@ -20,7 +24,9 @@ import torch
 from torch import nn
 
 from ..ops import channel_norm, instance_norm
-from ..ops.kernels.conv_unit import ConvUnitWeights, conv_unit, conv_unit_ct, unit_body
+from ..ops.kernels.conv_unit import (ConvUnitWeights, PreparedWeights, cached_prepare,
+                                     conv_unit, conv_unit_ct, prepare_weights, prepared_weights,
+                                     unit_body)
 from ..ops.norms import EPS
 from ..ops.quantized import Int8Linear
 from ..utils import init as pinit
@@ -93,6 +99,18 @@ class ConvUnit(nn.Module):
             pw1_w, self.pw1.bias, self.alpha,
             self.grn.gamma, self.grn.beta, pw2_w, self.pw2.bias)
 
+    def prepared(self) -> PreparedWeights:
+        """The tensor-core kernels' product operands (``prepare_weights``),
+        cached. Dense layers: on their weights (``prepared_weights``). int8
+        layers: on the ``w_q`` / ``w_scale`` buffers of both, pw2's bias and
+        GRN, prepared from the dequantized weights on a miss, so no call
+        dequantizes once the set is cached."""
+        if not isinstance(self.pw1, Int8Linear):
+            return prepared_weights(self.kernel_weights())
+        src = (self.pw1.w_q, self.pw1.w_scale, self.pw2.w_q, self.pw2.w_scale,
+               self.pw2.bias, self.grn.gamma, self.grn.beta)
+        return cached_prepare(self.pw1.w_q, src, lambda: prepare_weights(self.kernel_weights()))
+
     def forward(self, x: torch.Tensor, *, channels_last: bool) -> torch.Tensor:
         """Residual unit: x (B, T, C) if ``channels_last`` else (B, C, T)."""
         if channels_last and isinstance(self.pw1, Int8Linear):
@@ -101,8 +119,11 @@ class ConvUnit(nn.Module):
             return x + unit_body(x, self.kernel_weights(dense=False),
                                  lambda h: self.pw1(h.contiguous()), self.pw2,
                                  channel_dim=2, dilation=self.dilation)
-        fn = conv_unit if channels_last else conv_unit_ct
-        return fn(x, self.kernel_weights(), dilation=self.dilation)
+        if channels_last:
+            return conv_unit(x, self.kernel_weights(), dilation=self.dilation)
+        # the kernel takes prepared products; the CPU plain path dense weights
+        return conv_unit_ct(x, self.kernel_weights(dense=not x.is_cuda),
+                            dilation=self.dilation, prepared=self.prepared)
 
 
 def _dense_weight(lin: nn.Module) -> torch.Tensor:

@@ -87,7 +87,10 @@ def get_model(name: str, *, pretrained: bool = False, device=None, seed: int = 0
 
     ``device``: CUDA by default (raises without it); ``"cpu"`` runs the plain
     path. ``pretrained=True`` is not available: converting the released
-    checkpoints is a later slice of the port (ROADMAP A7).
+    checkpoints is a later slice of the port (ROADMAP A7). The codec is built
+    outside inference mode even when called inside it, so that its weights
+    are ordinary tensors whose in-place changes are tracked (the kernels'
+    prepared-weight cache relies on that).
     """
     if pretrained:
         raise NotImplementedError(
@@ -96,6 +99,7 @@ def get_model(name: str, *, pretrained: bool = False, device=None, seed: int = 0
             "params with l3ac_tpu_torch.weights.from_jax_params")
     dev = _resolve_device(device)
     cfg = get_config(name, **overrides)
-    codec = fcodec.Codec(cfg.network_config, device=dev)
-    codec.init_weights(torch.Generator().manual_seed(seed))
-    return L3AC(cfg, codec)
+    with torch.inference_mode(False):
+        codec = fcodec.Codec(cfg.network_config, device=dev)
+        codec.init_weights(torch.Generator().manual_seed(seed))
+        return L3AC(cfg, codec)

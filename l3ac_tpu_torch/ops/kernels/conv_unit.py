@@ -3,34 +3,40 @@
 
 Replaces ``l3ac_tpu/ops/pallas/conv_unit.py:conv_unit_ct`` (body
 ``_kernel_t``, (B, C, T)) and ``:conv_unit`` (body ``_kernel``, (B, T, C))
-with two kernels:
+with three kernels, chosen by a shape rule, never by a retry:
 
+- ``csrc/conv_unit_narrow.cu`` for ``conv_unit_ct`` at every C up to
+  ``NARROW_MAX_C`` (96): the codec's (B, C, T) widths 24, 48, 96 and
+  ``debug``'s 8, 12, 16. One fused launch: the depthwise conv and
+  ChannelNorm into shared memory, then both products on the tensor cores
+  (3xTF32, mma.sync), the hidden activation one chunk of 32 units at a time
+  in shared memory, never in device memory.
 - ``csrc/conv_unit_tc.cu`` for ``conv_unit`` when C is a multiple of
   ``TC_MULTIPLE`` (64): every released config's channels-last widths (192,
   256, 512). Three launches: depthwise conv + ChannelNorm, then the two
   products on the tensor-core GEMM core (``csrc/tc_gemm.cuh``, 3xTF32) with
-  the activation and the residual in their epilogues. Its weights come
-  prepared once per weight set (:func:`prepared_weights`).
-- ``csrc/conv_unit.cu``, one fused SIMT kernel that takes the time and
-  channel strides, for ``conv_unit_ct`` and for ``conv_unit`` at any other C
-  (``debug``'s 16). The rule is a shape rule, never a retry.
+  the activation and the residual in their epilogues.
+- ``csrc/conv_unit.cu``, one fused SIMT kernel, for ``conv_unit`` at any
+  other C (``debug``'s 16). ``conv_unit_simt`` also runs it on (B, C, T),
+  where it is only timed beside the narrow kernel.
+
+The two tensor-core kernels take their product weights prepared once per
+weight set (:func:`prepared_weights`).
 
 GRN fold: the reference's GRN norm is a per-batch scalar ``n = g / (g + eps)``
 with ``g`` the L2 norm of the whole (4C, T) hidden activation, so
-``1 - n <= 1e-8 / g``. Both kernels take ``n = 1`` and fold GRN into pw2, as
+``1 - n <= 1e-8 / g``. The kernels take ``n = 1`` and fold GRN into pw2, as
 ``conv_unit.py:185-192`` does: ``W2' = W2 * (1 + gamma)`` along the hidden
 axis and ``b2' = b2 + W2 @ beta``, in fp32 (:func:`fold_grn`). That removes
 the only reduction across time tiles. The plain version keeps the exact GRN;
 the two differ by at most ``1e-8 / ||h||`` relative.
 
 Bound on the H100: 16 C^2 + O(C) operations per column against 8 C bytes
-moved, so from C = 24 up the products bound it. The SIMT kernel keeps what
-the TPU kernel keeps out of device memory: per (batch, column tile) block the
-depthwise conv and ChannelNorm go to shared memory, and the (4C, S) hidden
-activation exists only one chunk at a time in shared memory, between the
-two products (tile S = 64 columns up to C = 192, 32 above). The tensor-core
-path writes the normalized input and the hidden activation to device memory
-instead, so that each product is one GEMM at the full tile.
+moved, so from C = 24 up the products bound it: at the tensor-core passes'
+rate (3 TF32 passes at 495 TFLOP/s) the narrow widths sit near the bytes
+bound, which is why the narrow kernel keeps the normalized input and the
+hidden activation on the SM. The wide tensor-core path writes both to
+device memory instead, so that each product is one GEMM at the full tile.
 """
 
 from __future__ import annotations
@@ -49,8 +55,9 @@ from ..norms import channel_norm, grn
 from . import _build
 from .tc_gemm import split_tf32
 
-MAX_C = 512        # both kernels: the SIMT one's accumulators, conv_unit_tc's 16 channels per lane
+MAX_C = 512        # conv_unit: the SIMT kernel's accumulators, conv_unit_tc's 16 channels per lane
 TC_MULTIPLE = 64   # conv_unit at C % 64 == 0 runs conv_unit_tc.cu, other C conv_unit.cu
+NARROW_MAX_C = 96  # conv_unit_ct: conv_unit_narrow.cu's 12 n8 tiles of the second product
 
 
 class ConvUnitWeights(NamedTuple):
@@ -111,7 +118,7 @@ def fold_grn(w: ConvUnitWeights) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 class PreparedWeights(NamedTuple):
-    """The tensor-core path's product operands, fp32 on the weights' device."""
+    """The tensor-core kernels' product operands, fp32 on the weights' device."""
     b2: torch.Tensor      # (C,) b2' (fold_grn)
     w1_hi: torch.Tensor   # (4C, C) pw1 split into TF32 (split_tf32)
     w1_lo: torch.Tensor
@@ -128,28 +135,39 @@ def prepare_weights(w: ConvUnitWeights) -> PreparedWeights:
         return PreparedWeights(b2f, *split_tf32(w.pw1_w), *split_tf32(w2f.t().contiguous()))
 
 
-# id(pw1_w) -> ((data_ptr, _version) of each source, weak references to the
+# id(owner) -> ((data_ptr, _version) of each source, weak references to the
 # sources, PreparedWeights). Kept here, not on the tensor, so that the weights
-# still pickle; an entry goes when its pw1_w is freed.
+# still pickle; an entry goes when its owner is freed.
 _PREPARED: dict[int, tuple] = {}
 
 
-def prepared_weights(w: ConvUnitWeights) -> PreparedWeights:
-    """:func:`prepare_weights`, cached: rebuilt whenever a source tensor
-    (pw1_w, pw2_w, pw2_b, grn_gamma, grn_beta) is another object or has
-    changed in place (``load_state_dict``, ``mul_``, ...: each bumps its
-    ``_version``), so no stale weight is used."""
-    src = (w.pw1_w, w.pw2_w, w.pw2_b, w.grn_gamma, w.grn_beta)
+def cached_prepare(owner: torch.Tensor, src: tuple[torch.Tensor, ...],
+                   build: Callable[[], PreparedWeights]) -> PreparedWeights:
+    """``build()``, cached under ``owner`` and rebuilt whenever a tensor of
+    ``src`` is another object or has changed in place (``load_state_dict``,
+    ``mul_``, ...: each bumps its ``_version``), so no stale weight is used.
+    A source that is an inference tensor has no version counter, and its
+    in-place changes cannot be seen: such a set is built on every call and
+    never cached."""
+    if any(t.is_inference() for t in src):
+        return build()
     key = tuple((t.data_ptr(), t._version) for t in src)
-    slot = id(w.pw1_w)
+    slot = id(owner)
     hit = _PREPARED.get(slot)
     if hit is not None and hit[0] == key and all(r() is t for r, t in zip(hit[1], src)):
         return hit[2]
-    prep = prepare_weights(w)
+    prep = build()
     if hit is None:
-        weakref.finalize(w.pw1_w, _PREPARED.pop, slot, None)
+        weakref.finalize(owner, _PREPARED.pop, slot, None)
     _PREPARED[slot] = (key, tuple(weakref.ref(t) for t in src), prep)
     return prep
+
+
+def prepared_weights(w: ConvUnitWeights) -> PreparedWeights:
+    """:func:`prepare_weights`, cached on its sources (pw1_w, pw2_w, pw2_b,
+    grn_gamma, grn_beta) by :func:`cached_prepare`."""
+    return cached_prepare(w.pw1_w, (w.pw1_w, w.pw2_w, w.pw2_b, w.grn_gamma, w.grn_beta),
+                          lambda: prepare_weights(w))
 
 
 def _check_weights(w: ConvUnitWeights, C: int, name: str) -> int:
@@ -171,8 +189,8 @@ _ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 +
 def conv_unit_simt(x: torch.Tensor, w: ConvUnitWeights, dilation: int = 1, *,
                    channels_last: bool, name: str = "conv_unit") -> torch.Tensor:
     """Launch ``csrc/conv_unit.cu`` on a CUDA tensor, (B, T, C) or (B, C, T);
-    counts no launch (the wrappers count). The wrappers' kernel for
-    ``conv_unit_ct`` and for ``conv_unit`` at C not a multiple of 64."""
+    counts no launch (the wrapper counts). ``conv_unit``'s kernel at C not a
+    multiple of 64; on (B, C, T) it is only timed beside the narrow kernel."""
     B = x.shape[0]
     C, T = (x.shape[2], x.shape[1]) if channels_last else (x.shape[1], x.shape[2])
     ksz = _check_weights(w, C, name)
@@ -221,13 +239,47 @@ def _launch_tc(x: torch.Tensor, w: ConvUnitWeights, dilation: int) -> torch.Tens
     return out
 
 
-def conv_unit_ct(x: torch.Tensor, w: ConvUnitWeights, *,
-                 dilation: int = 1) -> torch.Tensor:
-    """Residual ConvUnit on (B, C, T). Kernel on CUDA, plain on CPU."""
+_NARROW_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def _launch_narrow(x: torch.Tensor, w: ConvUnitWeights, p: PreparedWeights,
+                   dilation: int) -> torch.Tensor:
+    """``csrc/conv_unit_narrow.cu`` on (B, C, T), C <= NARROW_MAX_C; the
+    products from ``p``, the other weights from ``w``."""
+    B, C, T = x.shape
+    ksz = w.dw_w.shape[-1]
+    if not 1 <= C <= NARROW_MAX_C:
+        raise ValueError(f"conv_unit_ct: C = {C} outside 1..{NARROW_MAX_C}")
+    if w.dw_w.shape != (C, 1, ksz) or ksz % 2 == 0 or w.pw1_b.shape != (4 * C,) or \
+            p.w1_hi.shape != (4 * C, C) or p.w2_hi.shape != (C, 4 * C):
+        raise ValueError(f"conv_unit_ct: weight shapes do not match C = {C}")
+    if (w.norm_w is None) != (w.norm_b is None):
+        raise ValueError("conv_unit_ct: norm weight and bias go together")
+    dw = w.dw_w[:, 0, :]                                       # (C, K), a view
+    ops = {"x": x, "dw": dw, "dw_b": w.dw_b, "norm_w": w.norm_w, "norm_b": w.norm_b,
+           "pw1_b": w.pw1_b, "alpha": w.alpha, **p._asdict()}
+    K.check_cuda(ops, x.device)
+    out = torch.empty_like(x)
+    fn = _build.function("l3ac_conv_unit_narrow", _NARROW_ARGTYPES)
+    err = fn(x.data_ptr(), out.data_ptr(), dw.data_ptr(), w.dw_b.data_ptr(),
+             _build.ptr(w.norm_w), _build.ptr(w.norm_b), p.w1_hi.data_ptr(), p.w1_lo.data_ptr(),
+             w.pw1_b.data_ptr(), _build.ptr(w.alpha), p.w2_hi.data_ptr(), p.w2_lo.data_ptr(),
+             p.b2.data_ptr(), B, C, T, ksz, dilation, _build.stream_ptr())
+    _build.check(err, "conv_unit_ct")
+    return out
+
+
+def conv_unit_ct(x: torch.Tensor, w: ConvUnitWeights, *, dilation: int = 1,
+                 prepared: Callable[[], PreparedWeights] | None = None) -> torch.Tensor:
+    """Residual ConvUnit on (B, C, T). On CUDA the narrow tensor-core kernel
+    at C <= NARROW_MAX_C (raises above), its products from ``prepared()``
+    when given (then ``w`` may leave pw1_w / pw2_w out), else from
+    :func:`prepared_weights`. Plain on the CPU, from ``w``'s dense weights."""
     K.check_input(x, "conv_unit_ct x", ndim=3)
     if not K.route(x, "conv_unit_ct"):
         return conv_unit_plain(x, w, channel_dim=1, dilation=dilation)
-    out = conv_unit_simt(x, w, dilation, channels_last=False, name="conv_unit_ct")
+    p = prepared() if prepared is not None else prepared_weights(w)
+    out = _launch_narrow(x, w, p, dilation)
     K.LAUNCHES["conv_unit_ct"] += 1
     return out
 

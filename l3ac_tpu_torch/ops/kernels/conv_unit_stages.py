@@ -14,8 +14,11 @@ bf16 in and out; the depthwise conv in fp32 (taps added in order from 0),
 each product's operands rounded to bf16 and summed in fp32. Bound on the
 H100: ``copy`` .. ``norm`` by bytes; the products, 16 C^2 operations per
 column, by the bf16 tensor-core rate at C = 96 and by bytes at C <= 48. The
-kernel's products are SIMT fp32 FMAs, so it is far from that bound (see
-PERF.md).
+kernel moves 16-byte pieces along T in every mode, and runs the products of
+``mm``, ``dw_mm`` and ``full`` on the structure of the codec's narrow
+ConvUnit (``csrc/conv_unit_narrow.cu``) with one bf16 tensor-core pass
+(mma.sync m16n8k16), which is the probe's exact function: the operands are
+bf16 already and the sums fp32. Its times are in PERF.md.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from .. import kernels as K
 from . import _build
 
 MODES = ("copy", "halo_only", "dw", "norm", "mm", "dw_mm", "full")
-MAX_C = 192  # 12 output channels per thread group in the second product
+MAX_C = 192  # the product modes' shared memory (219 KB at C = 192)
 HALO, TAPS = 3, 7
 NORM_EPS = 1e-8
 

@@ -37,7 +37,8 @@ FAMILIES = (
     ("int8_matmul: tc_gemm int8 (3 bf16 passes)", ("gemm_kernel<true",)),
     ("conv_unit (C % 64 == 0): tc_gemm fp32 (3xTF32)", ("gemm_kernel<false",)),
     ("conv_unit (C % 64 == 0): dw conv + ChannelNorm", ("dw_norm_kernel",)),
-    ("conv_unit_ct / conv_unit (SIMT)", ("conv_unit_kernel",)),
+    ("conv_unit_ct: narrow fused, tensor cores (3xTF32)", ("narrow_kernel",)),
+    ("conv_unit (C % 64 != 0): SIMT", ("conv_unit_kernel",)),
     ("local_attention", ("local_attention",)),
     ("up_fused_ct / up_fused", ("up_fused",)),
     ("legacy_tail", ("legacy_tail",)),

@@ -2,12 +2,15 @@
 with the options the 1kbps paths do not take (no ChannelNorm, GELU,
 dilation, narrow debug widths, ragged tiles, no bias, upsample rate 4), at
 the wide conv_unit widths on the tensor-core path (C = 192, 256, 512 at
-dilations 1, 3, 9) and its shape rule, int8_matmul at ragged M, K and N, and
-the two bf16 probe kernels (interleave in both layouts and store
-strategies; conv_unit_stages in all seven modes, bit-equal where the chain
-has no sum over channels). Needs a CUDA device;
-skips without one. This file imports no JAX, so it runs on a machine
-without it:
+dilations 1, 3, 9) and its shape rule, conv_unit_ct on the narrow
+tensor-core kernel at every width up to 96 (ragged T, edge columns,
+dilations 1, 3, 9, both activations) and its shape rule, an int8 1kbps
+roundtrip of a model built under inference mode, int8_matmul at ragged M, K
+and N, and the two bf16 probe kernels (interleave in both layouts and store
+strategies; conv_unit_stages in all seven modes, at small shapes and at the
+probe's own, bit-equal where the chain has no sum over channels). Needs a
+CUDA device; skips without one. This file imports no JAX, so it runs on a
+machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
@@ -140,6 +143,87 @@ def test_conv_unit_reuses_prepared_weights_until_they_change(dev):
     w.pw2_w.mul_(2.0)
     _check(cu.conv_unit(x, w), cu.conv_unit_plain(x, w, channel_dim=2))
     assert cu.prepared_weights(w) is not p
+
+
+@pytest.mark.parametrize("C,T,dilation,norm,snake", [
+    (8, 1, 1, True, True), (8, 77, 3, True, False), (12, 301, 9, False, True),
+    (16, 77, 1, True, True), (24, 1, 9, True, True), (24, 301, 1, True, True),
+    (24, 4096, 3, True, False), (48, 77, 9, True, True), (48, 1000, 1, False, True),
+    (96, 1, 3, True, True), (96, 301, 1, True, True), (96, 2053, 9, True, False),
+    (5, 130, 1, True, True), (44, 64, 3, False, False), (90, 129, 1, True, True)])
+def test_conv_unit_ct_narrow_kernel(dev, C, T, dilation, norm, snake):
+    """conv_unit_narrow.cu against the plain unit: ragged T (one column, 77,
+    301, one past a tile), the 50 edge columns on their own (where the halo
+    rule acts), C not a multiple of 8 or 16."""
+    from l3ac_tpu_torch.ops.kernels import conv_unit as cu
+    rng = np.random.default_rng(C * T + dilation)
+    w = _unit_weights(rng, C, norm, snake, dev)
+    x = _t(rng, (3, C, T), 1.0, dev)
+    got = cu.conv_unit_ct(x, w, dilation=dilation)
+    want = cu.conv_unit_plain(x, w, channel_dim=1, dilation=dilation)
+    _check(got, want)
+    n = min(50, T)
+    _check(torch.cat([got[..., :n], got[..., -n:]], -1), torch.cat([want[..., :n], want[..., -n:]], -1))
+
+
+def test_conv_unit_ct_runs_only_the_narrow_kernel(dev, monkeypatch):
+    """conv_unit_ct never reaches conv_unit.cu: with the SIMT launch refused it
+    still runs, with the narrow one refused it raises; one count per call;
+    C above NARROW_MAX_C raises, and a unit's prepared operands are passed
+    through."""
+    from l3ac_tpu_torch.ops import kernels as K
+    from l3ac_tpu_torch.ops.kernels import conv_unit as cu
+    rng = np.random.default_rng(11)
+
+    def refuse(*a, **k):
+        raise RuntimeError("refused")
+
+    w, x = _unit_weights(rng, 24, True, True, dev), _t(rng, (2, 24, 300), 1.0, dev)
+    before = K.LAUNCHES["conv_unit_ct"]
+    with monkeypatch.context() as m:
+        m.setattr(cu, "conv_unit_simt", refuse)
+        _check(cu.conv_unit_ct(x, w), cu.conv_unit_plain(x, w, channel_dim=1))
+        p = cu.prepare_weights(w)
+        no_products = w._replace(pw1_w=None, pw2_w=None)
+        _check(cu.conv_unit_ct(x, no_products, prepared=lambda: p),
+               cu.conv_unit_plain(x, w, channel_dim=1))
+    with monkeypatch.context() as m:
+        m.setattr(cu, "_launch_narrow", refuse)
+        with pytest.raises(RuntimeError, match="refused"):
+            cu.conv_unit_ct(x, w)
+    assert K.LAUNCHES["conv_unit_ct"] == before + 2
+    w100 = _unit_weights(rng, 100, True, True, dev)
+    with pytest.raises(ValueError, match="outside 1..96"):
+        cu.conv_unit_ct(_t(rng, (1, 100, 40), 1.0, dev), w100)
+    with pytest.raises(ValueError, match="contiguous"):
+        cu.conv_unit_ct(torch.zeros(2, 24, 600, device=dev)[..., ::2], w)
+
+
+def test_int8_1kbps_roundtrip_built_under_inference_mode(dev):
+    """The released config built inside torch.inference_mode() (ordinary
+    weights all the same), quantized, and run: the narrow units take their
+    operands prepared once from the int8 buffers, reused by the next
+    request; the card agrees with the CPU on the same int8 weights."""
+    from l3ac_tpu_torch.models.layers import ConvUnit
+    from l3ac_tpu_torch.models.zoo import get_model
+    from l3ac_tpu_torch.ops import kernels as K
+    from l3ac_tpu_torch.ops.quantized import Int8Linear, quantize_params
+    with torch.inference_mode():
+        gpu = get_model("1kbps", device=dev, seed=2)
+    assert not any(t.is_inference() for t in gpu.codec.parameters())
+    quantize_params(gpu.codec)
+    cpu = get_model("1kbps", device="cpu", seed=2)
+    quantize_params(cpu.codec)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.codec.state_dict().items()})
+    audio = (np.random.default_rng(5).standard_normal((2, 16000)) * 0.1).astype(np.float32)
+    K.reset_launches()
+    a_g = gpu.roundtrip(audio)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["conv_unit_ct"] == 6 and K.LAUNCHES["int8_matmul"] > 0, K.LAUNCHES
+    narrow = [u for u in gpu.codec.modules()
+              if isinstance(u, ConvUnit) and isinstance(u.pw1, Int8Linear) and u.pw1.in_features <= 96]
+    assert narrow and all(u.prepared() is u.prepared() for u in narrow)
+    assert (a_g.cpu() - cpu.roundtrip(audio)).abs().max().item() <= 1e-3
 
 
 @pytest.mark.parametrize("T,Cout", [(1, 8), (30, 8), (300, 24), (777, 64)])
@@ -341,6 +425,23 @@ def test_conv_unit_stages_kernel(dev, B, C, T, tile):
         torch.cuda.synchronize()
         want = cs.conv_unit_stages_plain(x, *w, tile, mode)
         assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        if mode in ("copy", "halo_only", "dw"):
+            assert torch.equal(got.view(torch.int16), want.view(torch.int16)), mode
+        else:
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= STAGE_TOL * max(1.0, want.float().abs().max().item()), (mode, err)
+
+
+@pytest.mark.parametrize("B,C,T", [(8, 96, 26624), (8, 48, 79872), (8, 24, 159744)])
+def test_conv_unit_stages_at_the_probe_shapes(dev, B, C, T):
+    """The bisection's own shapes and tile (2048): the 16-byte paths."""
+    from l3ac_tpu_torch.ops.kernels import conv_unit_stages as cs
+    from l3ac_tpu_torch.tools import bisect_kernel as bk
+    inp = bk.make(B, C, T, dev=dev)
+    for mode in cs.MODES:
+        got = cs.conv_unit_stages(*inp, 2048, mode)
+        torch.cuda.synchronize()
+        want = cs.conv_unit_stages_plain(*inp, 2048, mode)
         if mode in ("copy", "halo_only", "dw"):
             assert torch.equal(got.view(torch.int16), want.view(torch.int16)), mode
         else:
