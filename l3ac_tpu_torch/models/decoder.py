@@ -8,7 +8,8 @@ up path (1x1 conv -> linear upsample x rate -> optional ChannelNorm, the
   tanh, one kernel. When the last rate is 2 the last up path hands the tail
   its two phase arrays (``legacy_tail_poly_ct``) and the interleaved
   activation is never stored; otherwise the tail reads the interleaved one
-  (``legacy_tail_ct``);
+  (``legacy_tail_ct``). The tail's weights are stacked and packed for the
+  kernel once (``tail_prepared``), not on every decode;
 - ``dilation``: 3 ConvUnits at dilations 1 / 3 / 9; ``None``: 2 ConvUnits;
   both followed by snake -> conv k7 -> tanh in plain PyTorch.
 
@@ -23,8 +24,9 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops import conv1d, snake
-from ..ops.kernels.legacy_tail import (DILATIONS, TailWeights, legacy_tail_ct,
-                                       legacy_tail_poly_ct)
+from ..ops.kernels.conv_unit import cached_prepare
+from ..ops.kernels.legacy_tail import (DILATIONS, PreparedTail, TailWeights, legacy_tail_ct,
+                                       legacy_tail_poly_ct, pack)
 from ..ops.kernels.up_fused import UpWeights, up_fused, up_fused_ct
 from ..utils import init as pinit
 from .layers import ChannelNorm, ConvUnit, LegacyUnit
@@ -97,6 +99,23 @@ class Decoder(nn.Module):
             torch.stack([u.conv2.bias for u in us]),
             self.tail_alpha, self.out_conv.weight, self.out_conv.bias)
 
+    def tail_prepared(self) -> PreparedTail:
+        """The stacked tail weights and the kernel's buffer, built once and
+        cached on the tail's parameters (``cached_prepare``: rebuilt after
+        ``load_state_dict`` or an in-place change; built on every call,
+        never cached, where a parameter is an inference tensor)."""
+        us = self.tail_units
+        src = tuple(t for u in us for t in (u.alpha1, u.conv1.weight, u.conv1.bias,
+                                            u.alpha2, u.conv2.weight, u.conv2.bias))
+        src += (self.tail_alpha, self.out_conv.weight, self.out_conv.bias)
+
+        def build() -> PreparedTail:
+            with torch.no_grad():
+                w = self.tail_weights()
+                return PreparedTail(w, pack(w))
+
+        return cached_prepare(self.tail_alpha, src, build)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, T', feature_dim) -> audio (B, T' * prod(decode_rates))."""
         mc = self.mc
@@ -121,11 +140,11 @@ class Decoder(nn.Module):
             else:
                 h = up_fused_ct(h, st.up_weights(), scale=rate)
         if phases is not None:
-            return legacy_tail_poly_ct(*phases, self.tail_weights())
+            return legacy_tail_poly_ct(*phases, self.tail_prepared())
         if not in_t:                                           # geometries that never narrow
             h = h.transpose(1, 2).contiguous()
         if mc.decoder_last_layer == "legacy":
-            return legacy_tail_ct(h, self.tail_weights())
+            return legacy_tail_ct(h, self.tail_prepared())
         for u in self.tail_units:
             h = u(h, channels_last=False)
         h = conv1d(snake(h, self.tail_alpha[:, None]), self.out_conv.weight,

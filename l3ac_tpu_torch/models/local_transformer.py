@@ -4,7 +4,9 @@
 Per layer ``x = LocalMHA(x) + x; x = FF(x) + x`` with pre-LayerNorms (eps
 1e-5), a GEGLU feed-forward and one DynamicPositionBias shared by the
 stack's layers. dim_head = dim // 4, heads = 6, ff inner = int(dim * 4 * 2 / 3).
-The attention is the ``local_attention`` kernel (plain version on the CPU).
+The attention is the ``local_attention`` kernel (plain version on the CPU),
+which reads the heads of the qkv projection in place (no head copies) and
+the position bias from its (2n, heads) Toeplitz table.
 The linear layers are called as modules, so that an ``Int8Linear`` that
 ``ops.quantized.quantize_params`` put in their place runs the ``int8_matmul``
 kernel.
@@ -24,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import conv1d_strided_matmul, geglu, layer_norm, upsample_linear
-from ..ops.attention import dynamic_position_bias
+from ..ops.attention import dynamic_position_table
 from ..ops.kernels.local_attention import local_attention
 from ..ops.norms import LAYER_NORM_EPS
 from ..utils import init as pinit
@@ -74,8 +76,9 @@ class DynamicPositionBias(nn.Module):
             pinit.torch_default_(w, b, gen, w.shape[1])
 
     def forward(self, window_size: int) -> torch.Tensor:
-        """-> (heads, n, 2n) additive bias."""
-        return dynamic_position_bias(dict(self.named_parameters()), window_size)
+        """-> the (2n, heads) table of the additive bias, bias[h, i, j] =
+        table[|n + i - j|, h] (``ops.attention.expand_position_table``)."""
+        return dynamic_position_table(dict(self.named_parameters()), window_size)
 
 
 class Attention(nn.Module):
@@ -86,18 +89,20 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(tc.dim, 3 * tc.inner_dim, bias=False, device=device)
         self.out = nn.Linear(tc.inner_dim, tc.dim, bias=False, device=device)
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
-        """Pre-norm local MHA; x: (B, T, C), T a window multiple."""
+    def forward(self, x: torch.Tensor, bias_table: torch.Tensor | None) -> torch.Tensor:
+        """Pre-norm local MHA; x: (B, T, C), T a window multiple; bias_table
+        (2n, heads). The heads are views of the projection, and the kernel's
+        (B, T, heads, dim_head) output merges them as a view."""
         B, T, _ = x.shape
         tc = self.tc
         h = layer_norm(x, self.norm.weight, self.norm.bias)
         q, k, v = self.qkv(h).chunk(3, dim=-1)
 
         def heads(t):
-            return t.reshape(B, T, tc.heads, tc.dim_head).permute(0, 2, 1, 3).contiguous()
+            return t.view(B, T, tc.heads, tc.dim_head).permute(0, 2, 1, 3)
 
         out = local_attention(heads(q), heads(k), heads(v),
-                              window_size=tc.window_size, bias=bias)
+                              window_size=tc.window_size, bias_table=bias_table)
         out = out.permute(0, 2, 1, 3).reshape(B, T, tc.inner_dim)
         return self.out(out)
 
@@ -140,7 +145,7 @@ class LocalTrans(nn.Module):
 
     @torch.no_grad()
     def attach_bias_cache(self) -> None:
-        """Precompute the (heads, n, 2n) position bias from the current MLP
+        """Precompute the (2n, heads) position-bias table from the current MLP
         weights. Recomputed on every call, so a cache never outlives the
         weights it came from."""
         self.bias_cache = self.dyn_bias(self.tc.window_size)
@@ -152,11 +157,11 @@ class LocalTrans(nn.Module):
         pad = (-T) % self.tc.window_size
         if pad:
             x = F.pad(x, (0, 0, 0, pad))
-        bias = self.bias_cache
-        if bias is None:
-            bias = self.dyn_bias(self.tc.window_size)
+        table = self.bias_cache
+        if table is None:
+            table = self.dyn_bias(self.tc.window_size)
         for layer in self.layers:
-            x = layer.attn(x, bias) + x
+            x = layer.attn(x, table) + x
             x = layer.ff(x) + x
         return x[:, :T] if pad else x
 

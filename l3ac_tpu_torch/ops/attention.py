@@ -27,35 +27,53 @@ def local_attention_mask(window_size: int, device=None) -> torch.Tensor:
     return j <= (i + n)
 
 
-def dynamic_position_bias(params: dict, window_size: int) -> torch.Tensor:
-    """DynamicPositionBias MLP -> (heads, n, 2n) additive bias.
+def dynamic_position_table(params: dict, window_size: int) -> torch.Tensor:
+    """DynamicPositionBias MLP over the distances 0..2n-1 -> (2n, heads).
 
     ``params`` holds torch-layout Linear weights ``w0`` (d, 1), ``w1`` (d, d),
-    ``w2`` (heads, d) and biases ``b0``, ``b1``, ``b2``. The MLP (Linear,
-    SiLU, Linear, SiLU, Linear) runs over the distances 0..2n-1 into a
-    (2n, heads) table; the bias is Toeplitz,
-    ``bias[h, i, j] = table[|n + i - j|, h]``.
+    ``w2`` (heads, d) and biases ``b0``, ``b1``, ``b2``: Linear, SiLU,
+    Linear, SiLU, Linear.
     """
     n = window_size
     w0 = params["w0"]
     rel = torch.arange(2 * n, dtype=torch.float32, device=w0.device)[:, None]
     h = F.silu(F.linear(rel, w0, params["b0"]))
     h = F.silu(F.linear(h, params["w1"], params["b1"]))
-    table = F.linear(h, params["w2"], params["b2"])          # (2n, heads)
-    i = torch.arange(n, device=w0.device)[:, None]
-    j = torch.arange(2 * n, device=w0.device)[None, :]
+    return F.linear(h, params["w2"], params["b2"])
+
+
+def expand_position_table(table: torch.Tensor) -> torch.Tensor:
+    """(2n, heads) table -> the (heads, n, 2n) Toeplitz bias
+    ``bias[h, i, j] = table[|n + i - j|, h]``."""
+    n = table.shape[0] // 2
+    i = torch.arange(n, device=table.device)[:, None]
+    j = torch.arange(2 * n, device=table.device)[None, :]
     return table[(n + i - j).abs()].permute(2, 0, 1).contiguous()
 
 
+def dynamic_position_bias(params: dict, window_size: int) -> torch.Tensor:
+    """DynamicPositionBias MLP -> (heads, n, 2n) additive bias: the
+    expansion of :func:`dynamic_position_table`."""
+    return expand_position_table(dynamic_position_table(params, window_size))
+
+
 def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window_size: int,
-                    bias: torch.Tensor | None = None) -> torch.Tensor:
-    """q, k, v: (B, H, T, D), T a multiple of window_size; bias: (H, n, 2n)
-    or None. Returns (B, H, T, D)."""
+                    window_size: int, bias: torch.Tensor | None = None,
+                    bias_table: torch.Tensor | None = None) -> torch.Tensor:
+    """q, k, v: (B, H, T, D), T a multiple of window_size; bias: (H, n, 2n),
+    or its (2n, H) Toeplitz ``bias_table`` (at most one of the two), or
+    neither. Returns (B, H, T, D)."""
     B, H, T, D = q.shape
     n = window_size
     if T % n:
         raise ValueError(f"T = {T} is not a multiple of the window {n}")
+    if bias_table is not None:
+        if bias is not None:
+            raise ValueError("local_attention: pass bias or bias_table, not both")
+        if bias_table.shape != (2 * n, H):
+            raise ValueError(f"local_attention: bias_table {tuple(bias_table.shape)} "
+                             f"is not {(2 * n, H)}")
+        bias = expand_position_table(bias_table)
     W = T // n
     scale = D ** -0.5
 

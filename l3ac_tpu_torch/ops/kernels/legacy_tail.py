@@ -12,16 +12,16 @@ Semantics are those of the jnp path (``models/decoder.py`` with
 edges, which the kernel reproduces by zeroing outside [0, T) after every
 conv, as the Pallas kernel does.
 
-Bound on the H100: about 28 k fp32 operations per audio sample (three k7
-convs C -> C and three 1x1 convs at C = 24) against 4 C bytes read and 4
-written, so the fp32 rate bounds it. Design: one block per (batch, tile of
-684 samples) with a halo of 42 samples per side (3 (1 + 3 + 9) + 3). The
-block loads its tile in interleaved order into shared memory whichever mode
-the input has, so the Pallas kernel's per-phase tap routing (a workaround for
-Mosaic, which cannot interleave lanes) has no counterpart here. The chain
-runs in shared memory: the residual stream and one activation buffer, with
-all weights (55 KB at C = 24) beside them; each thread keeps 3 columns x C
-accumulators of a conv in registers. Only the audio is written.
+The kernel runs the products on the tensor cores (3xTF32 mma.sync, time as
+the M axis, the dilated k7 conv as 7 row-shifted products) from one weight
+buffer, :func:`pack`: the k7 and 1x1 weights in (out, in) rows zero-filled to
+multiples of 8 and split into TF32 hi / lo, the biases and alphas, and the
+snakes' reciprocals 1 / (alpha + eps). A caller that holds its weights
+prepares it once: :func:`prepared_tail` caches it on the weight tensors
+(``conv_unit.cached_prepare``: rebuilt when one of them is replaced or changed
+in place, never cached for an inference tensor), and ``models.decoder``
+passes the buffer it cached with its stacked weights. Bound on the H100 and
+design: the note at the head of ``csrc/legacy_tail.cu``.
 """
 
 from __future__ import annotations
@@ -33,9 +33,11 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels as K
-from ..activations import snake
+from ..activations import EPS, snake
 from ..resample import interleave
 from . import _build
+from .conv_unit import cached_prepare
+from .tc_gemm import split_tf32
 
 DILATIONS = (1, 3, 9)
 CHANNELS = (8, 12, 16, 24)  # the kernel's instantiations; every released config has 24
@@ -64,32 +66,78 @@ def legacy_tail_plain(x: torch.Tensor, w: TailWeights) -> torch.Tensor:
     return torch.tanh(h)[:, 0]
 
 
+class PreparedTail(NamedTuple):
+    """A tail's weights as both versions take them."""
+    weights: TailWeights  # stacked: the plain version's operands
+    packed: torch.Tensor  # the kernel's buffer (:func:`pack`)
+
+
+def padded_channels(C: int) -> int:
+    """Channels rounded up to the kernel's n8 tiles."""
+    return -(-C // 8) * 8
+
+
+def packed_floats(C: int) -> int:
+    """The floats of :func:`pack`'s buffer (``csrc/legacy_tail.cu`` Layout)."""
+    Cp = padded_channels(C)
+    return 2 * 3 * 7 * Cp * (Cp + 4) + 2 * 3 * Cp * (Cp + 4) + 27 * Cp + 4
+
+
+def _check_shapes(w: TailWeights, C: int, name: str) -> None:
+    shapes = {"a1": (3, C), "w1": (3, C, C, 7), "b1": (3, C), "a2": (3, C),
+              "w2": (3, C, C), "b2": (3, C), "ao": (C,), "wo": (1, C, 7), "bo": (1,)}
+    for k, shape in shapes.items():
+        if tuple(getattr(w, k).shape) != shape:
+            raise ValueError(f"{name}: {k} {tuple(getattr(w, k).shape)} is not {shape}")
+
+
 def pack(w: TailWeights) -> torch.Tensor:
-    """The kernel's one weight buffer: w1 (3, 7, Cin, Cout), w2 (3, Cin,
-    Cout), b1, a1, a2, b2 (3, C) each, ao (C), wo (7, C), bo, padded to a
-    multiple of 4 floats."""
-    parts = [w.w1.permute(0, 3, 2, 1), w.w2.permute(0, 2, 1), w.b1, w.a1, w.a2, w.b2,
-             w.ao, w.wo[0].t(), w.bo]
-    flat = torch.cat([p.reshape(-1) for p in parts])
-    return F.pad(flat, (0, (-flat.numel()) % 4)).contiguous()
+    """The kernel's one weight buffer, fp32 on the weights' device, in the
+    order of its shared-memory image: w1 (3, 7, Cout, Cin) TF32 hi, then lo;
+    w2 (3, Cout, Cin) hi, then lo, rows of Cp + 4 floats (Cp = C rounded up
+    to 8; the rest zero); then (3, Cp) b1, a1, 1 / (a1 + eps), a2,
+    1 / (a2 + eps), b2; (Cp) ao, 1 / (ao + eps); wo (7, Cp); bo and three
+    zeros. The reciprocals are fp32 quotients of the fp32 ``alpha + EPS``."""
+    C = w.ao.shape[0]
+    _check_shapes(w, C, "legacy_tail pack")
+    Cp = padded_channels(C)
+    with torch.no_grad():
+        w1 = w.w1.new_zeros(3, 7, Cp, Cp + 4)
+        w1[:, :, :C, :C] = w.w1.permute(0, 3, 1, 2)
+        w2 = w.w2.new_zeros(3, Cp, Cp + 4)
+        w2[:, :C, :C] = w.w2
+        vec = lambda t: F.pad(t, (0, Cp - C))
+        recip = lambda a: vec(1.0 / (a + EPS))
+        parts = [*split_tf32(w1), *split_tf32(w2), vec(w.b1), vec(w.a1), recip(w.a1),
+                 vec(w.a2), recip(w.a2), vec(w.b2), vec(w.ao), recip(w.ao),
+                 vec(w.wo[0].t()), F.pad(w.bo, (0, 3))]
+        return torch.cat([p.reshape(-1) for p in parts])
+
+
+def prepared_tail(w: TailWeights) -> torch.Tensor:
+    """:func:`pack`, cached on ``w``'s tensors by ``cached_prepare``."""
+    return cached_prepare(w.w1, tuple(w), lambda: pack(w))
 
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2 + \
     [ctypes.c_void_p]
 
 
-def _launch(x0: torch.Tensor, x1: torch.Tensor | None, w: TailWeights, T: int,
-            name: str) -> torch.Tensor:
+def _launch(x0: torch.Tensor, x1: torch.Tensor | None, w: TailWeights | PreparedTail,
+            T: int, name: str) -> torch.Tensor:
     B, C = x0.shape[:2]
     if C not in CHANNELS:
         raise ValueError(f"{name}: the kernel takes C in {CHANNELS}, got {C}")
-    shapes = {"a1": (3, C), "w1": (3, C, C, 7), "b1": (3, C), "a2": (3, C),
-              "w2": (3, C, C), "b2": (3, C), "ao": (C,), "wo": (1, C, 7), "bo": (1,)}
-    for k, shape in shapes.items():
-        if tuple(getattr(w, k).shape) != shape:
-            raise ValueError(f"{name}: {k} {tuple(getattr(w, k).shape)} is not {shape}")
-    wp = pack(w)
+    if isinstance(w, PreparedTail):
+        wp = w.packed
+    else:
+        _check_shapes(w, C, name)
+        wp = prepared_tail(w)
+    if wp.shape != (packed_floats(C),):
+        raise ValueError(f"{name}: packed weights {tuple(wp.shape)} do not match C = {C}")
     K.check_cuda({"x0": x0, "x1": x1, "weights": wp}, x0.device)
+    if _build.function("l3ac_legacy_tail_weight_floats", [ctypes.c_int])(C) != wp.numel():
+        raise RuntimeError(f"{name}: pack's layout differs from the kernel's")
     out = torch.empty((B, T), device=x0.device, dtype=x0.dtype)
     fn = _build.function("l3ac_legacy_tail", _ARGTYPES)
     err = fn(x0.data_ptr(), _build.ptr(x1), wp.data_ptr(), out.data_ptr(), B, C, T,
@@ -99,23 +147,29 @@ def _launch(x0: torch.Tensor, x1: torch.Tensor | None, w: TailWeights, T: int,
     return out
 
 
-def legacy_tail_poly_ct(x0: torch.Tensor, x1: torch.Tensor, w: TailWeights) -> torch.Tensor:
+def _plain_weights(w: TailWeights | PreparedTail) -> TailWeights:
+    return w.weights if isinstance(w, PreparedTail) else w
+
+
+def legacy_tail_poly_ct(x0: torch.Tensor, x1: torch.Tensor,
+                        w: TailWeights | PreparedTail) -> torch.Tensor:
     """Phase pair x0, x1 (B, C, Tt) of the interleaved input
-    (``x[.., 2 t + q] = x_q[.., t]``) -> audio (B, 2 Tt). Kernel on CUDA,
-    plain on CPU."""
+    (``x[.., 2 t + q] = x_q[.., t]``) -> audio (B, 2 Tt). ``w``: the weights,
+    or a :class:`PreparedTail` whose buffer the kernel takes as it is.
+    Kernel on CUDA, plain on CPU."""
     K.check_input(x0, "legacy_tail_poly_ct x0", ndim=3)
     K.check_input(x1, "legacy_tail_poly_ct x1", ndim=3)
     if x0.shape != x1.shape:
         raise ValueError(f"legacy_tail_poly_ct: phases {tuple(x0.shape)} and "
                          f"{tuple(x1.shape)} differ")
     if not K.route(x0, "legacy_tail_poly_ct"):
-        return legacy_tail_plain(interleave([x0, x1], 2), w)
+        return legacy_tail_plain(interleave([x0, x1], 2), _plain_weights(w))
     return _launch(x0, x1, w, 2 * x0.shape[2], "legacy_tail_poly_ct")
 
 
-def legacy_tail_ct(x: torch.Tensor, w: TailWeights) -> torch.Tensor:
+def legacy_tail_ct(x: torch.Tensor, w: TailWeights | PreparedTail) -> torch.Tensor:
     """Interleaved (B, C, T) -> audio (B, T). Kernel on CUDA, plain on CPU."""
     K.check_input(x, "legacy_tail_ct x", ndim=3)
     if not K.route(x, "legacy_tail_ct"):
-        return legacy_tail_plain(x, w)
+        return legacy_tail_plain(x, _plain_weights(w))
     return _launch(x, None, w, x.shape[2], "legacy_tail_ct")

@@ -39,9 +39,9 @@ FAMILIES = (
     ("conv_unit (C % 64 == 0): dw conv + ChannelNorm", ("dw_norm_kernel",)),
     ("conv_unit_ct: narrow fused, tensor cores (3xTF32)", ("narrow_kernel",)),
     ("conv_unit (C % 64 != 0): SIMT", ("conv_unit_kernel",)),
-    ("local_attention", ("local_attention",)),
+    ("local_attention: tensor cores (3xTF32)", ("attention_kernel",)),
     ("up_fused_ct / up_fused", ("up_fused",)),
-    ("legacy_tail", ("legacy_tail",)),
+    ("legacy_tail: tensor cores (3xTF32)", ("legacy_tail",)),
     ("first_block", ("first_block",)),
 )
 

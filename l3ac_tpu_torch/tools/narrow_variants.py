@@ -19,15 +19,12 @@ port runs.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import hashlib
-import re
-import subprocess
 
 import numpy as np
 import torch
 
-from . import describe, time_ms
+from . import build_variants, describe, ptxas_usage, time_ms
+from . import variant_source as _variant_source
 from ..ops.kernels import _build
 from ..ops.kernels import conv_unit as cu
 
@@ -89,56 +86,13 @@ VARIANTS = (
 
 def variant_source(subs) -> str:
     """The kernel's source with ``subs`` applied; each must match exactly once."""
-    src = SOURCE.read_text()
-    for old, new in subs:
-        if src.count(old) != 1:
-            raise ValueError(f"narrow_variants: {old[:60]!r} matches {src.count(old)} times")
-        src = src.replace(old, new)
-    return src
-
-
-def build() -> list[tuple[ctypes.CDLL, str]]:
-    """Every variant as its own library (cached by its source), and its
-    ptxas output."""
-    out = []
-    procs = []
-    for i, (_, subs, _) in enumerate(VARIANTS):
-        src = variant_source(subs)
-        h = hashlib.sha256(src.encode() + _build.source_hash().encode()).hexdigest()[:16]
-        d = _build.BUILD_DIR / f"narrow_variants-{h}"
-        d.mkdir(parents=True, exist_ok=True)
-        (d / f"v{i}.cu").write_text(src)
-        procs.append((d, i, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR), "-shared",
-             str(d / f"v{i}.cu"), "-o", str(d / f"v{i}.so")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    for d, i, p in procs:
-        log, _ = p.communicate()
-        if p.returncode:
-            raise RuntimeError(f"narrow_variants: variant {i} failed to build:\n{log}")
-        lib = ctypes.CDLL(str(d / f"v{i}.so"))
-        lib.l3ac_conv_unit_narrow.argtypes = cu._NARROW_ARGTYPES
-        lib.l3ac_conv_unit_narrow.restype = ctypes.c_int
-        out.append((lib, log))
-    return out
+    return _variant_source(SOURCE, subs, "narrow_variants")
 
 
 def registers(log: str) -> str:
-    """'C<=8k: registers / spill bytes' for the instances at C = 24, 48, 96."""
-    found = {}
-    entry = None
-    for line in log.splitlines():
-        m = re.search(r"narrow_kernelILi(\d+)E", line)
-        if "Compiling entry" in line:
-            entry = int(m.group(1)) if m else None
-        elif entry in (3, 6, 12):
-            r = re.search(r"Used (\d+) registers", line)
-            s = re.search(r"(\d+) bytes spill stores", line)
-            if r:
-                found.setdefault(entry, [None, None])[0] = r.group(1)
-            if s:
-                found.setdefault(entry, [None, None])[1] = s.group(1)
-    return ", ".join(f"C={8 * k}: {v[0]} regs / {v[1]} B spill" for k, v in sorted(found.items()))
+    """The ptxas usage of the instances at C = 24, 48, 96."""
+    return ", ".join(f"C={8 * k}: {ptxas_usage(log, f'narrow_kernelILi{k}E')}"
+                     for k in (3, 6, 12))
 
 
 def main(argv=None) -> int:
@@ -147,7 +101,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("narrow_variants: CUDA is not available (it times kernels on the card)")
     dev = torch.device("cuda")
-    libs = build()
+    libs = build_variants("narrow_variants", SOURCE, [subs for _, subs, _ in VARIANTS],
+                          "l3ac_conv_unit_narrow", cu._NARROW_ARGTYPES)
     print(f"[{describe(dev)}] conv_unit_narrow variants, ms per call (max abs error)", flush=True)
     for i, ((name, _, _), (_, log)) in enumerate(zip(VARIANTS, libs)):
         print(f"  [{i}] {name}: {registers(log)}", flush=True)

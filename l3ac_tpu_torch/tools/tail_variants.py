@@ -1,0 +1,98 @@
+"""The legacy tail kernel (``csrc/legacy_tail.cu``) beside its measured
+alternatives and ablations, at the tail's shape in one 1kbps 8 x 10 s
+decode: the phase pair (8, 24, 80055) x 2 of the last up path.
+
+    python3 -m l3ac_tpu_torch.tools.tail_variants
+
+Card only. Each variant is the kernel's source with named text
+substitutions (each must apply exactly once), built with the kernel
+library's nvcc flags into its own library, called on the same seeded inputs
+and timed with CUDA events. Variants that compute the tail are held against
+the plain version (max abs error <= 1e-4 x max(1, max |plain|)); ablations
+drop a part of the work, are only timed, and say where the time goes.
+Prints ptxas's registers and spills of each variant at C = 24 and its ms
+per call. Variant 0 is what the port runs.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from . import build_variants, describe, ptxas_usage, time_ms
+from ..ops.kernels import _build
+from ..ops.kernels import legacy_tail as lt
+
+SOURCE = _build.CSRC_DIR / "legacy_tail.cu"
+B, C, T = 8, 24, 160110  # chip_smoke.py: the tail of one 8 x 10 s decode
+TOL = 1e-4
+ITERS = 20
+
+# (name, substitutions, computes the tail)
+VARIANTS = (
+    ("16 warps x 3 slabs (768-row tiles), 4 input loads in flight per thread", (), True),
+    ("12 input loads in flight per thread",
+     (("constexpr int kBatch = 4;", "constexpr int kBatch = 12;"),), True),
+    ("16 warps x 2 slabs (512-row tiles, 428 samples: 20 % halo)",
+     (("constexpr int kSlabs = 3;", "constexpr int kSlabs = 2;"),), True),
+    ("ablation: no sine in the snakes",
+     (("const float s = sinf(a * h);", "const float s = a * h;"),), False),
+    ("ablation: one TF32 pass per product step (hi . hi)",
+     (("  ptx::mma_tf32(d, al, bh);\n  ptx::mma_tf32(d, ah, bl);\n", ""),), False),
+    ("ablation: one k7 tap of seven",
+     (("#pragma unroll 1\n        for (int k = 0; k < kTaps; ++k) {",
+       "#pragma unroll 1\n        for (int k = 3; k < 4; ++k) {"),), False),
+    ("ablation: input and output only (no units)",
+     (("for (int u = 0; u < kUnits; ++u) {", "for (int u = 0; u < 0; ++u) {"),), False),
+)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("tail_variants: CUDA is not available (it times kernels on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain version in fp32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    libs = build_variants("tail_variants", SOURCE, [subs for _, subs, _ in VARIANTS],
+                          "l3ac_legacy_tail", lt._ARGTYPES)
+    rng = np.random.default_rng(0)
+
+    def t(*shape, std=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * std).astype(np.float32)).to(dev)
+
+    pos = lambda *shape: 1.0 + t(*shape, std=0.3).abs()
+    w = lt.TailWeights(pos(3, C), t(3, C, C, 7, std=0.1), t(3, C, std=0.1), pos(3, C),
+                       t(3, C, C, std=0.1), t(3, C, std=0.1), pos(C), t(1, C, 7, std=0.1),
+                       t(1, std=0.05))
+    x = t(B, C, T)
+    x0, x1 = x[..., 0::2].contiguous(), x[..., 1::2].contiguous()
+    packed = lt.pack(w)
+    want = lt.legacy_tail_plain(x, w)
+    out = torch.empty(B, T, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    print(f"[{describe(dev)}] legacy tail variants at (B, C, T) = ({B}, {C}, {T}), "
+          "phase-pair input, ms per call", flush=True)
+    for i, ((name, _, exact), (lib, log)) in enumerate(zip(VARIANTS, libs)):
+        def call(lib=lib):
+            err = lib.l3ac_legacy_tail(x0.data_ptr(), x1.data_ptr(), packed.data_ptr(),
+                                       out.data_ptr(), B, C, T, x0.stride(0), x0.stride(1),
+                                       stream)
+            if err:
+                raise RuntimeError(f"tail_variants [{i}]: CUDA error {err}")
+        call()
+        torch.cuda.synchronize()
+        err = (out - want).abs().max().item()
+        if exact and not err <= TOL * max(1.0, want.abs().max().item()):
+            raise AssertionError(f"tail_variants [{i}]: max abs error {err}")
+        ms = time_ms(call, dev, ITERS)
+        print(f"  [{i}] {ms:.4f} ms{f' (max abs error {err:.1e})' if exact else ''}, "
+              f"{ptxas_usage(log, 'legacy_tail_kernelILi3E')}: {name}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,5 +1,8 @@
 """CUDA kernels against their plain versions on the card, at small shapes and
-with the options the 1kbps paths do not take (no ChannelNorm, GELU,
+with the options the 1kbps paths do not take (local_attention with the full
+bias and with the table, on contiguous operands and on strided head views,
+n = 750 at B = 1, D = 8 and 32; the tail at C = 8, 12, 16, 24 with T across
+its tiles; no ChannelNorm, GELU,
 dilation, narrow debug widths, ragged tiles, no bias, upsample rate 4), at
 the wide conv_unit widths on the tensor-core path (C = 192, 256, 512 at
 dilations 1, 3, 9) and its shape rule, conv_unit_ct on the narrow
@@ -237,16 +240,31 @@ def test_first_block_kernel(dev, T, Cout):
     _check(fb.first_block(x, w), fb.first_block_plain(x, w))
 
 
-@pytest.mark.parametrize("n,W,D,with_bias", [(16, 3, 32, True), (64, 2, 32, False),
-                                              (100, 1, 32, True), (65, 4, 8, True)])
-def test_local_attention_kernel(dev, n, W, D, with_bias):
+@pytest.mark.parametrize("n,W,D,bias,strided,B,H", [
+    (16, 3, 32, "full", False, 2, 3), (64, 2, 32, None, False, 2, 3),
+    (100, 1, 32, "full", False, 2, 3), (65, 4, 8, "full", False, 2, 3),
+    (16, 3, 32, "table", True, 2, 3), (65, 4, 8, "table", True, 2, 3),
+    (100, 2, 8, "full", True, 2, 3), (250, 2, 32, "table", False, 2, 6),
+    (750, 3, 32, "table", True, 1, 6), (750, 2, 32, "full", True, 1, 2)])
+def test_local_attention_kernel(dev, n, W, D, bias, strided, B, H):
+    """The full bias and the (2n, H) table; contiguous operands and the
+    model's strided head views of one (B, T, 3 H D) projection."""
+    from l3ac_tpu_torch.ops.attention import expand_position_table
     from l3ac_tpu_torch.ops.kernels import local_attention as la
-    rng = np.random.default_rng(n * W)
-    B, H = 2, 3
-    q, k, v = (_t(rng, (B, H, n * W, D), 1.0, dev) for _ in range(3))
-    bias = _t(rng, (H, n, 2 * n), 1.0, dev) if with_bias else None
-    _check(la.local_attention(q, k, v, window_size=n, bias=bias),
-           la.local_attention_plain(q, k, v, window_size=n, bias=bias))
+    rng = np.random.default_rng(n * W + D)
+    T = n * W
+    if strided:
+        qkv = _t(rng, (B, T, 3 * H * D), 1.0, dev)
+        q, k, v = (c.view(B, T, H, D).permute(0, 2, 1, 3) for c in qkv.chunk(3, dim=-1))
+    else:
+        q, k, v = (_t(rng, (B, H, T, D), 1.0, dev) for _ in range(3))
+    table = _t(rng, (2 * n, H), 1.0, dev) if bias == "table" else None
+    full = _t(rng, (H, n, 2 * n), 1.0, dev) if bias == "full" else None
+    want = la.local_attention_plain(q, k, v, window_size=n,
+                                    bias=full if table is None else expand_position_table(table))
+    got = la.local_attention(q, k, v, window_size=n, bias=full, bias_table=table)
+    assert got.shape == (B, H, T, D) and got.permute(0, 2, 1, 3).is_contiguous()
+    _check(got, want)
 
 
 @pytest.mark.parametrize("channels_last", [True, False])
@@ -277,7 +295,7 @@ def test_up_fused_kernel_without_norm_at_scale_one(dev):
     _check(uf.up_fused_ct(x, w, scale=1), uf.up_fused_plain(x, w, scale=1, channel_dim=1))
 
 
-@pytest.mark.parametrize("C,T", [(24, 2000), (24, 51), (8, 1500)])
+@pytest.mark.parametrize("C,T", [(24, 2000), (24, 51), (8, 1500), (12, 1369), (16, 700)])
 @pytest.mark.parametrize("poly", [True, False])
 def test_legacy_tail_kernel(dev, C, T, poly):
     from l3ac_tpu_torch.ops.kernels import legacy_tail as lt
@@ -303,6 +321,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     q = torch.zeros(1, 2, 30, 32, device=dev)
     with pytest.raises(ValueError, match="multiple"):
         la.local_attention(q, q, q, window_size=16)
+    q = torch.zeros(1, 2, 32, 32, device=dev)
+    odd_stride = torch.zeros(1, 2, 32, 33, device=dev)[..., 1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        la.local_attention(odd_stride, q, q, window_size=16)
+    shifted = torch.zeros(2 * 32 * 32 + 1, device=dev)[1:].view(1, 2, 32, 32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        la.local_attention(q, shifted, q, window_size=16)
+    with pytest.raises(ValueError, match="not both"):
+        la.local_attention(q, q, q, window_size=16, bias=torch.zeros(2, 16, 32, device=dev),
+                           bias_table=torch.zeros(32, 2, device=dev))
     from l3ac_tpu_torch.ops.kernels import legacy_tail as lt
     from l3ac_tpu_torch.ops.kernels import up_fused as uf
     w = uf.UpWeights(torch.zeros(6, 8, device=dev), torch.zeros(6, device=dev), None, None)

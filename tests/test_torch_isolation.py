@@ -22,7 +22,8 @@ def test_import_pulls_in_no_jax():
             "l3ac_tpu_torch.ops.kernels.local_attention, l3ac_tpu_torch.models.zoo, "
             "l3ac_tpu_torch.ops.quantized, l3ac_tpu_torch.ops.kernels.int8_matmul, "
             "l3ac_tpu_torch.tools.bisect_kernel, l3ac_tpu_torch.tools.interleave_probe, "
-            "l3ac_tpu_torch.tools.tc_variants, l3ac_tpu_torch.ops.kernels.tc_gemm; "
+            "l3ac_tpu_torch.tools.tc_variants, l3ac_tpu_torch.ops.kernels.tc_gemm, "
+            "l3ac_tpu_torch.tools.attention_variants, l3ac_tpu_torch.tools.tail_variants; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'l3ac_tpu' or m.startswith('l3ac_tpu.')]; "
             "assert not bad, bad; print('clean')")
