@@ -3,7 +3,8 @@
 
 A k3 head conv, then per stage ``depth`` residual ConvUnits -> EnhanceBlock ->
 up path (1x1 conv -> linear upsample x rate -> optional ChannelNorm, the
-``up_fused`` / ``up_fused_ct`` kernel), then the tail:
+``up_fused`` / ``up_fused_ct`` kernels, from buffers prepared once,
+``up_prepared``), then the tail:
 - ``legacy``: 3 LegacyUnits at dilations 1 / 3 / 9 -> snake -> conv k7 ->
   tanh, one kernel. When the last rate is 2 the last up path hands the tail
   its two phase arrays (``legacy_tail_poly_ct``) and the interleaved
@@ -27,7 +28,7 @@ from ..ops import conv1d, snake
 from ..ops.kernels.conv_unit import cached_prepare
 from ..ops.kernels.legacy_tail import (DILATIONS, PreparedTail, TailWeights, legacy_tail_ct,
                                        legacy_tail_poly_ct, pack)
-from ..ops.kernels.up_fused import UpWeights, up_fused, up_fused_ct
+from ..ops.kernels.up_fused import UpPrepared, UpWeights, up_fused, up_fused_ct
 from ..utils import init as pinit
 from .layers import ChannelNorm, ConvUnit, LegacyUnit
 from .tconv import EnhanceBlock
@@ -55,6 +56,17 @@ class Stage(nn.Module):
         n = self.up_norm
         return UpWeights(self.up_conv.weight[:, :, 0], self.up_conv.bias,
                          None if n is None else n.weight, None if n is None else n.bias)
+
+    def up_prepared(self) -> UpPrepared:
+        """The up path's kernel buffers (one per route, each built at its
+        first use), cached on the conv and norm parameters
+        (``cached_prepare``: rebuilt after ``load_state_dict`` or an in-place
+        change; built on every call, never cached, where a parameter is an
+        inference tensor)."""
+        n = self.up_norm
+        src = (self.up_conv.weight, self.up_conv.bias)
+        src += () if n is None else (n.weight, n.bias)
+        return cached_prepare(self.up_conv.weight, src, UpPrepared)
 
 
 class Decoder(nn.Module):
@@ -133,12 +145,13 @@ class Decoder(nn.Module):
             for u in st.units:
                 h = u(h, channels_last=not in_t)
             h = st.enhance(h, channels_last=not in_t).contiguous()
+            uw, prep = st.up_weights(), st.up_prepared()
             if not in_t:
-                h = up_fused(h, st.up_weights(), scale=rate)
+                h = up_fused(h, uw, scale=rate, prepared=prep)
             elif poly and si == last:
-                phases = up_fused_ct(h, st.up_weights(), scale=rate, phase_split=True)
+                phases = up_fused_ct(h, uw, scale=rate, phase_split=True, prepared=prep)
             else:
-                h = up_fused_ct(h, st.up_weights(), scale=rate)
+                h = up_fused_ct(h, uw, scale=rate, prepared=prep)
         if phases is not None:
             return legacy_tail_poly_ct(*phases, self.tail_prepared())
         if not in_t:                                           # geometries that never narrow

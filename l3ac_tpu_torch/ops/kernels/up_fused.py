@@ -3,27 +3,34 @@ repeated at both edges), ChannelNorm over Co (eps 1e-8 inside the sqrt).
 
 Replaces ``l3ac_tpu/ops/pallas/upsample.py:up_fused_ct`` (body ``_kernel_ct``,
 (B, C, T), with ``phase_split``) and ``:up_fused`` (body ``_kernel``,
-(B, T, C)) with one kernel, ``csrc/up_fused.cu``, which takes the input and
-output strides and so serves both wrappers.
+(B, T, C)). Two kernels, chosen by shape (:func:`route_for`), never by failure:
+
+- ``csrc/up_fused_tc.cu`` (route ``"tc"``): (B, T, C) with Ci a multiple of 4
+  and Co a multiple of 32 up to 256, the wide stages of every released
+  config. The conv runs on the tensor cores (3xTF32 mma.sync, time as the M
+  axis); a block owns all Co columns of
+  62 rows and its two halo rows, and its epilogue blends, normalizes and
+  stores each output row at its interleaved address.
+- ``csrc/up_fused.cu`` (route ``"stream"``): a streaming pass for
+  Ci <= 128 and Co <= 64 in either layout (the narrow (B, C, T) stages,
+  ``phase_split`` included), bound by its bytes; its conv also runs on the
+  tensor cores, with the output channels as the M axis.
+
+A shape that neither takes raises on a CUDA tensor; the plain version runs
+only for a CPU tensor.
 
 Semantics are those of the jnp chain (``models/decoder.py:_up_path``): conv,
 ``upsample_linear`` with the phase weights of ``ops/resample.py``, then the
 norm. ChannelNorm is per output position, so each phase is normalized on its
 own. Phase p of the output, ``out[.., t s + p]``, reads
-``z[t - 1], z[t], z[t + 1]`` of ``z = W x + b``.
-
-Bound on the H100: per input column 2 Ci Co operations for the conv and
-about 8 s Co for blend and norm, against 4 Ci bytes read and 4 s Co bytes
-written; the wide (B, T, C) stages sit near the fp32 rate, the narrow
-(B, C, T) ones on memory. Design: one block per (batch, tile of 32 or 64
-input columns). The tile and one column on each side (clamped into [0, T),
-which is torch's ``align_corners=False`` edge rule) go to shared memory; z
-for those columns is computed there, four output channels per thread; the
-per-(column, phase) moments over Co follow; then every output element is
-blended, normalized and stored straight to its final address. The Pallas
-kernel emits s phase arrays and an XLA pass interleaves them, because Mosaic
-cannot interleave lanes; here the interleave is the store address, and
+``z[t - 1], z[t], z[t + 1]`` of ``z = W x + b``. The Pallas kernel emits s
+phase arrays and an XLA pass interleaves them, because Mosaic cannot
+interleave lanes; here the interleave is the store address, and
 ``phase_split`` only changes that address.
+
+The kernels read their weights from a buffer prepared once per weight set
+and route (:class:`UpPrepared`, cached by :func:`prepared_up` or, in the
+model, ``Stage.up_prepared``), never transposed per call.
 """
 
 from __future__ import annotations
@@ -38,9 +45,13 @@ from .. import kernels as K
 from ..norms import channel_norm
 from ..resample import interleave, upsample_phases
 from . import _build
+from .conv_unit import cached_prepare
 
-MAX_C = 512
 MAX_SCALE = 16
+TC_MAX_CO = 256                        # up_fused_tc.cu: Co % 32 == 0, Co <= 256, Ci % 4 == 0
+STREAM_MAX_CI, STREAM_MAX_CO = 128, 64  # up_fused.cu
+TC_OWN_ROWS = 62                        # up_fused_tc.cu: rows a block stores (64 z rows)
+ROUTES: dict[str, int] = {"tc": 0, "stream": 0}  # launches by kernel
 
 
 class UpWeights(NamedTuple):
@@ -66,65 +77,130 @@ def up_fused_plain(x: torch.Tensor, w: UpWeights, *, scale: int, channel_dim: in
     return tuple(phases) if phase_split else interleave(phases, t_dim)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 7 + \
+def route_for(Ci: int, Co: int, channels_last: bool) -> str | None:
+    """The kernel that takes this shape: ``"tc"``, ``"stream"``, or None."""
+    if channels_last and Ci % 4 == 0 and Co % 32 == 0 and 32 <= Co <= TC_MAX_CO:
+        return "tc"
+    if 1 <= Ci <= STREAM_MAX_CI and 1 <= Co <= STREAM_MAX_CO:
+        return "stream"
+    return None
+
+
+def prepare_up(w: UpWeights, route: str) -> torch.Tensor:
+    """One fp32 buffer: the conv weight as its kernel reads it, then b, then
+    norm_w and norm_b where there is a norm. ``"tc"``: W (Co, Ci) in its
+    nn.Linear layout (K-major), the tensor-core kernel's B operand (split
+    into TF32 hi / lo as its fragments are loaded).
+    ``"stream"``: W zero-padded to (Co rounded up to 16, Ci rounded up to 8,
+    plus 4), the A operand's rows as the kernel stages them."""
+    with torch.no_grad():
+        Co, Ci = w.w.shape
+        if route == "tc":
+            wk = w.w
+        elif route == "stream":
+            wk = F.pad(w.w, (0, -(-Ci // 8) * 8 + 4 - Ci, 0, -(-Co // 16) * 16 - Co))
+        else:
+            raise ValueError(f"prepare_up: unknown route {route!r}")
+        parts = [wk, w.b] + ([] if w.norm_w is None else [w.norm_w, w.norm_b])
+        return torch.cat([t.reshape(-1).float() for t in parts])
+
+
+class UpPrepared(dict):
+    """route -> :func:`prepare_up` buffer, each built at its first use; one
+    object per weight set (its cache is :func:`prepared_up` or
+    ``Stage.up_prepared``, through ``cached_prepare``)."""
+
+    def buffer(self, route: str, w: UpWeights) -> torch.Tensor:
+        if route not in self:
+            self[route] = prepare_up(w, route)
+        return self[route]
+
+
+def _sources(w: UpWeights) -> tuple[torch.Tensor, ...]:
+    return tuple(t for t in w if t is not None)
+
+
+def prepared_up(w: UpWeights) -> UpPrepared:
+    """The :class:`UpPrepared` of ``w``, cached on its tensors (rebuilt when
+    one changes, never cached for inference tensors)."""
+    return cached_prepare(w.w, _sources(w), UpPrepared)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 7 + \
     [ctypes.c_int, ctypes.c_void_p]
+_TC_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 ORDER_TIME, ORDER_CHANNEL, ORDER_PHASE = 0, 1, 2  # fastest axis of the stores
 
 
 def _launch(x: torch.Tensor, w: UpWeights, scale: int, *, channels_last: bool,
-            phase_split: bool, name: str):
+            phase_split: bool, name: str, prepared: UpPrepared | None):
     B = x.shape[0]
     Ci, T = (x.shape[2], x.shape[1]) if channels_last else (x.shape[1], x.shape[2])
     Co = w.w.shape[0]
     if w.w.shape != (Co, Ci) or w.b.shape != (Co,):
         raise ValueError(f"{name}: weight {tuple(w.w.shape)} does not map Ci = {Ci}")
-    if not (1 <= Ci <= MAX_C and 4 <= Co <= MAX_C and Co % 4 == 0):
-        raise ValueError(f"{name}: the kernel takes Ci <= {MAX_C} and Co a multiple "
-                         f"of 4 up to {MAX_C}, got Ci = {Ci}, Co = {Co}")
     if not 1 <= scale <= MAX_SCALE:
         raise ValueError(f"{name}: scale {scale} outside 1..{MAX_SCALE}")
     if (w.norm_w is None) != (w.norm_b is None):
         raise ValueError(f"{name}: norm weight and bias go together")
-    wt = w.w.t().contiguous()                                   # (Ci, Co)
-    K.check_cuda({"x": x, "wt": wt, "b": w.b, "norm_w": w.norm_w,
-                  "norm_b": w.norm_b}, x.device)
+    route = route_for(Ci, Co, channels_last)
+    if route is None:
+        raise ValueError(
+            f"{name}: no kernel takes Ci = {Ci}, Co = {Co} "
+            f"({'(B, T, C)' if channels_last else '(B, C, T)'}): the tensor-core kernel "
+            f"takes (B, T, C) with Ci % 4 == 0 and Co a multiple of 32 up to {TC_MAX_CO}, "
+            f"the streaming one Ci <= {STREAM_MAX_CI} and Co <= {STREAM_MAX_CO}")
+    buf = (prepared if prepared is not None else prepared_up(w)).buffer(route, w)
+    K.check_cuda({"x": x, "prepared": buf}, x.device)
+    if route == "tc" and x.data_ptr() % 16:
+        raise ValueError(f"{name}: x must be 16-byte aligned")
     if phase_split:
         out = torch.empty((scale, B, Co, T), device=x.device, dtype=x.dtype)
-        os_ = (Co * T, T, 1, B * Co * T)
-        order = ORDER_PHASE
     elif channels_last:
         out = torch.empty((B, T * scale, Co), device=x.device, dtype=x.dtype)
-        os_ = (T * scale * Co, 1, scale * Co, Co)
-        order = ORDER_CHANNEL
     else:
         out = torch.empty((B, Co, T * scale), device=x.device, dtype=x.dtype)
-        os_ = (Co * T * scale, T * scale, scale, 1)
-        order = ORDER_TIME
-    xs = (x.stride(0), 1, Ci) if channels_last else (x.stride(0), T, 1)
-    fn = _build.function("l3ac_up_fused", _ARGTYPES)
-    err = fn(x.data_ptr(), wt.data_ptr(), w.b.data_ptr(), _build.ptr(w.norm_w),
-             _build.ptr(w.norm_b), out.data_ptr(), B, Ci, Co, T, scale,
-             *xs, *os_, order, _build.stream_ptr())
+    if route == "tc":
+        p_b = buf.data_ptr() + 4 * Ci * Co
+        p_nw, p_nb = (None, None) if w.norm_w is None else (p_b + 4 * Co, p_b + 8 * Co)
+        fn = _build.function("l3ac_up_fused_tc", _TC_ARGTYPES)
+        err = fn(x.data_ptr(), buf.data_ptr(), None, p_b, p_nw, p_nb, out.data_ptr(), B, Ci, Co,
+                 T, scale, _build.stream_ptr())
+    else:
+        if phase_split:
+            os_, order = (Co * T, T, 1, B * Co * T), ORDER_PHASE
+        elif channels_last:
+            os_, order = (T * scale * Co, 1, scale * Co, Co), ORDER_CHANNEL
+        else:
+            os_, order = (Co * T * scale, T * scale, scale, 1), ORDER_TIME
+        xs = (x.stride(0), 1, Ci) if channels_last else (x.stride(0), T, 1)
+        fn = _build.function("l3ac_up_fused", _ARGTYPES)
+        err = fn(x.data_ptr(), buf.data_ptr(), out.data_ptr(), int(w.norm_w is not None),
+                 B, Ci, Co, T, scale, *xs, *os_, order, _build.stream_ptr())
     _build.check(err, name)
+    ROUTES[route] += 1
     K.LAUNCHES[name] += 1
     return tuple(out.unbind(0)) if phase_split else out
 
 
-def up_fused_ct(x: torch.Tensor, w: UpWeights, *, scale: int,
-                phase_split: bool = False):
+def up_fused_ct(x: torch.Tensor, w: UpWeights, *, scale: int, phase_split: bool = False,
+                prepared: UpPrepared | None = None):
     """(B, Ci, T) -> (B, Co, T * scale), or with ``phase_split`` the tuple of
     ``scale`` phases (B, Co, T) with ``out[.., t * scale + p] ==
-    phases[p][.., t]``. Kernel on CUDA, plain on CPU."""
+    phases[p][.., t]``. Kernel on CUDA, plain on CPU. ``prepared``: the
+    weights' :class:`UpPrepared` (default: :func:`prepared_up`)."""
     K.check_input(x, "up_fused_ct x", ndim=3)
     if not K.route(x, "up_fused_ct"):
         return up_fused_plain(x, w, scale=scale, channel_dim=1, phase_split=phase_split)
     return _launch(x, w, scale, channels_last=False, phase_split=phase_split,
-                   name="up_fused_ct")
+                   name="up_fused_ct", prepared=prepared)
 
 
-def up_fused(x: torch.Tensor, w: UpWeights, *, scale: int) -> torch.Tensor:
+def up_fused(x: torch.Tensor, w: UpWeights, *, scale: int,
+             prepared: UpPrepared | None = None) -> torch.Tensor:
     """(B, T, Ci) -> (B, T * scale, Co). Kernel on CUDA, plain on CPU."""
     K.check_input(x, "up_fused x", ndim=3)
     if not K.route(x, "up_fused"):
         return up_fused_plain(x, w, scale=scale, channel_dim=2)
-    return _launch(x, w, scale, channels_last=True, phase_split=False, name="up_fused")
+    return _launch(x, w, scale, channels_last=True, phase_split=False, name="up_fused",
+                   prepared=prepared)

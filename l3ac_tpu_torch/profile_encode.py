@@ -40,7 +40,8 @@ FAMILIES = (
     ("conv_unit_ct: narrow fused, tensor cores (3xTF32)", ("narrow_kernel",)),
     ("conv_unit (C % 64 != 0): SIMT", ("conv_unit_kernel",)),
     ("local_attention: tensor cores (3xTF32)", ("attention_kernel",)),
-    ("up_fused_ct / up_fused", ("up_fused",)),
+    ("up_fused (B, T, C): tensor cores (3xTF32)", ("up_fused_tc_kernel",)),
+    ("up_fused_ct (B, C, T): streaming, tensor cores (3xTF32)", ("up_fused_stream_kernel",)),
     ("legacy_tail: tensor cores (3xTF32)", ("legacy_tail",)),
     ("first_block", ("first_block",)),
 )

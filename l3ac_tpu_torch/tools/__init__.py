@@ -8,8 +8,8 @@ Each runs on CUDA unless given ``--device cpu``, where the kernel wrappers run
 their plain versions and the times are host-clock times of those.
 
 The variant tools (``narrow_variants``, ``attention_variants``,
-``tail_variants``; card only) time a kernel beside text substitutions of its
-source, built by :func:`build_variants`.
+``tail_variants``, ``up_variants``; card only) time a kernel beside text
+substitutions of its source, built by :func:`build_variants`.
 """
 
 from __future__ import annotations

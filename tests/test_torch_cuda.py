@@ -3,7 +3,10 @@ with the options the 1kbps paths do not take (local_attention with the full
 bias and with the table, on contiguous operands and on strided head views,
 n = 750 at B = 1, D = 8 and 32; the tail at C = 8, 12, 16, 24 with T across
 its tiles; no ChannelNorm, GELU,
-dilation, narrow debug widths, ragged tiles, no bias, upsample rate 4), at
+dilation, narrow debug widths, ragged tiles, no bias, upsample rate 4), the
+up paths on both kernels (the tensor-core one at 512 -> 256 and 256 -> 96,
+the streaming one at every narrow and debug width, scales 1-5, T across
+their tiles, phase_split, the route rule and its raise), at
 the wide conv_unit widths on the tensor-core path (C = 192, 256, 512 at
 dilations 1, 3, 9) and its shape rule, conv_unit_ct on the narrow
 tensor-core kernel at every width up to 96 (ragged T, edge columns,
@@ -295,6 +298,114 @@ def test_up_fused_kernel_without_norm_at_scale_one(dev):
     _check(uf.up_fused_ct(x, w, scale=1), uf.up_fused_plain(x, w, scale=1, channel_dim=1))
 
 
+def _up_case(dev, Ci, Co, T, channels_last, norm=True, B=2, seed=0):
+    from l3ac_tpu_torch.ops.kernels import up_fused as uf
+    rng = np.random.default_rng([Ci, Co, T, seed])
+    w = uf.UpWeights(_t(rng, (Co, Ci), Ci ** -0.5, dev), _t(rng, (Co,), 0.3, dev),
+                     (1.0 + _t(rng, (Co,), 0.2, dev)) if norm else None,
+                     _t(rng, (Co,), 0.2, dev) if norm else None)
+    return w, _t(rng, (B, T, Ci) if channels_last else (B, Ci, T), 1.0, dev)
+
+
+def _up_check(got, want, edges=8):
+    """The whole output, then its first and last ``edges`` columns along time
+    (the last axis) on their own, where the clamp acts."""
+    _check(got, want)
+    _check(torch.cat([got[..., :edges], got[..., -edges:]], -1),
+           torch.cat([want[..., :edges], want[..., -edges:]], -1))
+
+
+@pytest.mark.parametrize("T", [1, 63, 65, 150, 1779])
+@pytest.mark.parametrize("scale", [3, 4, 5])
+@pytest.mark.parametrize("Ci,Co", [(512, 256), (256, 96)])
+def test_up_fused_tensor_core_kernel_at_the_real_widths(dev, Ci, Co, scale, T):
+    """(B, T, C) at the 1kbps / 0k75bps / 3kbps wide widths on
+    csrc/up_fused_tc.cu; T = 63 and 65 sit on either side of its 62-row
+    tile, 1779 is the 1kbps stage-0 length."""
+    from l3ac_tpu_torch.ops.kernels import up_fused as uf
+    w, x = _up_case(dev, Ci, Co, T, True)
+    before = uf.ROUTES["tc"]
+    got = uf.up_fused(x, w, scale=scale)
+    assert uf.ROUTES["tc"] == before + 1
+    _up_check(got.transpose(1, 2), uf.up_fused_plain(x, w, scale=scale, channel_dim=2)
+              .transpose(1, 2))
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("T", [1, 63, 65, 150, 1779])
+@pytest.mark.parametrize("Ci,Co,scale", [(96, 48, 3), (48, 24, 2), (96, 48, 4)])
+def test_up_fused_ct_streaming_kernel_at_the_real_widths(dev, Ci, Co, scale, T, split):
+    """(B, C, T) at the narrow widths on csrc/up_fused.cu, interleaved and
+    phase_split; odd T, so no output row starts 16-byte aligned."""
+    from l3ac_tpu_torch.ops.kernels import up_fused as uf
+    w, x = _up_case(dev, Ci, Co, T, False)
+    before = uf.ROUTES["stream"]
+    got = uf.up_fused_ct(x, w, scale=scale, phase_split=split)
+    want = uf.up_fused_plain(x, w, scale=scale, channel_dim=1, phase_split=split)
+    assert uf.ROUTES["stream"] == before + 1
+    if split:
+        assert len(got) == scale
+        got, want = torch.stack(got), torch.stack(want)
+    _up_check(got, want)
+
+
+@pytest.mark.parametrize("scale", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("Ci,Co", [(16, 12), (12, 8), (8, 8), (24, 24), (48, 48)])
+def test_up_fused_ct_streaming_kernel_at_the_debug_widths(dev, Ci, Co, scale):
+    from l3ac_tpu_torch.ops.kernels import up_fused as uf
+    w, x = _up_case(dev, Ci, Co, 300, False)     # T % 4 == 0: 16-byte input copies
+    _up_check(uf.up_fused_ct(x, w, scale=scale),
+              uf.up_fused_plain(x, w, scale=scale, channel_dim=1))
+    got = uf.up_fused_ct(x, w, scale=scale, phase_split=True)
+    _up_check(torch.stack(got), torch.stack(uf.up_fused_plain(x, w, scale=scale, channel_dim=1,
+                                                              phase_split=True)))
+
+
+@pytest.mark.parametrize("channels_last", [True, False])
+def test_up_fused_without_norm_at_scale_one_on_both_kernels(dev, channels_last):
+    from l3ac_tpu_torch.ops.kernels import up_fused as uf
+    Ci, Co = (256, 96) if channels_last else (48, 24)
+    w, x = _up_case(dev, Ci, Co, 150, channels_last, norm=False)
+    fn = uf.up_fused if channels_last else uf.up_fused_ct
+    _check(fn(x, w, scale=1), uf.up_fused_plain(x, w, scale=1, channel_dim=2 if channels_last
+                                                 else 1))
+
+
+def test_up_fused_route_is_a_shape_rule(dev):
+    """(B, T, C) with Co a multiple of 32 takes the tensor-core kernel; other
+    (B, T, C) shapes that the streaming kernel takes run there; (B, C, T)
+    always streams; what neither takes raises and launches nothing."""
+    from l3ac_tpu_torch.ops import kernels as K
+    from l3ac_tpu_torch.ops.kernels import up_fused as uf
+    for Ci, Co, cl, route in ((256, 96, True, "tc"), (100, 20, True, "stream"),
+                              (96, 48, False, "stream"), (64, 32, False, "stream")):
+        w, x = _up_case(dev, Ci, Co, 70, cl)
+        before = dict(uf.ROUTES)
+        fn = uf.up_fused if cl else uf.up_fused_ct
+        got = fn(x, w, scale=3)
+        assert uf.ROUTES[route] == before[route] + 1 and sum(uf.ROUTES.values()) == \
+            sum(before.values()) + 1, (Ci, Co, cl)
+        _check(got, uf.up_fused_plain(x, w, scale=3, channel_dim=2 if cl else 1))
+    K.reset_launches()
+    for Ci, Co, cl in ((512, 100, True), (256, 61, True), (96, 96, False), (200, 48, False)):
+        w, x = _up_case(dev, Ci, Co, 20, cl)
+        with pytest.raises(ValueError, match="no kernel takes"):
+            (uf.up_fused if cl else uf.up_fused_ct)(x, w, scale=2)
+    assert K.LAUNCHES["up_fused"] == K.LAUNCHES["up_fused_ct"] == 0
+
+
+def test_up_fused_reuses_prepared_weights_until_they_change(dev):
+    from l3ac_tpu_torch.ops.kernels import up_fused as uf
+    w, x = _up_case(dev, 256, 96, 70, True)
+    p = uf.prepared_up(w)
+    got = uf.up_fused(x, w, scale=3)
+    assert uf.prepared_up(w) is p and "tc" in p
+    w.w.mul_(2.0)
+    assert uf.prepared_up(w) is not p
+    _check(uf.up_fused(x, w, scale=3), uf.up_fused_plain(x, w, scale=3, channel_dim=2))
+    assert not torch.equal(got, uf.up_fused(x, w, scale=3))
+
+
 @pytest.mark.parametrize("C,T", [(24, 2000), (24, 51), (8, 1500), (12, 1369), (16, 700)])
 @pytest.mark.parametrize("poly", [True, False])
 def test_legacy_tail_kernel(dev, C, T, poly):
@@ -333,8 +444,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
                            bias_table=torch.zeros(32, 2, device=dev))
     from l3ac_tpu_torch.ops.kernels import legacy_tail as lt
     from l3ac_tpu_torch.ops.kernels import up_fused as uf
-    w = uf.UpWeights(torch.zeros(6, 8, device=dev), torch.zeros(6, device=dev), None, None)
-    with pytest.raises(ValueError, match="multiple of 4"):
+    w = uf.UpWeights(torch.zeros(96, 8, device=dev), torch.zeros(96, device=dev), None, None)
+    with pytest.raises(ValueError, match="no kernel takes"):
         uf.up_fused_ct(torch.zeros(1, 8, 10, device=dev), w, scale=2)
     tw = lt.TailWeights(*(torch.zeros(s, device=dev) for s in
                           ((3, 20), (3, 20, 20, 7), (3, 20), (3, 20), (3, 20, 20), (3, 20),
