@@ -4,7 +4,9 @@
   dil = pk // dilation_rate + 1, centered pad)] branches, channel-concat.
 - FirstBlock: BaseBlock(20, pk = (1, 5, 11, 21, 45), all dilations 1) ->
   1x1 Conv(20 -> 80) -> GELU -> concat the raw input -> 1x1 Conv(81 -> dim).
-  Its forward is the ``first_block`` kernel (plain version on the CPU).
+  Its forward is the ``first_block`` kernel on weights prepared once
+  (``FirstBlock.prepared``), or on the CPU the plain version on the live
+  parameters.
 - EnhanceBlock: BaseBlock(4, pk = (1, 3, 5, 9), dilations (1, 2, 3, 5)) on
   **channel 0 only** -> InstanceNorm(4, affine) -> plain 1x1 Conv(4 -> dim),
   and the gate ``x * (1 + g)``. Plain PyTorch in both layouts: the JAX package
@@ -17,7 +19,10 @@ import torch
 from torch import nn
 
 from ..ops import conv1d, trend_pool
-from ..ops.kernels.first_block import POOLS, FirstBlockWeights, first_block
+from ..ops import kernels as K
+from ..ops.kernels.conv_unit import cached_prepare
+from ..ops.kernels.first_block import (POOLS, FirstBlockWeights, PreparedStem, first_block,
+                                      first_block_plain, pack)
 from ..utils import init as pinit
 from .layers import InstanceNorm
 
@@ -77,9 +82,28 @@ class FirstBlock(nn.Module):
             self.conv1.weight[:, :, 0].contiguous(), self.conv1.bias,
             self.conv2.weight[:, :, 0].contiguous(), self.conv2.bias)
 
+    def prepared(self) -> PreparedStem:
+        """The stacked stem weights and the kernel's buffer, built once and
+        cached on the stem's parameters (``cached_prepare``: rebuilt after
+        ``load_state_dict`` or an in-place change; built on every call,
+        never cached, where a parameter is an inference tensor)."""
+        src = tuple(t for b in self.base.branches for t in (b.weight, b.bias))
+        src += (self.conv1.weight, self.conv1.bias, self.conv2.weight, self.conv2.bias)
+
+        def build() -> PreparedStem:
+            with torch.no_grad():
+                w = self.kernel_weights()
+                return PreparedStem(w, pack(w))
+
+        return cached_prepare(self.conv1.weight, src, build)
+
     def forward(self, audio: torch.Tensor) -> torch.Tensor:
-        """audio: (B, T) -> (B, target_dim, T)."""
-        return first_block(audio, self.kernel_weights())
+        """audio: (B, T) -> (B, target_dim, T). The kernel takes the cached
+        pack; on the CPU the plain version takes the live parameters, so its
+        output keeps their autograd graph."""
+        if K.route(audio, "first_block"):
+            return first_block(audio, self.prepared())
+        return first_block_plain(audio, self.kernel_weights())
 
 
 ENHANCE_POOLS = (1, 3, 5, 9)

@@ -1,5 +1,7 @@
 """CUDA kernels against their plain versions on the card, at small shapes and
-with the options the 1kbps paths do not take (local_attention with the full
+with the options the 1kbps paths do not take (the stem with T across its
+tiles, below its halo and 1, Cout 1-64, B 1-8, weights x50 and from
+FirstBlock's prepared weights; local_attention with the full
 bias and with the table, on contiguous operands and on strided head views,
 n = 750 at B = 1, D = 8 and 32; the tail at C = 8, 12, 16, 24 with T across
 its tiles; no ChannelNorm, GELU,
@@ -232,15 +234,61 @@ def test_int8_1kbps_roundtrip_built_under_inference_mode(dev):
     assert (a_g.cpu() - cpu.roundtrip(audio)).abs().max().item() <= 1e-3
 
 
-@pytest.mark.parametrize("T,Cout", [(1, 8), (30, 8), (300, 24), (777, 64)])
-def test_first_block_kernel(dev, T, Cout):
+FB_TILE = 128  # csrc/first_block.cu: output columns per tile
+
+
+def _stem_weights(rng, Cout, dev, scale=1.0):
     from l3ac_tpu_torch.ops.kernels import first_block as fb
-    rng = np.random.default_rng(T)
-    w = fb.FirstBlockWeights(_t(rng, (5, 4, 7), 0.4, dev), _t(rng, (5, 4), 0.1, dev),
-                             _t(rng, (80, 20), 20 ** -0.5, dev), _t(rng, (80,), 0.1, dev),
-                             _t(rng, (Cout, 81), 81 ** -0.5, dev), _t(rng, (Cout,), 0.1, dev))
-    x = _t(rng, (3, T), 0.5, dev)
+    return fb.FirstBlockWeights(
+        _t(rng, (5, 4, 7), 0.4 * scale, dev), _t(rng, (5, 4), 0.1 * scale, dev),
+        _t(rng, (80, 20), 20 ** -0.5 * scale, dev), _t(rng, (80,), 0.1 * scale, dev),
+        _t(rng, (Cout, 81), 81 ** -0.5 * scale, dev), _t(rng, (Cout,), 0.1 * scale, dev))
+
+
+@pytest.mark.parametrize("B,T,Cout", [
+    (3, 1, 8), (3, 30, 8), (3, 300, 24), (3, 777, 64),
+    (1, FB_TILE - 1, 24), (8, FB_TILE, 24), (1, FB_TILE + 1, 8), (8, 2 * FB_TILE + 47, 64),
+    (8, 1, 24), (1, 2 * FB_TILE + 47, 12), (2, 1000, 1), (1, 5000, 33)])
+def test_first_block_kernel(dev, B, T, Cout):
+    """T across the kernel's tiles (one short of a tile, one, one past it,
+    two and a halo), below the 47-sample halo and 1; Cout 1-64, padded to
+    n8 tiles; the first and last three columns on their own."""
+    from l3ac_tpu_torch.ops.kernels import first_block as fb
+    rng = np.random.default_rng([B, T, Cout])
+    w = _stem_weights(rng, Cout, dev)
+    x = _t(rng, (B, T), 0.5, dev)
+    got, want = fb.first_block(x, w), fb.first_block_plain(x, w)
+    _check(got, want)
+    edges = lambda y: torch.cat([y[..., :3], y[..., -3:]], -1)
+    _check(edges(got), edges(want))
+
+
+def test_first_block_kernel_at_large_weights_and_from_a_module(dev):
+    """Weights x50 (outputs of hundreds, where the edge columns matter), and
+    FirstBlock's forward on its prepared weights: one launch, the pack
+    built once."""
+    from l3ac_tpu_torch.models.tconv import FirstBlock
+    from l3ac_tpu_torch.ops import kernels as K
+    from l3ac_tpu_torch.ops.kernels import first_block as fb
+    rng = np.random.default_rng(50)
+    w = _stem_weights(rng, 24, dev, scale=50.0)
+    x = _t(rng, (2, 3 * FB_TILE + 5), 0.5, dev)
     _check(fb.first_block(x, w), fb.first_block_plain(x, w))
+    stem = FirstBlock(24, device=dev)
+    stem.init_weights(torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        p = stem.prepared()
+        K.reset_launches()
+        got = stem(x)
+        assert K.LAUNCHES["first_block"] == 1 and stem.prepared() is p
+        _check(got, fb.first_block_plain(x, stem.kernel_weights()))
+
+
+def test_first_block_kernel_raises_on_cout_above_64(dev):
+    from l3ac_tpu_torch.ops.kernels import first_block as fb
+    w = _stem_weights(np.random.default_rng(0), 65, dev)
+    with pytest.raises(ValueError, match="weight shapes"):
+        fb.first_block(torch.zeros(1, 16, device=dev), w)
 
 
 @pytest.mark.parametrize("n,W,D,bias,strided,B,H", [
