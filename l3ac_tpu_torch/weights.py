@@ -21,6 +21,9 @@ over in any of the five subtrees (``encoder``, ``quantizer``, ``decoder``,
 ``en_encoder``, ``en_decoder``) is an error.
 ``bias_cache`` leaves are dropped: the port recomputes them from the MLP
 weights.
+
+``to_jax_params`` is the inverse: the port's state dict -> the JAX tree, which
+``runtime.checkpoint.save_params`` writes in JAX's ``.npz`` format.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from .config import ModelConfig
 
 SUBTREES = ("encoder", "quantizer", "decoder", "en_encoder", "en_decoder")
 _LEAF_NAMES = {"w": "weight", "b": "bias"}
+_JAX_LEAF_NAMES = {v: k for k, v in _LEAF_NAMES.items()}
 
 
 def _unflatten(flat: dict):
@@ -102,13 +106,22 @@ def convert_subtree(tree, prefix: str = "") -> dict[str, np.ndarray]:
     return {k: _convert(k, v) for k, v in flat.items()}
 
 
+def _expected(mc: ModelConfig, quantized: bool) -> dict[str, torch.Tensor]:
+    """The state dict (meta tensors) of the port's ``Codec`` for ``mc``,
+    quantized by ``quantize_params`` when ``quantized``."""
+    from .models.codec import Codec
+    from .ops.quantized import quantize_params
+
+    codec = Codec(mc, device="meta")
+    if quantized:
+        quantize_params(codec)
+    return codec.state_dict()
+
+
 def from_jax_params(tree: dict, mc: ModelConfig) -> dict[str, torch.Tensor]:
     """JAX codec params (arrays or numpy) -> the port's ``Codec`` state dict
     (CPU tensors). A tree with int8 leaves maps onto a codec quantized by
     ``quantize_params(codec)``."""
-    from .models.codec import Codec
-    from .ops.quantized import quantize_params
-
     unknown = set(tree) - set(SUBTREES)
     if unknown:
         raise KeyError(f"unknown top-level param subtrees: {sorted(unknown)}")
@@ -118,11 +131,8 @@ def from_jax_params(tree: dict, mc: ModelConfig) -> dict[str, torch.Tensor]:
             raise KeyError(f"param subtree {sub!r} is missing")
         flat.update(convert_subtree(tree[sub], f"{sub}."))
 
-    codec = Codec(mc, device="meta")
-    if any(k.endswith(".w_q") for k in flat):
-        quantize_params(codec)
     out = {}
-    for name, ref in codec.state_dict().items():
+    for name, ref in _expected(mc, any(k.endswith(".w_q") for k in flat)).items():
         if name not in flat:
             raise KeyError(f"JAX params lack {name!r}")
         a = flat.pop(name)
@@ -138,3 +148,49 @@ def from_jax_params(tree: dict, mc: ModelConfig) -> dict[str, torch.Tensor]:
         raise KeyError(f"JAX params hold keys the port does not use: "
                        f"{sorted(flat)[:10]}")
     return out
+
+
+def _to_jax_layout(name: str, t: torch.Tensor) -> np.ndarray:
+    a = t.detach().cpu().numpy()
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf == "w_scale":
+        return a.reshape(1, -1)
+    if a.ndim == 3:
+        return a.transpose(2, 1, 0)
+    if a.ndim == 2:
+        return a.T
+    return a
+
+
+def to_jax_params(state_dict: dict, mc: ModelConfig) -> dict:
+    """The port's ``Codec`` state dict -> the JAX param tree (numpy, JAX
+    layouts, no ``bias_cache`` leaves): the inverse of ``from_jax_params``.
+    Strict: the state dict holds exactly the codec's keys (a quantized codec's
+    when it holds ``w_q`` buffers) with their shapes."""
+    expected = _expected(mc, any(k.endswith(".w_q") for k in state_dict))
+    missing = sorted(set(expected) - set(state_dict))
+    extra = sorted(set(state_dict) - set(expected))
+    if missing or extra:
+        raise KeyError(f"state dict does not match the codec: missing {missing[:10]}, "
+                       f"unexpected {extra[:10]}")
+    root: dict = {}
+    for name, ref in expected.items():
+        t = state_dict[name]
+        if tuple(t.shape) != tuple(ref.shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, the codec has "
+                             f"{tuple(ref.shape)}")
+        *path, leaf = name.split(".")
+        node = root
+        for part in path:
+            node = node.setdefault(part, {})
+        node[_JAX_LEAF_NAMES.get(leaf, leaf)] = _to_jax_layout(name, t)
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return listify(root)
