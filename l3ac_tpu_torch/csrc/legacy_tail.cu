@@ -49,6 +49,12 @@
 //   - The final snake goes to A, and the k7 conv C -> 1 (7 C MACs a sample)
 //     and tanh run SIMT, one thread per sample; only the audio (B, T) is
 //     written, once.
+// Widths (C a multiple of 4 up to 64): up to C = 24 as above; from C = 28
+// on the weights of one unit no longer fit beside A, so the matrices stay in
+// device memory (L2) and each lane reads its B fragments there (the values
+// ldmatrix would hand it), only the vectors are staged, and a block is 8
+// warps of 2 slabs (256 working rows, 172 output samples a tile) so that the
+// residual stream and the accumulators stay in registers.
 // Exact sinf and tanhf, no fast math. The snake's division by (alpha + eps)
 // is a multiplication by its fp32 reciprocal, prepared with the weights:
 // that adds at most 2^-23 relative error to the sin^2 term (one rounding of
@@ -70,6 +76,9 @@ constexpr int kPad = 27;                     // zero rows on each side: 3 x the 
 constexpr int kUnits = 3;
 constexpr int kTaps = 7;
 constexpr int kBatch = 4;                    // input loads in flight per thread
+constexpr int kMaxNarrowNT = 3;              // C <= 24: every weight in shared memory
+constexpr int kMaxNT = 8;                    // C <= 64
+constexpr int kGroup = 4;                    // k8 steps per fresh accumulator: K steps of 32
 
 // The prepared weight buffer (legacy_tail.py:pack), staged as it is, then A.
 // kNT n8 tiles of channels: Cp = 8 kNT, rows of kAS = Cp + 4 floats (4 mod 8:
@@ -129,18 +138,52 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
   ptx::mma_tf32(d, ah, bh);
 }
 
-template <int kNT>
-__global__ void __launch_bounds__(kThreads, 1) legacy_tail_kernel(const Args a) {
+// The block's tiling: the narrow widths (C <= 24) keep every weight in
+// shared memory and give each of 16 warps 3 slabs; the wide ones (C 32-64)
+// read the matrices from device memory (L2) and give each of 8 warps 2
+// slabs, so that the residual stream and the accumulators fit the
+// registers a thread then has.
+template <bool kWide>
+struct Tiling {
+  static constexpr int kWarps = kWide ? 8 : ::kWarps;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kSlabs = kWide ? 2 : ::kSlabs;
+  static constexpr int kW = 16 * kSlabs * kWarps;  // working rows per tile
+  static constexpr int kS = kW - 2 * kHalo;        // output samples per tile
+};
+
+// The B fragments of a pair of n8 tiles read from device memory, as
+// ldmatrix_x4 delivers them from the same rows in shared memory: b[2 j] =
+// row (8 j + row) of words t and t + 4, b[2 j + 1] the same 8 rows down.
+__device__ __forceinline__ void fragments(uint32_t (&b)[4], const float* p, int row, int t,
+                                          int stride) {
+  const float* r0 = p + row * stride + t;
+  const float* r1 = r0 + 8 * stride;
+  b[0] = __float_as_uint(__ldg(r0));
+  b[1] = __float_as_uint(__ldg(r0 + 4));
+  b[2] = __float_as_uint(__ldg(r1));
+  b[3] = __float_as_uint(__ldg(r1 + 4));
+}
+
+template <int kNT, bool kWide>
+__global__ void __launch_bounds__(Tiling<kWide>::kThreads, 1) legacy_tail_kernel(const Args a) {
   using L = Layout<kNT>;
+  using G = Tiling<kWide>;
+  constexpr int kThreads = G::kThreads, kWarps = G::kWarps, kSlabs = G::kSlabs;
+  constexpr int kW = G::kW, kS = G::kS;
+  // the vectors' offsets in shared memory: after the matrices (narrow), or
+  // first (wide, the matrices stay in device memory)
+  constexpr int kVec = kWide ? L::b1 : 0;
   constexpr int kPairs = (kNT + 1) / 2;
   extern __shared__ __align__(16) float smem[];
-  float* A = smem + L::A;
+  float* A = smem + (kWide ? L::weights - L::b1 : L::A);
+  const float* vec = smem - kVec;  // vec + L::b1 etc.: the vectors wherever they sit
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q8 = lane >> 3, r8 = lane & 7, g = lane >> 2, t4 = lane & 3;
   const int C = a.C, T = a.T;
 
-  for (int e = tid; e < L::weights / 4; e += kThreads)
-    ptx::cp_async16(smem + 4 * e, a.wts + 4 * e, 16);
+  for (int e = tid; e < (L::weights - kVec) / 4; e += kThreads)
+    ptx::cp_async16(smem + 4 * e, a.wts + kVec + 4 * e, 16);
   ptx::cp_async_commit();
   for (int e = tid; e < (kW + 2 * kPad) * L::AS; e += kThreads) A[e] = 0.0f;
   ptx::cp_async_wait<0>();
@@ -151,6 +194,7 @@ __global__ void __launch_bounds__(kThreads, 1) legacy_tail_kernel(const Args a) 
   const int a_off = ((q8 & 1) * 8 + r8) * L::AS + (q8 >> 1) * 4;
   const int w1_off = ((q8 >> 1) * 8 + (r8 >> 1) + 4 * (r8 & 1)) * L::AS + (q8 & 1) * 4;
   const int w2_off = ((q8 >> 1) * 8 + r8) * L::AS + (q8 & 1) * 4;
+  const int w1_row = (g >> 1) + 4 * (g & 1);  // sigma(g): the k7 weights' row within an n8 tile
 
   const int tiles_per_row = (T + kS - 1) / kS;
   for (int tile = blockIdx.x; tile < a.B * tiles_per_row; tile += gridDim.x) {
@@ -229,16 +273,19 @@ __global__ void __launch_bounds__(kThreads, 1) legacy_tail_kernel(const Args a) 
 #pragma unroll 1
     for (int u = 0; u < kUnits; ++u) {
       const int d = u == 0 ? 1 : (u == 1 ? 3 : 9);
-      write_snake(smem + L::a1 + u * kNT * 8, smem + L::r1 + u * kNT * 8);
+      write_snake(vec + L::a1 + u * kNT * 8, vec + L::r1 + u * kNT * 8);
       __syncthreads();
-      const float* w1h = smem + L::w1h + u * kTaps * L::Cp * L::AS + w1_off;
-      const float* w1l = smem + L::w1l + u * kTaps * L::Cp * L::AS + w1_off;
-      const float* w2h = smem + L::w2h + u * L::Cp * L::AS + w2_off;
-      const float* w2l = smem + L::w2l + u * L::Cp * L::AS + w2_off;
-      const float* b1 = smem + L::b1 + u * L::Cp;
-      const float* a2 = smem + L::a2 + u * L::Cp;
-      const float* r2 = smem + L::r2 + u * L::Cp;
-      const float* b2 = smem + L::b2 + u * L::Cp;
+      // the matrices: ldmatrix rows in shared memory (narrow), or the B
+      // fragments read from device memory, wk / pair / step offsets alike
+      const float* wsrc = kWide ? a.wts : smem;
+      const float* w1h = wsrc + L::w1h + u * kTaps * L::Cp * L::AS + (kWide ? 0 : w1_off);
+      const float* w1l = wsrc + L::w1l + u * kTaps * L::Cp * L::AS + (kWide ? 0 : w1_off);
+      const float* w2h = wsrc + L::w2h + u * L::Cp * L::AS + (kWide ? 0 : w2_off);
+      const float* w2l = wsrc + L::w2l + u * L::Cp * L::AS + (kWide ? 0 : w2_off);
+      const float* b1 = vec + L::b1 + u * L::Cp;
+      const float* a2 = vec + L::a2 + u * L::Cp;
+      const float* r2 = vec + L::r2 + u * L::Cp;
+      const float* b2 = vec + L::b2 + u * L::Cp;
 #pragma unroll
       for (int s = 0; s < kSlabs; ++s) {
         const float* pa = A + (kPad + 16 * (warp + kWarps * s)) * L::AS + a_off;
@@ -253,13 +300,15 @@ __global__ void __launch_bounds__(kThreads, 1) legacy_tail_kernel(const Args a) 
         for (int k = 0; k < kTaps; ++k) {
           const float* pk = pa + (k - 3) * d * L::AS;
           const int wk = k * L::Cp * L::AS;
+#pragma unroll
+          for (int c0 = 0; c0 < kNT; c0 += kGroup) {  // a fresh accumulator per K step of 32
           float acc[kNT][4];
 #pragma unroll
           for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
 #pragma unroll
-          for (int c8 = 0; c8 < kNT; ++c8) {
+          for (int c8 = c0; c8 < c0 + kGroup && c8 < kNT; ++c8) {
             uint32_t raw[4], ah[4], al[4];
             ptx::ldmatrix_x4(raw, pk + c8 * 8);
             float x[4];
@@ -269,8 +318,13 @@ __global__ void __launch_bounds__(kThreads, 1) legacy_tail_kernel(const Args a) 
 #pragma unroll
             for (int p = 0; p < kPairs; ++p) {
               uint32_t bh[4], bl[4];
-              ptx::ldmatrix_x4(bh, w1h + wk + p * 16 * L::AS + c8 * 8);
-              ptx::ldmatrix_x4(bl, w1l + wk + p * 16 * L::AS + c8 * 8);
+              if constexpr (kWide) {
+                fragments(bh, w1h + wk + p * 16 * L::AS + c8 * 8, w1_row, t4, L::AS);
+                fragments(bl, w1l + wk + p * 16 * L::AS + c8 * 8, w1_row, t4, L::AS);
+              } else {
+                ptx::ldmatrix_x4(bh, w1h + wk + p * 16 * L::AS + c8 * 8);
+                ptx::ldmatrix_x4(bl, w1l + wk + p * 16 * L::AS + c8 * 8);
+              }
               mma3(acc[2 * p], ah, al, bh[0], bh[1], bl[0], bl[1]);
               if (2 * p + 1 < kNT)
                 mma3(acc[(2 * p + 1) % kNT], ah, al, bh[2], bh[3], bl[2], bl[3]);
@@ -280,6 +334,7 @@ __global__ void __launch_bounds__(kThreads, 1) legacy_tail_kernel(const Args a) 
           for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
             for (int e = 0; e < 4; ++e) conv[nt][e] += acc[nt][e];
+          }
         }
         // b1 and the snake: conv[nt] becomes the 1x1's A fragment of k8 step
         // nt, {H[g][t4], H[g+8][t4], H[g][t4+4], H[g+8][t4+4]}
@@ -292,47 +347,64 @@ __global__ void __launch_bounds__(kThreads, 1) legacy_tail_kernel(const Args a) 
             const float v = conv[nt][e] + b1[c];
             y[nt][(e & 1) * 2 + (e >> 1)] = c < C ? snake_r(v, a2[c], r2[c]) : 0.0f;
           }
+        float sum2[kNT][4];
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sum2[nt][e] = 0.0f;
+#pragma unroll
+        for (int k0 = 0; k0 < kNT; k0 += kGroup) {  // a fresh accumulator per K step of 32
         float acc2[kNT][4];
 #pragma unroll
         for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc2[nt][e] = 0.0f;
 #pragma unroll
-        for (int k8 = 0; k8 < kNT; ++k8) {
+        for (int k8 = k0; k8 < k0 + kGroup && k8 < kNT; ++k8) {
           uint32_t yh[4], yl[4];
           split(y[k8], yh, yl);
 #pragma unroll
           for (int p = 0; p < kPairs; ++p) {
             uint32_t bh[4], bl[4];
-            ptx::ldmatrix_x4(bh, w2h + p * 16 * L::AS + k8 * 8);
-            ptx::ldmatrix_x4(bl, w2l + p * 16 * L::AS + k8 * 8);
+            if constexpr (kWide) {
+              fragments(bh, w2h + p * 16 * L::AS + k8 * 8, g, t4, L::AS);
+              fragments(bl, w2l + p * 16 * L::AS + k8 * 8, g, t4, L::AS);
+            } else {
+              ptx::ldmatrix_x4(bh, w2h + p * 16 * L::AS + k8 * 8);
+              ptx::ldmatrix_x4(bl, w2l + p * 16 * L::AS + k8 * 8);
+            }
             mma3(acc2[2 * p], yh, yl, bh[0], bh[1], bl[0], bl[1]);
             if (2 * p + 1 < kNT)
               mma3(acc2[(2 * p + 1) % kNT], yh, yl, bh[2], bh[3], bl[2], bl[3]);
           }
         }
-        // the residual, zero outside [0, T): acc2[nt][e] is row g (+8),
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sum2[nt][e] += acc2[nt][e];
+        }
+        // the residual, zero outside [0, T): sum2[nt][e] is row g (+8),
         // channel nt * 8 + 2 t4 + (e & 1), the layout of xr
 #pragma unroll
         for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const float bb = b2[nt * 8 + 2 * t4 + (e & 1)];
-            xr[s][nt][e] = valid[s][e >> 1] ? xr[s][nt][e] + (acc2[nt][e] + bb) : 0.0f;
+            xr[s][nt][e] = valid[s][e >> 1] ? xr[s][nt][e] + (sum2[nt][e] + bb) : 0.0f;
           }
       }
       __syncthreads();  // every read of A is done before it is rewritten
     }
 
     // snake -> conv k7 C -> 1 -> tanh, one thread per output sample
-    write_snake(smem + L::ao, smem + L::ro);
+    write_snake(vec + L::ao, vec + L::ro);
     __syncthreads();
-    const float* wo = smem + L::wo;
+    const float* wo = vec + L::wo;
     float* ob = a.out + static_cast<long long>(b) * T;
     for (int j = tid; j < kS; j += kThreads) {
       const long long t = g0 + kHalo + j;
       if (t >= T) break;
-      float yv = smem[L::bo];
+      float yv = vec[L::bo];
 #pragma unroll
       for (int k = 0; k < kTaps; ++k) {
         const float* ar = A + (kPad + kHalo + j + k - 3) * L::AS;
@@ -354,9 +426,12 @@ __global__ void __launch_bounds__(kThreads, 1) legacy_tail_kernel(const Args a) 
 template <int kNT>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   using L = Layout<kNT>;
-  const size_t smem = sizeof(float) * static_cast<size_t>(L::total);
+  constexpr bool kWide = kNT > kMaxNarrowNT;
+  using G = Tiling<kWide>;
+  const size_t smem = sizeof(float) * static_cast<size_t>(
+      kWide ? L::weights - L::b1 + (G::kW + 2 * kPad) * L::AS : L::total);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(legacy_tail_kernel<kNT>,
+  cudaError_t err = cudaFuncSetAttribute(legacy_tail_kernel<kNT, kWide>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -364,13 +439,13 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, legacy_tail_kernel<kNT>,
-                                                           kThreads, smem)) != cudaSuccess)
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, legacy_tail_kernel<kNT, kWide>, G::kThreads, smem)) != cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long tiles = static_cast<long long>(a.B) * l3ac::ceil_div(a.T, kS);
+  const long long tiles = static_cast<long long>(a.B) * l3ac::ceil_div(a.T, G::kS);
   const int grid = static_cast<int>(tiles < sms * per_sm ? tiles : sms * per_sm);
-  legacy_tail_kernel<kNT><<<grid, kThreads, smem, stream>>>(a);
+  legacy_tail_kernel<kNT, kWide><<<grid, G::kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -379,32 +454,41 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // The floats of the prepared weight buffer at C channels (legacy_tail.py:pack
 // builds it and checks its size against this), or 0 for a C it does not take.
 extern "C" int l3ac_legacy_tail_weight_floats(int C) {
-  switch (C) {
-    case 8: return Layout<1>::weights;
-    case 12:
-    case 16: return Layout<2>::weights;
-    case 24: return Layout<3>::weights;
-    default: return 0;
+  if (C < 4 || C > 8 * kMaxNT || C % 4 != 0) return 0;
+  switch ((C + 7) / 8) {
+    case 1: return Layout<1>::weights;
+    case 2: return Layout<2>::weights;
+    case 3: return Layout<3>::weights;
+    case 4: return Layout<4>::weights;
+    case 5: return Layout<5>::weights;
+    case 6: return Layout<6>::weights;
+    case 7: return Layout<7>::weights;
+    default: return Layout<8>::weights;
   }
 }
 
 // x0 (and x1): (B, C, T) interleaved with x1 null, or the phase pair
 // (B, C, T / 2) with x[2t + q] = x_q[t]; xB, xC their batch and channel
 // strides (time contiguous). wts: legacy_tail.py:pack, 16-byte aligned.
-// out: (B, T). C in {8, 12, 16, 24}. All fp32. Returns the CUDA error code.
+// out: (B, T). C a multiple of 4 up to 64. All fp32. Returns the CUDA error
+// code.
 extern "C" int l3ac_legacy_tail(const float* x0, const float* x1, const float* wts,
                                 float* out, int B, int C, int T, long long xB,
                                 long long xC, void* stream) {
   if (B < 1 || T < 1 || (x1 != nullptr && T % 2 != 0) ||
       reinterpret_cast<uintptr_t>(wts) % 16 != 0)
     return cudaErrorInvalidValue;
+  if (C < 4 || C > 8 * kMaxNT || C % 4 != 0) return cudaErrorInvalidValue;
   const Args a{x0, x1, wts, out, B, C, T, xB, xC};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 8: return launch<1>(a, s);
-    case 12:
-    case 16: return launch<2>(a, s);
-    case 24: return launch<3>(a, s);
-    default: return cudaErrorInvalidValue;
+  switch ((C + 7) / 8) {
+    case 1: return launch<1>(a, s);
+    case 2: return launch<2>(a, s);
+    case 3: return launch<3>(a, s);
+    case 4: return launch<4>(a, s);
+    case 5: return launch<5>(a, s);
+    case 6: return launch<6>(a, s);
+    case 7: return launch<7>(a, s);
+    default: return launch<8>(a, s);
   }
 }

@@ -23,6 +23,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
                "l"(src), "r"(src_bytes));
 }
 
+// 8 bytes global -> shared; zero when src_bytes is 0.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
 // 4 bytes global -> shared; zero when src_bytes is 0.
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
@@ -42,6 +48,15 @@ __device__ __forceinline__ void cp_async_wait() {
 // word l % 4 of row l / 4 of tile q in r[q].
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// The same four 8 x 8 b16 matrices, transposed: lane l receives the pair
+// (row 2 (l % 4), row 2 (l % 4) + 1) of column l / 4 of tile q in r[q], the
+// B fragment of a bf16 mma read from a K-major-by-rows (row = k) tile.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
 }

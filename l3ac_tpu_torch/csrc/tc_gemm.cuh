@@ -418,4 +418,161 @@ cudaError_t launch_gemm(Params p, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// ---- bf16 A and B: one bf16 pass ---------------------------------------
+//
+// C[M, N] = epilogue(A[M, K] . B[N, K]^T) with A and B bf16 (both K-major)
+// and fp32 sums: one mma.sync m16n8k16 pass per k16 step, the exact product
+// of bf16 operands. Same 128 x 128 tile, K step of 32 (one fresh
+// accumulator each, as above) and 3-stage cp.async ring; 8 warps of 32 x 64;
+// bf16 rows padded to 40 elements (80 bytes: an odd number of 16-byte
+// pieces, so ldmatrix's eight row reads hit distinct banks), fragments by
+// ldmatrix in the mma's natural k order. The epilogue computes in fp32 from
+// fp32 vectors and rounds the output to bf16 once (the residual, bf16, is
+// added in fp32 before that rounding). K % 8 == 0, N even and 16-byte aligned
+// rows: the wrapper's widths (C % 64 == 0) always are.
+
+using bf16 = __nv_bfloat16;
+
+struct ParamsBf16 {
+  const bf16* a;      // (M, K)
+  const bf16* b;      // (N, K)
+  const float* bias;  // (N) or null
+  const float* alpha; // (N) snake
+  const bf16* res;    // (M, N) residual
+  bf16* out;          // (M, N)
+  int M, N, K;
+};
+
+constexpr int kBf16Threads = 256;
+constexpr int kBf16WM = 32, kBf16WN = 64;
+constexpr int kBf16Row = kBK + 8;                 // bf16 elements
+constexpr int kBf16Tile = kBM * kBf16Row;         // bf16 elements of one A or B tile
+constexpr size_t kBf16Smem = sizeof(bf16) * kStages * 2 * kBf16Tile;
+
+// rows [r0, r0 + 128) x K [k0, k0 + 32) of an (R, K) bf16 matrix, 16 bytes per copy
+__device__ __forceinline__ void load_rows_bf16(bf16* dst, const bf16* src, long long r0,
+                                               long long R, int k0, int K, int tid) {
+#pragma unroll
+  for (int i = 0; i < kBM * kBK / 8 / kBf16Threads; ++i) {
+    const int c = tid + i * kBf16Threads, row = c / (kBK / 8), col = (c % (kBK / 8)) * 8;
+    const bool ok = r0 + row < R && k0 + col < K;
+    const bf16* s = ok ? src + (r0 + row) * K + k0 + col : src;
+    ptx::cp_async16(dst + row * kBf16Row + col, s, ok ? 16 : 0);
+  }
+}
+
+template <Epi kEpi>
+__global__ void __launch_bounds__(kBf16Threads, 1) gemm_bf16_kernel(const ParamsBf16 p) {
+  extern __shared__ __align__(16) float smem_f[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_f);
+  constexpr int kMT = kBf16WM / 16, kNT = kBf16WN / 8, kWarpsN = kBN / kBf16WN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
+  const long long m0 = static_cast<long long>(blockIdx.y) * kBM;
+  const int n0 = blockIdx.x * kBN;
+  const int steps = (p.K + kBK - 1) / kBK;
+  auto stage_in = [&](int s) {
+    bf16* st = smem + (s % kStages) * 2 * kBf16Tile;
+    load_rows_bf16(st, p.a, m0, p.M, s * kBK, p.K, tid);
+    load_rows_bf16(st + kBf16Tile, p.b, n0, p.N, s * kBK, p.K, tid);
+  };
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) stage_in(s);
+    ptx::cp_async_commit();
+  }
+  const int q = lane >> 3, r = lane & 7;
+  const int oa = (wm * kBf16WM + (q & 1) * 8 + r) * kBf16Row + (q >> 1) * 8;
+  const int ob = (wn * kBf16WN + (q >> 1) * 8 + r) * kBf16Row + (q & 1) * 8;
+
+  float sum[kMT][kNT][4], acc[kMT][kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sum[mt][nt][i] = 0.0f;
+
+  for (int s = 0; s < steps; ++s) {
+    ptx::cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (s + kStages - 1 < steps) stage_in(s + kStages - 1);
+    ptx::cp_async_commit();
+    const bf16* sA = smem + (s % kStages) * 2 * kBf16Tile;
+    const bf16* sB = sA + kBf16Tile;
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      uint32_t b[kNT][2];
+#pragma unroll
+      for (int j = 0; j < kNT / 2; ++j) {
+        uint32_t t[4];
+        ptx::ldmatrix_x4(t, sB + ob + j * 16 * kBf16Row + ks * 16);
+        b[2 * j][0] = t[0], b[2 * j][1] = t[1], b[2 * j + 1][0] = t[2], b[2 * j + 1][1] = t[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        uint32_t af[4];
+        ptx::ldmatrix_x4(af, sA + oa + mt * 16 * kBf16Row + ks * 16);
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) ptx::mma_bf16(acc[mt][nt], af, b[nt]);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sum[mt][nt][i] += acc[mt][nt][i];
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    const int n = n0 + wn * kBf16WN + nt * 8 + 2 * t;
+    if (n >= p.N) continue;  // N is even: n + 1 < N too
+    const float cb[2] = {p.bias != nullptr ? p.bias[n] : 0.0f,
+                         p.bias != nullptr ? p.bias[n + 1] : 0.0f};
+    const float ca[2] = {kEpi == Epi::kSnake ? p.alpha[n] : 1.0f,
+                         kEpi == Epi::kSnake ? p.alpha[n + 1] : 1.0f};
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long m = m0 + wm * kBf16WM + mt * 16 + g + h * 8;
+        if (m >= p.M) continue;
+        float v[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) v[j] = finish<false, kEpi>(sum[mt][nt][2 * h + j], 1.0f, cb[j], ca[j]);
+        const long long o = m * p.N + n;
+        if constexpr (kEpi == Epi::kResidual) {
+          const uint32_t rv = *reinterpret_cast<const uint32_t*>(p.res + o);
+          v[0] += __uint_as_float(rv << 16);
+          v[1] += __uint_as_float(rv & 0xffff0000u);
+        }
+        *reinterpret_cast<uint32_t*>(p.out + o) = ptx::bf16x2_rn(v[0], v[1]);
+      }
+  }
+}
+
+template <Epi kEpi>
+cudaError_t launch_gemm_bf16(const ParamsBf16& p, cudaStream_t s) {
+  const long long m_tiles = (static_cast<long long>(p.M) + kBM - 1) / kBM;
+  if (p.M < 1 || p.N < 2 || p.N % 2 != 0 || p.K < 8 || p.K % 8 != 0 || m_tiles > 65535 ||
+      !aligned(p.a, 16) || !aligned(p.b, 16) || !aligned(p.out, 4) ||
+      (p.res != nullptr && !aligned(p.res, 4)))
+    return cudaErrorInvalidValue;
+  auto kernel = gemm_bf16_kernel<kEpi>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kBf16Smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid(ceil_div(p.N, kBN), static_cast<unsigned>(m_tiles));
+  kernel<<<grid, kBf16Threads, kBf16Smem, s>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace l3ac::tc

@@ -4,9 +4,15 @@
 //   align_corners=False edge rule -> ChannelNorm over Co (eps 1e-8 inside the
 //   sqrt) -> affine; the output is channels-last and interleaved, (B, T s, Co).
 //
-// Replaces l3ac_tpu/ops/pallas/upsample.py:up_fused (body _kernel) where Ci is
-// a multiple of 4 and Co a multiple of 32 up to 256; up_fused.cu (the
-// streaming kernel) takes the other shapes it can.
+// Replaces l3ac_tpu/ops/pallas/upsample.py:up_fused (body _kernel) on every
+// (B, T, C) shape with Ci up to 1024 and Co up to 512; up_fused.cu (the
+// streaming kernel) takes the (B, C, T) shapes.
+// Widths: the weight buffer (up_fused.py:prepare_up) holds W, b and the norm
+// with Co zero-padded to Cp, a multiple of 32, and W's rows to a multiple of
+// 4 floats; the padded columns of z are zero, the statistics skip them and
+// divide by the real Co, and only the real Co columns are stored. Ci % 4 != 0
+// loads x in 4-byte pieces. Above Co = 256 a block owns 30 rows (32 z rows)
+// and the ring has 2 stages, so that a 512-column W tile fits.
 //
 // Bound on the H100: 2 Ci Co operations per input row against 4 Ci bytes
 // read and 4 s Co written. On the fp32 pipe that is bound by operations
@@ -68,13 +74,16 @@ constexpr float kNormEps = 1e-8f;
 
 struct Args {
   const float* x;       // (B, T, Ci)
-  const float* w_hi;    // (Co, Ci): W, or its TF32 hi when pre-split
-  const float* w_lo;    // (Co, Ci): the TF32 lo when pre-split, else unused
-  const float* bias;    // (Co)
-  const float* norm_w;  // (Co) or null: no norm
-  const float* norm_b;  // (Co) or null
+  const float* w_hi;    // (Cp, Ci4): W, or its TF32 hi when pre-split
+  const float* w_lo;    // (Cp, Ci4): the TF32 lo when pre-split, else unused
+  const float* bias;    // (Cp)
+  const float* norm_w;  // (Cp) or null: no norm
+  const float* norm_b;  // (Cp) or null
   float* out;           // (B, T s, Co)
   int Ci, Co, T, s;
+  int Ci4;              // W's row stride: Ci rounded up to 4
+  int x_vec;            // Ci % 4 == 0: 16-byte copies of x
+  int o_vec;            // Co % 4 == 0 and out 16-byte aligned: 16-byte stores
   float taps[kMaxScale][3];  // per phase: w_prev, w_cur, w_next
 };
 
@@ -88,7 +97,8 @@ struct Tile {
   static constexpr int kZS = kCo + 4;           // row stride of z in shared memory
   static constexpr int kSlots = (kCo + 127) / 128;  // float4 slots per lane in a row
   static constexpr int kStage = (kRows + (kPreSplit ? 2 : 1) * kCo) * kRow;
-  static constexpr int kRing = kStages * kStage;
+  static constexpr int kRingStages = kCo > 256 ? 2 : kStages;  // a 512-column W tile: 2
+  static constexpr int kRing = kRingStages * kStage;
   // z, the row statistics, the phase parameters
   static constexpr int kEpi = kRows * kZS + 3 * kRows + 2 * kOwn * kMaxScale;
   static constexpr int kFloats = kRing > kEpi ? kRing : kEpi;
@@ -120,10 +130,19 @@ __device__ __forceinline__ void load_row(float4 (&v)[kSlots], const float* zs, i
   }
 }
 
-template <int kSlots>
-__device__ __forceinline__ void center(float4 (&v)[kSlots], float m) {
+// v - m on the real channels (o < Co), zero on the padded ones (kExact: none)
+template <int kSlots, bool kExact>
+__device__ __forceinline__ void center(float4 (&v)[kSlots], float m, int lane, int Co) {
 #pragma unroll
-  for (int k = 0; k < kSlots; ++k) v[k] = make_float4(v[k].x - m, v[k].y - m, v[k].z - m, v[k].w - m);
+  for (int k = 0; k < kSlots; ++k) {
+    if constexpr (kExact) {
+      v[k] = make_float4(v[k].x - m, v[k].y - m, v[k].z - m, v[k].w - m);
+      continue;
+    }
+    const int o = 4 * lane + 128 * k;
+    v[k] = make_float4(o < Co ? v[k].x - m : 0.0f, o + 1 < Co ? v[k].y - m : 0.0f,
+                       o + 2 < Co ? v[k].z - m : 0.0f, o + 3 < Co ? v[k].w - m : 0.0f);
+  }
 }
 
 template <int kSlots>
@@ -158,9 +177,14 @@ __device__ __forceinline__ void split(uint32_t raw, uint32_t& hi, uint32_t& lo) 
   lo = ptx::tf32_rna(v - __uint_as_float(hi));
 }
 
-template <int kMW, int kNW>
+// kExact: Co == kCo, Ci % 4 == 0 and 16-byte aligned x and out (every released
+// config's shapes): Co and the vector paths are compile-time facts, the code
+// the kernel was tuned as; otherwise the padded, masked, 4-byte paths.
+template <int kMW, int kNW, bool kExact>
 __global__ void __launch_bounds__(Tile<kMW, kNW>::kThreads, 1) up_fused_tc_kernel(const Args a) {
   using G = Tile<kMW, kNW>;
+  const int Co = kExact ? G::kCo : a.Co;
+  const bool x_vec = kExact || a.x_vec, o_vec = kExact || a.o_vec;
   extern __shared__ __align__(16) float smem[];
   __shared__ float taps[kMaxScale * 3];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -176,28 +200,37 @@ __global__ void __launch_bounds__(Tile<kMW, kNW>::kThreads, 1) up_fused_tc_kerne
   const int steps = (Ci + kBK - 1) / kBK;
 
   // rows of x (clamped into [0, T)) and W, K columns [32 s, 32 s + 32), into stage s
+  constexpr int kRing = G::kRingStages;
   auto stage_in = [&](int s) {
-    float* st = smem + (s % kStages) * G::kStage;
+    float* st = smem + (s % kRing) * G::kStage;
     const int k0 = s * kBK;
     for (int e = tid; e < G::kRows * (kBK / 4); e += G::kThreads) {
       const int row = e / (kBK / 4), col = (e % (kBK / 4)) * 4;
       int t = t0 - 1 + row;
       t = t < 0 ? 0 : (t >= T ? T - 1 : t);
-      const bool ok = k0 + col < Ci;
-      ptx::cp_async16(st + row * kRow + col,
-                      ok ? xb + static_cast<long long>(t) * Ci + k0 + col : a.x, ok ? 16 : 0);
+      const float* xr = xb + static_cast<long long>(t) * Ci + k0 + col;
+      if (x_vec) {
+        const bool ok = k0 + col < Ci;
+        ptx::cp_async16(st + row * kRow + col, ok ? xr : a.x, ok ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const bool ok = k0 + col + u < Ci;
+          ptx::cp_async4(st + row * kRow + col + u, ok ? xr + u : a.x, ok ? 4 : 0);
+        }
+      }
     }
     for (int e = tid; e < (kPreSplit ? 2 : 1) * G::kCo * (kBK / 4); e += G::kThreads) {
       const int hl = e / (G::kCo * (kBK / 4)), rem = e % (G::kCo * (kBK / 4));
       const int row = rem / (kBK / 4), col = (rem % (kBK / 4)) * 4;
-      const bool ok = k0 + col < Ci;
+      const bool ok = k0 + col < a.Ci4;
       const float* src = hl ? a.w_lo : a.w_hi;
       ptx::cp_async16(st + (G::kRows + hl * G::kCo + row) * kRow + col,
-                      ok ? src + static_cast<long long>(row) * Ci + k0 + col : src, ok ? 16 : 0);
+                      ok ? src + static_cast<long long>(row) * a.Ci4 + k0 + col : src, ok ? 16 : 0);
     }
   };
 
-  for (int s = 0; s < kStages - 1; ++s) {
+  for (int s = 0; s < kRing - 1; ++s) {
     if (s < steps) stage_in(s);
     ptx::cp_async_commit();
   }
@@ -217,9 +250,9 @@ __global__ void __launch_bounds__(Tile<kMW, kNW>::kThreads, 1) up_fused_tc_kerne
   const int ob = (G::kRows + wn * 32 + (q >> 1) * 8 + r) * kRow + (q & 1) * 4;
 
   for (int s = 0; s < steps; ++s) {
-    ptx::cp_async_wait<kStages - 2>();  // step s has landed
+    ptx::cp_async_wait<kRing - 2>();    // step s has landed
     __syncthreads();                    // ... for every thread; stage (s - 1) is free
-    if (s + kStages - 1 < steps) stage_in(s + kStages - 1);
+    if (s + kRing - 1 < steps) stage_in(s + kRing - 1);
     ptx::cp_async_commit();
 
 #pragma unroll
@@ -228,7 +261,7 @@ __global__ void __launch_bounds__(Tile<kMW, kNW>::kThreads, 1) up_fused_tc_kerne
       for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
-    const float* st = smem + (s % kStages) * G::kStage;
+    const float* st = smem + (s % kRing) * G::kStage;
 #pragma unroll
     for (int ks = 0; ks < kBK / 8; ++ks) {
       uint32_t bh[4][2], bl[4][2];
@@ -321,10 +354,10 @@ __global__ void __launch_bounds__(Tile<kMW, kNW>::kThreads, 1) up_fused_tc_kerne
                     row_sum<G::kSlots, G::kCo>(z2, lane)};
       warp_sums(m);
 #pragma unroll
-      for (int j = 0; j < 3; ++j) m[j] /= G::kCo;
-      center(z0, m[0]);
-      center(z1, m[1]);
-      center(z2, m[2]);
+      for (int j = 0; j < 3; ++j) m[j] /= Co;  // the padded columns are zero
+      center<G::kSlots, kExact>(z0, m[0], lane, Co);
+      center<G::kSlots, kExact>(z1, m[1], lane, Co);
+      center<G::kSlots, kExact>(z2, m[2], lane, Co);
       float dc[4] = {row_dot<G::kSlots, G::kCo>(z0, z0, lane),
                      row_dot<G::kSlots, G::kCo>(z0, z1, lane),
                      row_dot<G::kSlots, G::kCo>(z1, z1, lane),
@@ -350,7 +383,7 @@ __global__ void __launch_bounds__(Tile<kMW, kNW>::kThreads, 1) up_fused_tc_kerne
                            fmaf(wc * wc, stats[G::kRows + i],
                                 2.0f * wo * wc * stats[2 * G::kRows + (prev ? i - 1 : i)]));
       prm[2 * e] = fmaf(stats[i], wc, stats[ro] * wo);
-      prm[2 * e + 1] = 1.0f / sqrtf(fmaxf(q, 0.0f) / G::kCo + kNormEps);
+      prm[2 * e + 1] = 1.0f / sqrtf(fmaxf(q, 0.0f) / Co + kNormEps);
     }
   }
   __syncthreads();
@@ -374,7 +407,7 @@ __global__ void __launch_bounds__(Tile<kMW, kNW>::kThreads, 1) up_fused_tc_kerne
     load_row<G::kSlots, G::kCo, G::kZS>(zp, zs, i - 1, lane);
     load_row<G::kSlots, G::kCo, G::kZS>(zc, zs, i, lane);
     load_row<G::kSlots, G::kCo, G::kZS>(zn, zs, i + 1, lane);
-    float* orow = a.out + ((b * T + t) * a.s) * static_cast<long long>(G::kCo);
+    float* orow = a.out + ((b * T + t) * a.s) * static_cast<long long>(Co);
     for (int p = 0; p < a.s; ++p) {
       const float wp = taps[3 * p], wc = taps[3 * p + 1], wx = taps[3 * p + 2];
       const bool prev = wp != 0.0f;
@@ -392,7 +425,15 @@ __global__ void __launch_bounds__(Tile<kMW, kNW>::kThreads, 1) up_fused_tc_kerne
                           fmaf((v.z - mu) * rsd, nw[k].z, nb[k].z),
                           fmaf((v.w - mu) * rsd, nw[k].w, nb[k].w));
         const int o = 4 * lane + 128 * k;
-        if (o < G::kCo) *reinterpret_cast<float4*>(orow + p * G::kCo + o) = v;
+        float* op = orow + p * Co + o;
+        if (o_vec) {
+          if (o < Co) *reinterpret_cast<float4*>(op) = v;
+        } else {
+          const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (o + u < Co) op[u] = vv[u];
+        }
       }
     }
   }
@@ -402,11 +443,12 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 template <int kNW>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  constexpr int kMW = (kTallTiles && kNW <= 4) ? 4 : 2;
+  constexpr int kMW = kNW > 8 ? 1 : (kTallTiles && kNW <= 4) ? 4 : 2;
   using G = Tile<kMW, kNW>;
   constexpr size_t smem = sizeof(float) * static_cast<size_t>(G::kFloats);
   static_assert(smem <= 227 * 1024, "shared memory");
-  auto kernel = up_fused_tc_kernel<kMW, kNW>;
+  const bool exact = kNW <= 8 && a.Co == G::kCo && a.x_vec && a.o_vec;
+  auto kernel = exact ? up_fused_tc_kernel<kMW, kNW, kNW <= 8> : up_fused_tc_kernel<kMW, kNW, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -417,23 +459,25 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
 
 }  // namespace
 
-// x: (B, T, Ci) with Ci a multiple of 4; w_hi: (Co, Ci), the conv weight in
-// its nn.Linear layout, Co a multiple of 32 up to 256 (w_lo: null, or its TF32
-// lo when the kernel is built pre-split); bias: (Co); norm_w / norm_b: (Co),
-// both null for no norm; out: (B, T s, Co). All fp32 and contiguous, x, w and
-// the norm 16-byte aligned; 1 <= s <= 16. Returns the CUDA error code
-// (invalid value for a shape it does not take).
+// x: (B, T, Ci), 1 <= Ci <= 1024; w_hi: (Cp, Ci4), the conv weight in its
+// nn.Linear layout with Co zero-padded to Cp = Co rounded up to 32 and rows
+// to Ci4 = Ci rounded up to 4 (w_lo: null, or its TF32 lo when the kernel is
+// built pre-split); bias: (Cp); norm_w / norm_b: (Cp), both null for no
+// norm, padded with zeros; out: (B, T s, Co), 1 <= Co <= 512. All fp32 and
+// contiguous, w and the norm 16-byte aligned; 1 <= s <= 16. Returns the CUDA
+// error code (invalid value for a shape it does not take).
 extern "C" int l3ac_up_fused_tc(const float* x, const float* w_hi, const float* w_lo,
                                 const float* bias, const float* norm_w, const float* norm_b,
                                 float* out, int B, int Ci, int Co, int T, int s, void* stream) {
-  if (B < 1 || B > 65535 || Ci < 4 || Ci % 4 != 0 || Co < 32 || Co > 256 || Co % 32 != 0 ||
-      T < 1 || s < 1 || s > kMaxScale || !aligned16(x) || !aligned16(w_hi) ||
+  if (B < 1 || B > 65535 || Ci < 1 || Ci > 1024 || Co < 1 || Co > 512 ||
+      T < 1 || s < 1 || s > kMaxScale || !aligned16(w_hi) ||
       (kPreSplit && (w_lo == nullptr || !aligned16(w_lo))) ||
       (norm_w == nullptr) != (norm_b == nullptr) ||
       (norm_w != nullptr && (!aligned16(norm_w) || !aligned16(norm_b))) ||
       static_cast<long long>(T) * s * Co >= (1LL << 40))
     return cudaErrorInvalidValue;
-  Args a{x, w_hi, w_lo, bias, norm_w, norm_b, out, Ci, Co, T, s, {}};
+  Args a{x, w_hi, w_lo, bias, norm_w, norm_b, out, Ci, Co, T, s,
+         (Ci + 3) / 4 * 4, Ci % 4 == 0 && aligned16(x), Co % 4 == 0 && aligned16(out), {}};
   for (int p = 0; p < s; ++p) {  // ops/resample.py:phase_weights, in double
     const double d = (p + 0.5) / s - 0.5;
     const double w = 1.0 + d;
@@ -442,7 +486,7 @@ extern "C" int l3ac_up_fused_tc(const float* x, const float* w_hi, const float* 
     a.taps[p][2] = d >= 0.0 ? static_cast<float>(d) : 0.0f;
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (Co / 32) {
+  switch ((Co + 31) / 32) {
     case 1: return launch<1>(a, B, st);
     case 2: return launch<2>(a, B, st);
     case 3: return launch<3>(a, B, st);
@@ -451,6 +495,9 @@ extern "C" int l3ac_up_fused_tc(const float* x, const float* w_hi, const float* 
     case 6: return launch<6>(a, B, st);
     case 7: return launch<7>(a, B, st);
     case 8: return launch<8>(a, B, st);
-    default: return cudaErrorInvalidValue;
+    case 9: case 10: return launch<10>(a, B, st);    // 320
+    case 11: case 12: return launch<12>(a, B, st);   // 384
+    case 13: case 14: return launch<14>(a, B, st);   // 448
+    default: return launch<16>(a, B, st);            // 512
   }
 }

@@ -113,6 +113,9 @@ class ConvUnit(nn.Module):
 
     def forward(self, x: torch.Tensor, *, channels_last: bool) -> torch.Tensor:
         """Residual unit: x (B, T, C) if ``channels_last`` else (B, C, T)."""
+        if x.dtype == torch.bfloat16 and isinstance(self.pw1, Int8Linear):
+            raise TypeError("ConvUnit: int8 weights with bf16 activations are not ported "
+                            "yet (the decode half of bf16 inference, ROADMAP A6)")
         if channels_last and isinstance(self.pw1, Int8Linear):
             # JAX conv_unit_apply's unfused body: elementwise steps in plain
             # PyTorch, pw1 / pw2 as modules (int8_matmul), the exact GRN

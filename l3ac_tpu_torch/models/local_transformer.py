@@ -14,7 +14,9 @@ kernel.
 All released configs use the dynamic position bias; the rotary path the
 reference takes without it is not ported yet.
 
-Activations are channels-last (B, T, C).
+Activations are channels-last (B, T, C). In a bf16 model the linears are
+bf16 ``torch.matmul`` products, as in the JAX package, the norms follow
+``ops.norms``' bf16 rule, and the position-bias table is in bf16.
 """
 
 from __future__ import annotations
@@ -77,8 +79,10 @@ class DynamicPositionBias(nn.Module):
 
     def forward(self, window_size: int) -> torch.Tensor:
         """-> the (2n, heads) table of the additive bias, bias[h, i, j] =
-        table[|n + i - j|, h] (``ops.attention.expand_position_table``)."""
-        return dynamic_position_table(dict(self.named_parameters()), window_size)
+        table[|n + i - j|, h] (``ops.attention.expand_position_table``),
+        computed in fp32 and stored in the model dtype."""
+        return dynamic_position_table(dict(self.named_parameters()),
+                                      window_size).to(self.w0.dtype)
 
 
 class Attention(nn.Module):

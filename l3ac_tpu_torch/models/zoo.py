@@ -7,6 +7,14 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``; there
 the kernels' plain versions run. Without CUDA, the default raises rather
 than run on the CPU unasked.
 
+``get_model(..., dtype=torch.bfloat16)`` builds a bf16 model: the weights
+are drawn in fp32 from the seed and then cast, as the JAX package's
+``get_model(dtype=)`` casts its fp32 init. A bf16 model encodes
+(``encode_audio``, ``extract_unit``, ``runtime.streaming.StreamCodec``'s
+encode) on the bf16 kernels; decoding it is the next slice of the port
+(the decode half of ROADMAP A6) and raises ``TypeError`` at the entry
+point.
+
 Unlike the JAX package, nothing here downloads: ``load_pretrained`` reads
 the reference's five ``.pt`` files from a local directory and raises,
 naming the files and the URL they are published under, when any is missing.
@@ -42,6 +50,7 @@ class L3AC:
         self.mc = config.network_config
         self.codec = codec.eval()
         self.device = next(codec.parameters()).device
+        self.dtype = next(codec.parameters()).dtype
         self.codec.attach_bias_caches()
 
     def load_state_dict(self, state_dict: dict) -> L3AC:
@@ -52,11 +61,11 @@ class L3AC:
         return self
 
     def preprocess(self, audio) -> tuple[torch.Tensor, int]:
-        """(T,) or (B, T) audio (numpy or tensor) -> hop-padded (B, T') fp32 on
-        the model's device, and the original length."""
+        """(T,) or (B, T) audio (numpy or tensor) -> hop-padded (B, T') in the
+        model's dtype on its device, and the original length."""
         if isinstance(audio, np.ndarray):
             audio = torch.from_numpy(audio)
-        audio = audio.to(self.device, torch.float32)
+        audio = audio.to(self.device, self.dtype)
         if audio.dim() == 1:
             audio = audio[None]
         return fcodec.preprocess(audio, self.mc)
@@ -67,11 +76,19 @@ class L3AC:
         padded, _ = self.preprocess(audio)
         return self.codec.encode(padded.contiguous())
 
+    def _check_decode(self, entry: str) -> None:
+        """Decoding runs in fp32 only: a bf16 model raises before any launch."""
+        if self.dtype != torch.float32:
+            raise TypeError(f"{entry}: decoding a {self.dtype} model is not ported yet (the "
+                            "decode half of bf16 inference, ROADMAP A6, is the next slice); "
+                            "encode in bf16 and decode the indices with an fp32 model")
+
     @torch.inference_mode()
     def decode_audio(self, audio_feature=None, indices=None,
                      audio_length: int | None = None) -> torch.Tensor:
         """Features (B, T'', C) or indices (B, T'') -> (B, T) audio, cropped
-        to ``audio_length`` when given."""
+        to ``audio_length`` when given. fp32 models only."""
+        self._check_decode("decode_audio")
         if audio_feature is not None:
             out = self.codec.decode(self._on_device(audio_feature).float().contiguous())
         else:
@@ -80,7 +97,8 @@ class L3AC:
 
     @torch.inference_mode()
     def roundtrip(self, audio) -> torch.Tensor:
-        """Encode then decode, cropped to the input length."""
+        """Encode then decode, cropped to the input length. fp32 models only."""
+        self._check_decode("roundtrip")
         padded, length = self.preprocess(audio)
         q, _ = self.codec.encode(padded.contiguous())
         return self.codec.decode(q)[..., :length]
@@ -125,9 +143,10 @@ class L3AC:
         chunk_audio = ChunkData(chunk_len=window, prefix_len=hop, original_data=padded)
         idx_chunks, feat_chunks = [], []
         for x in chunk_audio.chunk_data:
-            q, idx = self.codec.encode(self._on_device(np.ascontiguousarray(x))[None])
+            audio_chunk = self._on_device(np.ascontiguousarray(x))[None].to(self.dtype)
+            q, idx = self.codec.encode(audio_chunk)
             idx_chunks.append(idx[0].cpu().numpy())
-            feat_chunks.append(q[0].cpu().numpy())
+            feat_chunks.append(q[0].float().cpu().numpy())
         return (ChunkData(chunk_len=window // hop, prefix_len=1, chunk_data=idx_chunks),
                 ChunkData(chunk_len=window // hop, prefix_len=1, chunk_data=feat_chunks))
 
@@ -136,7 +155,8 @@ class L3AC:
         """Batch-1 chunked decode (reference ``l3ac/codec.py:149-156``) of
         ``extract_unit``'s chunks, by features when given, else by indices;
         returns (1, T) numpy audio with each later chunk's one-hop prefix
-        dropped."""
+        dropped. fp32 models only."""
+        self._check_decode("decode_unit")
         hop = self.mc.hop_length
         if chunk_q_feature is not None:
             chunks = [self.codec.decode(self._on_device(np.ascontiguousarray(x))[None])[0]
@@ -150,23 +170,27 @@ class L3AC:
 
 
 def get_model(name: str, *, pretrained: bool = False, device=None, seed: int = 0,
-              **overrides) -> L3AC:
+              dtype: torch.dtype = torch.float32, **overrides) -> L3AC:
     """Build a named model with weights drawn from ``seed``, or with the
     released weights when ``pretrained`` (``L3AC.load_pretrained`` from
     ``config.model_path``; raises when the files are not there, never
     downloads).
 
     ``device``: CUDA by default (raises without it); ``"cpu"`` runs the plain
-    path. The codec is built outside inference mode even when called inside
+    path. ``dtype``: fp32, or bf16 (the JAX package's serving dtype): the
+    weights are drawn in fp32 and cast, and released weights are cast after
+    conversion. The codec is built outside inference mode even when called inside
     it, so that its weights are ordinary tensors whose in-place changes are
     tracked (the kernels' prepared-weight cache relies on that).
     """
     dev = _resolve_device(device)
     cfg = get_config(name, **overrides)
     with torch.inference_mode(False):
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"get_model: dtype float32 or bfloat16, got {dtype}")
         codec = fcodec.Codec(cfg.network_config, device=dev)
         codec.init_weights(torch.Generator().manual_seed(seed))
-        model = L3AC(cfg, codec)
+        model = L3AC(cfg, codec.to(dtype))
         return model.load_pretrained() if pretrained else model
 
 

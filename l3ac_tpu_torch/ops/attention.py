@@ -10,6 +10,12 @@ positions. Window 0's previous block is zeros whose logits are masked.
 
 Masked logits are set to ``NEG_INF = finfo(float32).min``, not -inf, as in
 the JAX package.
+
+bf16 q / k / v, in the order of ``l3ac_tpu/ops/attention.py``'s jnp path:
+q is scaled by D^-1/2 in bf16 (the scale itself rounded to bf16, as JAX's
+weakly typed scalar is); the scores are accumulated in fp32 and the bias
+and the mask added in fp32; the softmax is fp32; P is rounded to bf16 and
+P V summed in fp32, then rounded to bf16 once.
 """
 
 import torch
@@ -35,11 +41,11 @@ def dynamic_position_table(params: dict, window_size: int) -> torch.Tensor:
     Linear, SiLU, Linear.
     """
     n = window_size
-    w0 = params["w0"]
-    rel = torch.arange(2 * n, dtype=torch.float32, device=w0.device)[:, None]
-    h = F.silu(F.linear(rel, w0, params["b0"]))
-    h = F.silu(F.linear(h, params["w1"], params["b1"]))
-    return F.linear(h, params["w2"], params["b2"])
+    p = {k: v.float() for k, v in params.items()}  # fp32 from bf16 weights, as JAX promotes
+    rel = torch.arange(2 * n, dtype=torch.float32, device=p["w0"].device)[:, None]
+    h = F.silu(F.linear(rel, p["w0"], p["b0"]))
+    h = F.silu(F.linear(h, p["w1"], p["b1"]))
+    return F.linear(h, p["w2"], p["b2"])
 
 
 def expand_position_table(table: torch.Tensor) -> torch.Tensor:
@@ -76,6 +82,9 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         bias = expand_position_table(bias_table)
     W = T // n
     scale = D ** -0.5
+    low = q.dtype == torch.bfloat16
+    if low:
+        scale = torch.tensor(scale, dtype=q.dtype)
 
     bq = q.reshape(B, H, W, n, D) * scale
     bk = k.reshape(B, H, W, n, D)
@@ -85,6 +94,8 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kk = torch.cat([prev_k, bk], dim=3)                       # (B, H, W, 2n, D)
     vv = torch.cat([prev_v, bv], dim=3)
 
+    if low:
+        bq, kk = bq.float(), kk.float()  # bf16 products are exact in fp32: fp32 sums
     sim = torch.einsum("bhwid,bhwjd->bhwij", bq, kk)
     if bias is not None:
         sim = sim + bias[None, :, None].to(sim.dtype)
@@ -94,5 +105,8 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mask = mask & ~first[None, None]
     sim = sim.masked_fill(~mask, NEG_INF)
     attn = sim.softmax(dim=-1)
+    if low:
+        out = torch.einsum("bhwij,bhwjd->bhwid", attn.to(vv.dtype).float(), vv.float())
+        return out.to(vv.dtype).reshape(B, H, T, D)
     out = torch.einsum("bhwij,bhwjd->bhwid", attn.to(vv.dtype), vv)
     return out.reshape(B, H, T, D)

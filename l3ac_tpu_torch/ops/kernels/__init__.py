@@ -3,8 +3,10 @@ kernel of the encode and decode paths, of int8 weight-only inference and of
 the two ``tools/`` probes, and their wrappers.
 
 Each wrapper:
-- checks device, dtype (fp32, or bf16 for the two probe kernels), shape and
-  contiguity, and raises on what its kernel does not take;
+- checks device, dtype, shape and contiguity, and raises on what its kernel
+  does not take. fp32 everywhere; bf16 too for the four kernels of the
+  encode path (``ENCODE_BF16``) and the two probe kernels. The decode-only
+  kernels raise on bf16 (the decode half of ROADMAP A6);
 - on a CUDA tensor launches its kernel or raises; there is no fallback;
 - on a CPU tensor runs the plain PyTorch version in the same module;
 - adds one to ``LAUNCHES[name]`` where it launches its kernel, and nowhere
@@ -26,14 +28,21 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+# the dtypes of the kernels that take bf16 as well as fp32: the encode path
+ENCODE_BF16 = (torch.float32, torch.bfloat16)
+
+
 def check_input(t: torch.Tensor, name: str, ndim: int | None = None,
-                dtype: torch.dtype = torch.float32) -> None:
-    """The checks every kernel input passes before its pointer is taken."""
-    if t.dtype != dtype:
-        if dtype == torch.float32:
-            raise TypeError(f"{name}: float32 only, got {t.dtype} (bf16 is not "
-                            "supported yet, ROADMAP A6)")
-        raise TypeError(f"{name}: {dtype} only, got {t.dtype}")
+                dtype: torch.dtype | tuple[torch.dtype, ...] = torch.float32) -> None:
+    """The checks every kernel input passes before its pointer is taken;
+    ``dtype`` is the one dtype the kernel takes or a tuple of them."""
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        if t.dtype == torch.bfloat16:
+            raise TypeError(f"{name}: bf16 is not supported by this kernel yet (the "
+                            "decode half of bf16 inference, ROADMAP A6); it takes "
+                            f"{', '.join(map(str, dtypes))}")
+        raise TypeError(f"{name}: {', '.join(map(str, dtypes))} only, got {t.dtype}")
     if ndim is not None and t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
 
@@ -49,7 +58,7 @@ def route(x: torch.Tensor, name: str) -> bool:
 
 
 def check_cuda(ts: dict, device: torch.device,
-               dtype: torch.dtype = torch.float32) -> None:
+               dtype: torch.dtype | tuple[torch.dtype, ...] = torch.float32) -> None:
     """Every operand of a launch is a contiguous ``dtype`` tensor on ``device``."""
     for name, t in ts.items():
         if t is None:

@@ -20,6 +20,24 @@ with three kernels, chosen by a shape rule, never by a retry:
   other C (``debug``'s 16). ``conv_unit_simt`` also runs it on (B, C, T),
   where it is only timed beside the narrow kernel.
 
+Widths: ``conv_unit`` takes C <= ``TC_MAX_C`` (1024) on the tensor-core
+route and C <= ``MAX_C`` (512) on the SIMT route; ``conv_unit_ct`` C <=
+``NARROW_MAX_C``. :func:`admits` is the one shape rule, for the launch and
+for a walk of a model.
+
+bf16 (the encode half of ROADMAP A6): both wrappers take bf16 x with a bf16
+unit. ``conv_unit_ct`` runs ``csrc/conv_unit_narrow_bf16.cu`` and
+``conv_unit`` the bf16 path of ``csrc/conv_unit_tc.cu`` (C % 8 == 0, so
+``debug``'s 16 too; another C raises on the card), each product one bf16
+tensor-core pass (mma.sync m16n8k16) with fp32 sums. They round where
+``l3ac_tpu/ops/pallas/conv_unit.py`` does: the depthwise conv, the norm and
+the activation in fp32; pw1's operand rounded to bf16 (:126), the hidden
+activation rounded to bf16 (:136), the residual added in fp32 and the sum
+rounded once (:139); GRN folded into pw2 in fp32 from the bf16 parameters,
+W2' then rounded to bf16 (:188-192), b2' kept in fp32. Their operands come
+prepared once per weight set (:class:`PreparedBf16`); the plain version
+(:func:`conv_unit_plain_bf16`) rounds at the same points.
+
 The two tensor-core kernels take their product weights prepared once per
 weight set (:func:`prepared_weights`).
 
@@ -55,8 +73,10 @@ from ..norms import channel_norm, grn
 from . import _build
 from .tc_gemm import split_tf32
 
-MAX_C = 512        # conv_unit: the SIMT kernel's accumulators, conv_unit_tc's 16 channels per lane
+MAX_C = 512        # conv_unit, SIMT route: conv_unit.cu's accumulators and shared memory
+TC_MAX_C = 1024    # conv_unit, tensor-core route: conv_unit_tc.cu's 32 channels per lane
 TC_MULTIPLE = 64   # conv_unit at C % 64 == 0 runs conv_unit_tc.cu, other C conv_unit.cu
+BF16_MULTIPLE = 8  # bf16 conv_unit: conv_unit_tc.cu's bf16 path at every C % 8 == 0
 NARROW_MAX_C = 96  # conv_unit_ct: conv_unit_narrow.cu's 12 n8 tiles of the second product
 
 
@@ -110,11 +130,55 @@ def conv_unit_plain(x: torch.Tensor, w: ConvUnitWeights, *, channel_dim: int,
 
 
 def fold_grn(w: ConvUnitWeights) -> tuple[torch.Tensor, torch.Tensor]:
-    """(W2' (4C, C), b2' (C,)): pw2 with GRN (n = 1) folded in, fp32."""
-    w2t = w.pw2_w.t()                                          # (4C, C)
-    w2f = (w2t * (1.0 + w.grn_gamma)[:, None]).contiguous()
-    b2f = (w.pw2_b + w.grn_beta @ w2t).contiguous()
+    """(W2' (4C, C), b2' (C,)): pw2 with GRN (n = 1) folded in, fp32 (from
+    bf16 parameters too)."""
+    w2t = w.pw2_w.float().t()                                  # (4C, C)
+    w2f = (w2t * (1.0 + w.grn_gamma.float())[:, None]).contiguous()
+    b2f = (w.pw2_b.float() + w.grn_beta.float() @ w2t).contiguous()
     return w2f, b2f
+
+
+class PreparedBf16(NamedTuple):
+    """The bf16 kernels' operands: the two products in bf16, every vector in
+    fp32 (the bf16 parameters' values), on the weights' device."""
+    dw: torch.Tensor              # (C, K) depthwise conv
+    dw_b: torch.Tensor            # (C,)
+    norm_w: torch.Tensor | None   # (C,) or None
+    norm_b: torch.Tensor | None
+    w1: torch.Tensor              # (4C, C) bf16, pw1 (nn.Linear layout)
+    b1: torch.Tensor              # (4C,)
+    alpha: torch.Tensor | None    # (4C,) snake, or None for exact GELU
+    w2: torch.Tensor              # (C, 4C) bf16, W2' = pw2 with GRN folded (fold_grn), rounded
+    b2: torch.Tensor              # (C,) b2', fp32
+
+
+def prepare_bf16(w: ConvUnitWeights) -> PreparedBf16:
+    """:class:`PreparedBf16` from a bf16 unit's weights."""
+    f = lambda t: None if t is None else t.detach().float().contiguous()
+    with torch.no_grad():
+        w2f, b2f = fold_grn(w)
+        return PreparedBf16(f(w.dw_w[:, 0, :]), f(w.dw_b), f(w.norm_w), f(w.norm_b),
+                            w.pw1_w.detach().bfloat16().contiguous(), f(w.pw1_b), f(w.alpha),
+                            w2f.t().contiguous().bfloat16(), b2f)
+
+
+def conv_unit_plain_bf16(x: torch.Tensor, w: ConvUnitWeights | PreparedBf16, *,
+                         channel_dim: int, dilation: int = 1) -> torch.Tensor:
+    """The bf16 kernels' function in plain PyTorch, rounding where they do:
+    fp32 depthwise conv, norm and activation, bf16 product operands with
+    fp32 sums, GRN folded, the residual added in fp32 and rounded once."""
+    p = w if isinstance(w, PreparedBf16) else prepare_bf16(w)
+    xt = (x if channel_dim == 1 else x.transpose(1, 2)).float()
+    k = p.dw.shape[-1]
+    y = F.conv1d(xt, p.dw[:, None, :], p.dw_b, padding=(k - 1) * dilation // 2,
+                 dilation=dilation, groups=xt.shape[1])
+    if p.norm_w is not None:
+        y = channel_norm(y, p.norm_w, p.norm_b, dim=1)
+    h = torch.einsum("oc,bct->bot", p.w1.float(), y.bfloat16().float()) + p.b1[:, None]
+    h = snake(h, p.alpha[:, None]) if p.alpha is not None else gelu(h)
+    y = torch.einsum("oc,bct->bot", p.w2.float(), h.bfloat16().float()) + p.b2[:, None]
+    out = (xt + y).to(x.dtype)
+    return out if channel_dim == 1 else out.transpose(1, 2)
 
 
 class PreparedWeights(NamedTuple):
@@ -126,10 +190,12 @@ class PreparedWeights(NamedTuple):
     w2_lo: torch.Tensor
 
 
-def prepare_weights(w: ConvUnitWeights) -> PreparedWeights:
+def prepare_weights(w: ConvUnitWeights) -> PreparedWeights | PreparedBf16:
     """W1 and W2' in K-major (nn.Linear) layout, split into TF32 hi / lo, and
     b2'. pw1 is K-major already; W2' is ``fold_grn``'s (4C, C) result
-    transposed."""
+    transposed. A bf16 unit's operands are :func:`prepare_bf16`'s."""
+    if w.pw1_w.dtype == torch.bfloat16:
+        return prepare_bf16(w)
     with torch.no_grad():
         w2f, b2f = fold_grn(w)
         return PreparedWeights(b2f, *split_tf32(w.pw1_w), *split_tf32(w2f.t().contiguous()))
@@ -145,13 +211,14 @@ def cached_prepare(owner: torch.Tensor, src: tuple[torch.Tensor, ...],
                    build: Callable[[], PreparedWeights]) -> PreparedWeights:
     """``build()``, cached under ``owner`` and rebuilt whenever a tensor of
     ``src`` is another object or has changed in place (``load_state_dict``,
-    ``mul_``, ...: each bumps its ``_version``), so no stale weight is used.
+    ``mul_``, ...: each bumps its ``_version``) or has another dtype (a model
+    moved with ``.to(torch.bfloat16)``), so no stale weight is used.
     A source that is an inference tensor has no version counter, and its
     in-place changes cannot be seen: such a set is built on every call and
     never cached."""
     if any(t.is_inference() for t in src):
         return build()
-    key = tuple((t.data_ptr(), t._version) for t in src)
+    key = tuple((t.data_ptr(), t._version, t.dtype) for t in src)
     slot = id(owner)
     hit = _PREPARED.get(slot)
     if hit is not None and hit[0] == key and all(r() is t for r, t in zip(hit[1], src)):
@@ -163,17 +230,36 @@ def cached_prepare(owner: torch.Tensor, src: tuple[torch.Tensor, ...],
     return prep
 
 
-def prepared_weights(w: ConvUnitWeights) -> PreparedWeights:
-    """:func:`prepare_weights`, cached on its sources (pw1_w, pw2_w, pw2_b,
-    grn_gamma, grn_beta) by :func:`cached_prepare`."""
-    return cached_prepare(w.pw1_w, (w.pw1_w, w.pw2_w, w.pw2_b, w.grn_gamma, w.grn_beta),
-                          lambda: prepare_weights(w))
+def prepared_weights(w: ConvUnitWeights) -> PreparedWeights | PreparedBf16:
+    """:func:`prepare_weights`, cached on its sources by
+    :func:`cached_prepare`: pw1_w, pw2_w, pw2_b, grn_gamma, grn_beta, and for
+    a bf16 unit every other weight too (:class:`PreparedBf16` holds them)."""
+    src = ((w.pw1_w, w.pw2_w, w.pw2_b, w.grn_gamma, w.grn_beta)
+           if w.pw1_w.dtype != torch.bfloat16 else tuple(t for t in w if t is not None))
+    return cached_prepare(w.pw1_w, src, lambda: prepare_weights(w))
 
 
-def _check_weights(w: ConvUnitWeights, C: int, name: str) -> int:
+def admits(name: str, C: int, dtype: torch.dtype = torch.float32) -> str | None:
+    """Why the CUDA route of ``name`` (``"conv_unit"`` or ``"conv_unit_ct"``)
+    does not take width C in ``dtype``, or None when it does. The launch
+    raises with this reason."""
+    if name == "conv_unit_ct":
+        if not 1 <= C <= NARROW_MAX_C:
+            return f"conv_unit_ct: C = {C} outside 1..{NARROW_MAX_C}"
+        return None
+    if C % TC_MULTIPLE == 0 or (dtype == torch.bfloat16 and C % BF16_MULTIPLE == 0):
+        return None if 1 <= C <= TC_MAX_C else \
+            f"conv_unit: C = {C} outside 1..{TC_MAX_C} (tensor-core route)"
+    if dtype == torch.bfloat16:
+        return (f"conv_unit: bf16 runs on the tensor-core route only, C a multiple of "
+                f"{BF16_MULTIPLE}; got C = {C}")
+    return None if 1 <= C <= MAX_C else f"conv_unit: C = {C} outside 1..{MAX_C} (SIMT route)"
+
+
+def _check_weights(w: ConvUnitWeights, C: int, name: str, max_c: int = MAX_C) -> int:
     ksz = w.dw_w.shape[-1]
-    if not 1 <= C <= MAX_C:
-        raise ValueError(f"{name}: C = {C} outside 1..{MAX_C}")
+    if not 1 <= C <= max_c:
+        raise ValueError(f"{name}: C = {C} outside 1..{max_c}")
     if w.dw_w.shape != (C, 1, ksz) or ksz % 2 == 0 or \
             w.pw1_w.shape != (4 * C, C) or w.pw2_w.shape != (C, 4 * C):
         raise ValueError(f"{name}: weight shapes do not match C = {C}")
@@ -220,7 +306,7 @@ _TC_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 def _launch_tc(x: torch.Tensor, w: ConvUnitWeights, dilation: int) -> torch.Tensor:
     """``csrc/conv_unit_tc.cu`` on (B, T, C), C a multiple of TC_MULTIPLE."""
     B, T, C = x.shape
-    ksz = _check_weights(w, C, "conv_unit")
+    ksz = _check_weights(w, C, "conv_unit", TC_MAX_C)
     p = prepared_weights(w)
     dw = w.dw_w[:, 0, :]                                       # (C, K), a view
     ops = {"x": x, "dw": dw, "dw_b": w.dw_b, "norm_w": w.norm_w, "norm_b": w.norm_b,
@@ -269,30 +355,98 @@ def _launch_narrow(x: torch.Tensor, w: ConvUnitWeights, p: PreparedWeights,
     return out
 
 
+_BF16_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_TC_BF16_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def _check_bf16(x: torch.Tensor, p: PreparedBf16, C: int, name: str) -> int:
+    ksz = p.dw.shape[-1]
+    if p.dw.shape != (C, ksz) or ksz % 2 == 0 or p.w1.shape != (4 * C, C) or \
+            p.w2.shape != (C, 4 * C) or p.b1.shape != (4 * C,) or p.b2.shape != (C,):
+        raise ValueError(f"{name}: bf16 weight shapes do not match C = {C}")
+    if (p.norm_w is None) != (p.norm_b is None):
+        raise ValueError(f"{name}: norm weight and bias go together")
+    K.check_cuda({"x": x, "w1": p.w1, "w2": p.w2}, x.device, dtype=torch.bfloat16)
+    K.check_cuda({"dw": p.dw, "dw_b": p.dw_b, "norm_w": p.norm_w, "norm_b": p.norm_b,
+                  "b1": p.b1, "alpha": p.alpha, "b2": p.b2}, x.device)
+    return ksz
+
+
+def _launch_bf16(x: torch.Tensor, p: PreparedBf16, dilation: int, *,
+                 channels_last: bool) -> torch.Tensor:
+    """The bf16 kernels: ``csrc/conv_unit_narrow_bf16.cu`` on (B, C, T), the
+    bf16 path of ``csrc/conv_unit_tc.cu`` on (B, T, C)."""
+    name = "conv_unit" if channels_last else "conv_unit_ct"
+    B = x.shape[0]
+    C, T = (x.shape[2], x.shape[1]) if channels_last else (x.shape[1], x.shape[2])
+    why = admits(name, C, torch.bfloat16)
+    if why is not None:
+        raise ValueError(why)
+    ksz = _check_bf16(x, p, C, name)
+    out = torch.empty_like(x)
+    vec = (p.dw.data_ptr(), p.dw_b.data_ptr(), _build.ptr(p.norm_w), _build.ptr(p.norm_b),
+           p.w1.data_ptr(), p.b1.data_ptr(), _build.ptr(p.alpha), p.w2.data_ptr(),
+           p.b2.data_ptr())
+    if channels_last:
+        a = torch.empty(B * T, C, device=x.device, dtype=torch.bfloat16)
+        h = torch.empty(B * T, 4 * C, device=x.device, dtype=torch.bfloat16)
+        fn = _build.function("l3ac_conv_unit_tc_bf16", _TC_BF16_ARGTYPES)
+        err = fn(x.data_ptr(), out.data_ptr(), a.data_ptr(), h.data_ptr(), *vec,
+                 B, T, C, ksz, dilation, _build.stream_ptr())
+    else:
+        fn = _build.function("l3ac_conv_unit_narrow_bf16", _BF16_ARGTYPES)
+        err = fn(x.data_ptr(), out.data_ptr(), *vec, B, C, T, ksz, dilation,
+                 _build.stream_ptr())
+    _build.check(err, name)
+    return out
+
+
 def conv_unit_ct(x: torch.Tensor, w: ConvUnitWeights, *, dilation: int = 1,
-                 prepared: Callable[[], PreparedWeights] | None = None) -> torch.Tensor:
-    """Residual ConvUnit on (B, C, T). On CUDA the narrow tensor-core kernel
-    at C <= NARROW_MAX_C (raises above), its products from ``prepared()``
-    when given (then ``w`` may leave pw1_w / pw2_w out), else from
-    :func:`prepared_weights`. Plain on the CPU, from ``w``'s dense weights."""
-    K.check_input(x, "conv_unit_ct x", ndim=3)
+                 prepared: Callable[[], PreparedWeights | PreparedBf16] | None = None
+                 ) -> torch.Tensor:
+    """Residual ConvUnit on (B, C, T), fp32 or bf16. On CUDA the narrow
+    tensor-core kernel of x's dtype at C <= NARROW_MAX_C (raises above), its
+    operands from ``prepared()`` when given (then ``w`` may leave pw1_w /
+    pw2_w out), else from :func:`prepared_weights`. Plain on the CPU, from
+    ``w``'s dense weights."""
+    K.check_input(x, "conv_unit_ct x", ndim=3, dtype=K.ENCODE_BF16)
+    bf16 = x.dtype == torch.bfloat16
     if not K.route(x, "conv_unit_ct"):
+        if bf16:
+            return conv_unit_plain_bf16(x, w, channel_dim=1, dilation=dilation)
         return conv_unit_plain(x, w, channel_dim=1, dilation=dilation)
+    why = admits("conv_unit_ct", x.shape[1], x.dtype)
+    if why is not None:
+        raise ValueError(why)
     p = prepared() if prepared is not None else prepared_weights(w)
-    out = _launch_narrow(x, w, p, dilation)
+    if bf16 != isinstance(p, PreparedBf16):
+        raise TypeError(f"conv_unit_ct: x is {x.dtype} but the unit's weights are not")
+    out = _launch_bf16(x, p, dilation, channels_last=False) if bf16 else \
+        _launch_narrow(x, w, p, dilation)
     K.LAUNCHES["conv_unit_ct"] += 1
     return out
 
 
 def conv_unit(x: torch.Tensor, w: ConvUnitWeights, *,
               dilation: int = 1) -> torch.Tensor:
-    """Residual ConvUnit on (B, T, C). On CUDA: the tensor-core path when C is
-    a multiple of TC_MULTIPLE, else the SIMT kernel; one count either way.
-    Plain on CPU."""
-    K.check_input(x, "conv_unit x", ndim=3)
+    """Residual ConvUnit on (B, T, C), fp32 or bf16. On CUDA: the tensor-core
+    path when C is a multiple of TC_MULTIPLE (bf16: of BF16_MULTIPLE), else
+    (fp32 only) the SIMT kernel; one count either way. Plain on CPU."""
+    K.check_input(x, "conv_unit x", ndim=3, dtype=K.ENCODE_BF16)
+    bf16 = x.dtype == torch.bfloat16
     if not K.route(x, "conv_unit"):
+        if bf16:
+            return conv_unit_plain_bf16(x, w, channel_dim=2, dilation=dilation)
         return conv_unit_plain(x, w, channel_dim=2, dilation=dilation)
-    if x.shape[2] % TC_MULTIPLE == 0:
+    why = admits("conv_unit", x.shape[2], x.dtype)
+    if why is not None:
+        raise ValueError(why)
+    if bf16:
+        p = prepared_weights(w)
+        if not isinstance(p, PreparedBf16):
+            raise TypeError("conv_unit: x is bf16 but the unit's weights are not")
+        out = _launch_bf16(x, p, dilation, channels_last=True)
+    elif x.shape[2] % TC_MULTIPLE == 0:
         out = _launch_tc(x, w, dilation)
     else:
         out = conv_unit_simt(x, w, dilation, channels_last=True)

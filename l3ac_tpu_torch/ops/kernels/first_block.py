@@ -23,6 +23,21 @@ is replaced or changed in place, never cached for an inference tensor), and
 ``models.tconv.FirstBlock`` passes the :class:`PreparedStem` it cached on
 its parameters. Bound on the H100 and design: the note at the head of
 ``csrc/first_block.cu``.
+
+Widths: 1 <= Cout <= ``MAX_COUT`` (256). Above 64 the output channels are
+padded to a multiple of 64 and each block computes one 64-channel tile of
+them (the grid's third axis), redoing the pools and product 1 per tile.
+
+bf16 (the encode half of ROADMAP A6): bf16 audio with a bf16 stem runs the
+bf16 kernel of the same file, rounding where
+``l3ac_tpu/ops/pallas/first_block.py`` does (:81, :108-124): pools and
+branch convs in fp32 from the bf16 samples, the 20 branch outputs rounded to
+bf16, product 1 on bf16 operands with fp32 sums (one m16n8k16 pass), b1 and
+the exact GELU in fp32, the 80 activations rounded to bf16 and product 2
+likewise, the raw sample's column (bf16 times bf16, exact) added in fp32,
+and the output rounded to bf16. :func:`pack` lays a bf16 stem's products
+out as bf16 pairs in the mma's fragment order; :func:`first_block_plain`
+rounds at the same points on bf16 input.
 """
 
 from __future__ import annotations
@@ -42,7 +57,8 @@ from .conv_unit import cached_prepare
 from .tc_gemm import split_tf32
 
 POOLS = (1, 5, 11, 21, 45)
-MAX_COUT = 64
+MAX_COUT = 256
+COUT_TILE = 64   # output channels per block (csrc/first_block.cu kMaxNT n8 tiles)
 TILE = 128        # output columns per tile (csrc/first_block.cu kTile)
 HALO = 47         # staged audio on each side of a tile: 2 * (45 // 2) + 3
 HID, HID_PAD, MID = 20, 24, 80
@@ -64,7 +80,10 @@ class PreparedStem(NamedTuple):
 
 
 def first_block_plain(x: torch.Tensor, w: FirstBlockWeights) -> torch.Tensor:
-    """x: (B, T) -> (B, Cout, T), in plain PyTorch."""
+    """x: (B, T) -> (B, Cout, T), in plain PyTorch; bf16 x: the bf16 kernel's
+    roundings (:func:`first_block_plain_bf16`)."""
+    if x.dtype == torch.bfloat16:
+        return first_block_plain_bf16(x, w)
     xc = x[:, None, :]
     outs = []
     for i, k in enumerate(POOLS):
@@ -77,37 +96,106 @@ def first_block_plain(x: torch.Tensor, w: FirstBlockWeights) -> torch.Tensor:
     return torch.einsum("oc,bct->bot", w.w2, h) + w.b2[:, None]
 
 
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """The value of a bf16 cast, in fp32."""
+    return t.bfloat16().float()
+
+
+def first_block_plain_bf16(x: torch.Tensor, w: FirstBlockWeights) -> torch.Tensor:
+    """bf16 x (B, T) -> bf16 (B, Cout, T), rounding where the bf16 kernel
+    does: fp32 pools and branch convs, bf16 operands of both products with
+    fp32 sums, fp32 b1 and GELU, the raw sample's term in fp32."""
+    wf = FirstBlockWeights(*(t.float() for t in w))
+    xc = x.float()[:, None, :]
+    h = torch.cat([F.conv1d(trend_pool(xc, k), wf.branch_w[i][:, None, :], wf.branch_b[i],
+                            padding=3) for i, k in enumerate(POOLS)], dim=1)
+    z = torch.einsum("oc,bct->bot", _bf16(wf.w1), _bf16(h)) + wf.b1[:, None]
+    g = _bf16(gelu(z))
+    y = torch.einsum("oc,bct->bot", wf.w2[:, :MID], g) + wf.b2[:, None]
+    return (y + wf.w2[:, MID, None] * xc).to(x.dtype)
+
+
 def padded_cout(Cout: int) -> int:
-    """Output channels rounded up to the kernel's n8 tiles."""
-    return -(-Cout // 8) * 8
+    """Output channels rounded up to the kernel's n8 tiles, and above
+    COUT_TILE to whole tiles of COUT_TILE."""
+    q = 8 if Cout <= COUT_TILE else COUT_TILE
+    return -(-Cout // q) * q
 
 
-def sections(Cout: int) -> dict[str, tuple[int, ...]]:
-    """The shapes of :func:`pack`'s parts, in the order of its buffer (the
-    weights of ``csrc/first_block.cu``'s shared-memory Layout)."""
+def sections(Cout: int, bf16: bool = False) -> dict[str, tuple[int, ...]]:
+    """The shapes of :func:`pack`'s parts, in 32-bit words, in the order of
+    its buffer (the weights of ``csrc/first_block.cu``'s shared-memory
+    Layout); ``bf16``: the bf16 kernel's."""
     Cp = padded_cout(Cout)
-    return {"w1": (MID // 8, HID_PAD // 8, 32, 4), "w2": (MID // 8, Cp // 8, 32, 4),
-            "b1": (MID,), "b2": (Cp,), "wx": (Cp,), "branch_w": (5, 4, 7), "branch_b": (5, 4)}
+    if bf16:
+        mats = {"w1": (MID // 8, 2, 32, 2), "w2": (MID // 16, Cp // 8, 32, 2)}
+    else:
+        mats = {"w1": (MID // 8, HID_PAD // 8, 32, 4), "w2": (MID // 8, Cp // 8, 32, 4)}
+    return {**mats, "b1": (MID,), "b2": (Cp,), "wx": (Cp,), "branch_w": (5, 4, 7),
+            "branch_b": (5, 4)}
 
 
-def packed_floats(Cout: int) -> int:
-    """The floats of :func:`pack`'s buffer."""
-    return sum(math.prod(shape) for shape in sections(Cout).values())
+def packed_floats(Cout: int, bf16: bool = False) -> int:
+    """The 32-bit words of :func:`pack`'s buffer."""
+    return sum(math.prod(shape) for shape in sections(Cout, bf16).values())
+
+
+def _pairs(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Two tensors of bf16 values -> one fp32 tensor whose bits hold the pair
+    (``lo`` in the low half), as ``cvt.rn.bf16x2.f32`` packs it."""
+    bits = lambda t: t.bfloat16().view(torch.int16).to(torch.int32) & 0xFFFF
+    return (bits(lo) | (bits(hi) << 16)).view(torch.float32)
+
+
+def _pack_bf16(w: FirstBlockWeights, Cout: int, Cp: int) -> dict[str, torch.Tensor]:
+    """The bf16 kernel's products as m16n8k16 B fragments of bf16 pairs.
+
+    - W1 [j][s][lane] (b0, b1), j < 10 the n8 tile of hidden units, s < 2 the
+      k16 step; lane (g, t) of step 0 holds hidden inputs t, 4 + t (b0) and
+      8 + t, 12 + t (b1), i.e. channel t of branches 0-3, and of step 1
+      input 16 + t (branch 4) and zeros: the k order that puts each lane's
+      own branch convs into its A fragment;
+    - W2 [s][nt][lane] (b0, b1), s < 5 the k16 step over the 80 hidden
+      units in their natural order (product 1's accumulator pairs are
+      product 2's A fragment), nt < Cp / 8:
+      ``b0 = W2[8nt + g, 16s + 2t .. +1]``, ``b1 = W2[8nt + g, 16s + 2t + 8 .. +9]``."""
+    lane = torch.arange(32, device=w.w1.device)
+    g, t = lane // 4, lane % 4
+    w1 = w.w1.float()
+    rows = 8 * torch.arange(MID // 8, device=lane.device)[:, None] + g   # (10, 32)
+    z = torch.zeros(rows.shape, device=lane.device)
+    s0 = torch.stack([_pairs(w1[rows, t], w1[rows, 4 + t]),
+                      _pairs(w1[rows, 8 + t], w1[rows, 12 + t])], -1)
+    s1 = torch.stack([_pairs(w1[rows, 16 + t], z), _pairs(z, z)], -1)
+    f1 = torch.stack([s0, s1], 1)                                       # (10, 2, 32, 2)
+    w2 = w.w2.new_zeros(Cp, MID, dtype=torch.float32)
+    w2[:Cout] = w.w2[:, :MID].float()
+    k0 = 16 * torch.arange(MID // 16, device=lane.device)[:, None, None] + 2 * t  # (5, 1, 32)
+    rows = 8 * torch.arange(Cp // 8, device=lane.device)[None, :, None] + g       # (1, Cp/8, 32)
+    f2 = torch.stack([_pairs(w2[rows, k0], w2[rows, k0 + 1]),
+                      _pairs(w2[rows, k0 + 8], w2[rows, k0 + 9])], -1)
+    return {"w1": f1, "w2": f2}
+
+
+def admits(Cout: int) -> str | None:
+    """Why the kernel does not take Cout output channels, or None when it does."""
+    return None if 1 <= Cout <= MAX_COUT else f"the kernel takes 1 <= Cout <= {MAX_COUT}, got {Cout}"
 
 
 def _check_shapes(w: FirstBlockWeights, name: str) -> int:
     Cout = w.w2.shape[0]
     if w.branch_w.shape != (5, 4, 7) or w.branch_b.shape != (5, 4) or \
             w.w1.shape != (MID, HID) or w.b1.shape != (MID,) or w.w2.shape != (Cout, MID + 1) or \
-            w.b2.shape != (Cout,) or not 1 <= Cout <= MAX_COUT:
+            w.b2.shape != (Cout,) or admits(Cout) is not None:
         raise ValueError(f"{name}: unexpected weight shapes {[tuple(t.shape) for t in w]}")
     return Cout
 
 
 def pack(w: FirstBlockWeights) -> torch.Tensor:
     """The kernel's one weight buffer, fp32 on the weights' device, in the
-    order of its shared-memory image (:func:`sections`; Cp = Cout rounded up
-    to 8):
+    order of its shared-memory image (:func:`sections`; Cp =
+    :func:`padded_cout`). A bf16 stem's products are :func:`_pack_bf16`'s
+    bf16 pairs, its vectors the fp32 values of its bf16 parameters. fp32:
 
     - W1 (80, 20) zero-padded to (80, 24), split into TF32 hi / lo, as the B
       fragments of product 1: [j][ks][lane] (hi0, hi1, lo0, lo1), j < 10 the
@@ -123,6 +211,14 @@ def pack(w: FirstBlockWeights) -> torch.Tensor:
       convs (5, 4, 7) and their biases (5, 4), in fp32 as they are."""
     Cout = _check_shapes(w, "first_block pack")
     Cp = padded_cout(Cout)
+    if w.w1.dtype == torch.bfloat16:
+        with torch.no_grad():
+            wf = FirstBlockWeights(*(p.float() for p in w))
+            vec = lambda v: F.pad(v, (0, Cp - Cout))
+            parts = {**_pack_bf16(wf, Cout, Cp), "b1": wf.b1, "b2": vec(wf.b2),
+                     "wx": vec(wf.w2[:, MID]), "branch_w": wf.branch_w,
+                     "branch_b": wf.branch_b}
+            return torch.cat([p.reshape(-1) for p in parts.values()]).contiguous()
     lane = torch.arange(32)
     g, t = lane // 4, lane % 4                                          # lane = 4 g + t
     with torch.no_grad():
@@ -153,17 +249,22 @@ _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def _launch(x: torch.Tensor, w: FirstBlockWeights | PreparedStem) -> torch.Tensor:
-    """``csrc/first_block.cu`` on x (B, T)."""
+    """``csrc/first_block.cu`` on x (B, T): its fp32 or its bf16 kernel."""
     B, T = x.shape
     prepared = isinstance(w, PreparedStem)
-    Cout = _check_shapes(w.weights if prepared else w, "first_block")
+    weights = w.weights if prepared else w
+    Cout = _check_shapes(weights, "first_block")
+    bf16 = x.dtype == torch.bfloat16
+    if (weights.w1.dtype == torch.bfloat16) != bf16:
+        raise TypeError(f"first_block: x is {x.dtype}, the weights {weights.w1.dtype}")
     wp = w.packed if prepared else prepared_stem(w)
-    if wp.shape != (packed_floats(Cout),):
+    if wp.shape != (packed_floats(Cout, bf16),):
         raise ValueError(f"first_block: packed weights {tuple(wp.shape)} do not match "
                          f"Cout = {Cout}")
-    K.check_cuda({"x": x, "weights": wp}, x.device)
+    K.check_cuda({"x": x}, x.device, dtype=x.dtype)
+    K.check_cuda({"weights": wp}, x.device)
     out = torch.empty((B, Cout, T), device=x.device, dtype=x.dtype)
-    fn = _build.function("l3ac_first_block", _ARGTYPES)
+    fn = _build.function("l3ac_first_block_bf16" if bf16 else "l3ac_first_block", _ARGTYPES)
     err = fn(x.data_ptr(), wp.data_ptr(), out.data_ptr(), B, T, Cout, _build.stream_ptr())
     _build.check(err, "first_block")
     K.LAUNCHES["first_block"] += 1
@@ -171,10 +272,10 @@ def _launch(x: torch.Tensor, w: FirstBlockWeights | PreparedStem) -> torch.Tenso
 
 
 def first_block(x: torch.Tensor, w: FirstBlockWeights | PreparedStem) -> torch.Tensor:
-    """x: (B, T) fp32 audio -> (B, Cout, T). ``w``: the weights, or a
-    :class:`PreparedStem` whose buffer the kernel takes as it is. Kernel on
-    CUDA, plain on CPU."""
-    K.check_input(x, "first_block x", ndim=2)
+    """x: (B, T) fp32 or bf16 audio -> (B, Cout, T) in x's dtype. ``w``: the
+    weights (of x's dtype), or a :class:`PreparedStem` whose buffer the
+    kernel takes as it is. Kernel on CUDA, plain on CPU."""
+    K.check_input(x, "first_block x", ndim=2, dtype=K.ENCODE_BF16)
     if not K.route(x, "first_block"):
         return first_block_plain(x, w.weights if isinstance(w, PreparedStem) else w)
     return _launch(x, w)

@@ -22,6 +22,10 @@ prepares it once: :func:`prepared_tail` caches it on the weight tensors
 in place, never cached for an inference tensor), and ``models.decoder``
 passes the buffer it cached with its stacked weights. Bound on the H100 and
 design: the note at the head of ``csrc/legacy_tail.cu``.
+
+Widths: C a multiple of 4 up to ``MAX_C`` (64); :func:`admits` is the rule.
+Up to 24 channels the kernel keeps every weight in shared memory; wider, it
+reads the matrices from device memory.
 """
 
 from __future__ import annotations
@@ -40,7 +44,15 @@ from .conv_unit import cached_prepare
 from .tc_gemm import split_tf32
 
 DILATIONS = (1, 3, 9)
-CHANNELS = (8, 12, 16, 24)  # the kernel's instantiations; every released config has 24
+MAX_C = 64      # C a multiple of 4 up to this (every released config has 24)
+ALIGN_C = 4
+
+
+def admits(C: int) -> str | None:
+    """Why the kernel does not take C channels, or None when it does."""
+    if not (ALIGN_C <= C <= MAX_C and C % ALIGN_C == 0):
+        return f"the kernel takes C a multiple of {ALIGN_C} up to {MAX_C}, got {C}"
+    return None
 
 
 class TailWeights(NamedTuple):
@@ -126,8 +138,9 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2
 def _launch(x0: torch.Tensor, x1: torch.Tensor | None, w: TailWeights | PreparedTail,
             T: int, name: str) -> torch.Tensor:
     B, C = x0.shape[:2]
-    if C not in CHANNELS:
-        raise ValueError(f"{name}: the kernel takes C in {CHANNELS}, got {C}")
+    why = admits(C)
+    if why is not None:
+        raise ValueError(f"{name}: {why}")
     if isinstance(w, PreparedTail):
         wp = w.packed
     else:

@@ -29,6 +29,20 @@ Bound on the H100, design (flash-attention style: 3xTF32 mma.sync for both
 products, online softmax in registers, the table column in shared memory)
 and how P moves between the two products: the note at the head of
 ``csrc/local_attention.cu``. No SDPA, no cuDNN, no cuBLAS.
+
+Head dims: D a multiple of 4 up to ``MAX_HEAD_DIM`` (128), the K loop of
+S = q K^T in steps of 8 (fp32) or 16 (bf16) and O in D / 8 n8 tiles.
+:func:`admits` is the shape rule the launch applies.
+
+bf16 (the encode half of ROADMAP A6): bf16 q / k / v (and a bias or table in
+bf16) run the bf16 kernel of the same file, both products one m16n8k16 bf16
+pass with fp32 sums. q is scaled by D^-1/2 in bf16 (the scale rounded to
+bf16) as the plain version and the JAX kernel do; the bias is added and the
+online softmax runs in fp32; P is rounded to bf16 for P V and O is written
+in bf16 after the division by the row sum. The plain version rounds the
+normalized P where this kernel rounds exp(s - m) with the running max m
+and divides at the end: the one rounding point the two do not share, worth
+at most a bf16 ulp of P.
 """
 
 from __future__ import annotations
@@ -41,8 +55,8 @@ from .. import kernels as K
 from ..attention import local_attention as local_attention_plain
 from . import _build
 
-MAX_HEAD_DIM = 32  # one K step of Q K^T
-ALIGN = 4          # floats: rows are read as 16-byte pieces
+MAX_HEAD_DIM = 128  # csrc/local_attention.cu: D / 8 n8 tiles of O
+ALIGN = 4           # elements: rows are read as pieces of 4 (16 bytes fp32, 8 bf16)
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9 +
              [ctypes.c_float, ctypes.c_void_p])
@@ -55,11 +69,21 @@ def _strides(t: torch.Tensor, name: str) -> list[int]:
         raise ValueError(f"local_attention: {name}'s last dim is not contiguous "
                          f"(strides {t.stride()}); the kernel does not copy")
     out = [t.stride(d) if t.shape[d] > 1 else 0 for d in range(3)]
-    if any(s % ALIGN for s in out) or t.data_ptr() % (4 * ALIGN):
+    piece = ALIGN * t.element_size()
+    if any(s % ALIGN for s in out) or t.data_ptr() % piece:
         raise ValueError(f"local_attention: {name} (strides {t.stride()}, address "
-                         f"{t.data_ptr():#x}) is not a view of 16-byte aligned rows: "
+                         f"{t.data_ptr():#x}) is not a view of {piece}-byte aligned rows: "
                          f"its B / H / T strides must be multiples of {ALIGN}")
     return out
+
+
+def admits(D: int) -> str | None:
+    """Why the kernel does not take head dim D, or None when it does."""
+    if not 1 <= D <= MAX_HEAD_DIM:
+        return f"local_attention: the kernel takes D <= {MAX_HEAD_DIM}, got {D}"
+    if D % ALIGN:
+        return f"local_attention: the kernel takes D a multiple of {ALIGN}, got {D}"
+    return None
 
 
 def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -70,7 +94,7 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     CUDA a permuted view of a (B, T, H, D) tensor. Kernel on CUDA, plain on
     CPU."""
     for name, t in (("q", q), ("k", k), ("v", v)):
-        K.check_input(t, f"local_attention {name}", ndim=4)
+        K.check_input(t, f"local_attention {name}", ndim=4, dtype=K.ENCODE_BF16)
     if bias is not None and bias_table is not None:
         raise ValueError("local_attention: pass bias or bias_table, not both")
     if not K.route(q, "local_attention"):
@@ -80,10 +104,9 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     n = window_size
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("local_attention: q, k, v shapes differ")
-    if not 1 <= D <= MAX_HEAD_DIM:
-        raise ValueError(f"local_attention: the kernel takes D <= {MAX_HEAD_DIM}, got {D}")
-    if D % ALIGN:
-        raise ValueError(f"local_attention: the kernel takes D a multiple of {ALIGN}, got {D}")
+    why = admits(D)
+    if why is not None:
+        raise ValueError(why)
     if n < 1 or T % n:
         raise ValueError(f"local_attention: T = {T} is not a multiple of n = {n}")
     if bias is not None and bias.shape != (H, n, 2 * n):
@@ -92,16 +115,22 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if bias_table is not None and bias_table.shape != (2 * n, H):
         raise ValueError(f"local_attention: bias_table {tuple(bias_table.shape)} is not "
                          f"{(2 * n, H)}")
-    K.check_cuda({"bias": bias, "bias_table": bias_table}, q.device)
+    K.check_cuda({"bias": bias, "bias_table": bias_table}, q.device, dtype=q.dtype)
     strides = []
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, expected {q.device}")
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}, expected {q.dtype} on "
+                             f"{q.device}")
         strides += _strides(t, name)
+    bf16 = q.dtype == torch.bfloat16
+    scale = D ** -0.5
+    if bf16:  # the scale as a bf16 operand, as the plain version takes it
+        scale = float(torch.tensor(scale, dtype=torch.bfloat16))
     out = torch.empty((B, T, H, D), device=q.device, dtype=q.dtype)
-    fn = _build.function("l3ac_local_attention", _ARGTYPES)
+    fn = _build.function("l3ac_local_attention_bf16" if bf16 else "l3ac_local_attention",
+                         _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(bias),
-             _build.ptr(bias_table), out.data_ptr(), B, H, T, n, D, *strides, D ** -0.5,
+             _build.ptr(bias_table), out.data_ptr(), B, H, T, n, D, *strides, scale,
              _build.stream_ptr())
     _build.check(err, "local_attention")
     K.LAUNCHES["local_attention"] += 1

@@ -7,17 +7,21 @@ Replaces ``l3ac_tpu/ops/pallas/upsample.py:up_fused_ct`` (body ``_kernel_ct``,
 
 - ``csrc/up_fused_tc.cu`` (route ``"tc"``): (B, T, C) with Ci a multiple of 4
   and Co a multiple of 32 up to 256, the wide stages of every released
-  config. The conv runs on the tensor cores (3xTF32 mma.sync, time as the M
-  axis); a block owns all Co columns of
-  62 rows and its two halo rows, and its epilogue blends, normalizes and
-  stores each output row at its interleaved address.
+  config, and every other (B, T, C) shape with Ci <= 1024 and Co <= 512
+  that the streaming kernel does not take (Co zero-padded in the weight buffer,
+  :func:`tc_padded_co`). The conv runs on the tensor cores (3xTF32
+  mma.sync, time as the M axis); a block owns all Co columns of
+  62 rows (30 above Co = 256) and its two halo rows, and its epilogue
+  blends, normalizes and stores each output row at its interleaved address.
 - ``csrc/up_fused.cu`` (route ``"stream"``): a streaming pass for
   Ci <= 128 and Co <= 64 in either layout (the narrow (B, C, T) stages,
   ``phase_split`` included), bound by its bytes; its conv also runs on the
   tensor cores, with the output channels as the M axis.
 
 A shape that neither takes raises on a CUDA tensor; the plain version runs
-only for a CPU tensor.
+only for a CPU tensor. The one shape the decoder can hand them that neither
+takes: a (B, C, T) stage (input width <= 96) whose output is wider than 64
+(ROADMAP C3).
 
 Semantics are those of the jnp chain (``models/decoder.py:_up_path``): conv,
 ``upsample_linear`` with the phase weights of ``ops/resample.py``, then the
@@ -48,7 +52,8 @@ from . import _build
 from .conv_unit import cached_prepare
 
 MAX_SCALE = 16
-TC_MAX_CO = 256                        # up_fused_tc.cu: Co % 32 == 0, Co <= 256, Ci % 4 == 0
+TC_MAX_CO = 256                        # up_fused_tc.cu at Co % 32 == 0, Ci % 4 == 0 ...
+TC_WIDE_MAX_CI, TC_WIDE_MAX_CO = 1024, 512  # ... and at any other Ci, Co up to these
 STREAM_MAX_CI, STREAM_MAX_CO = 128, 64  # up_fused.cu
 TC_OWN_ROWS = 62                        # up_fused_tc.cu: rows a block stores (64 z rows)
 ROUTES: dict[str, int] = {"tc": 0, "stream": 0}  # launches by kernel
@@ -83,25 +88,39 @@ def route_for(Ci: int, Co: int, channels_last: bool) -> str | None:
         return "tc"
     if 1 <= Ci <= STREAM_MAX_CI and 1 <= Co <= STREAM_MAX_CO:
         return "stream"
+    if channels_last and 1 <= Ci <= TC_WIDE_MAX_CI and 1 <= Co <= TC_WIDE_MAX_CO:
+        return "tc"
     return None
+
+
+def tc_padded_co(Co: int) -> int:
+    """Co as the tensor-core kernel's tile holds it: rounded up to 32, and
+    above 256 to 64 (its warps cover 32 columns, in pairs above 256)."""
+    q = 32 if Co <= TC_MAX_CO else 64
+    return -(-Co // q) * q
 
 
 def prepare_up(w: UpWeights, route: str) -> torch.Tensor:
     """One fp32 buffer: the conv weight as its kernel reads it, then b, then
     norm_w and norm_b where there is a norm. ``"tc"``: W (Co, Ci) in its
     nn.Linear layout (K-major), the tensor-core kernel's B operand (split
-    into TF32 hi / lo as its fragments are loaded).
+    into TF32 hi / lo as its fragments are loaded), its rows zero-padded to
+    (:func:`tc_padded_co`) and its columns to a multiple of 4, b and the norm
+    to the same padded Co.
     ``"stream"``: W zero-padded to (Co rounded up to 16, Ci rounded up to 8,
     plus 4), the A operand's rows as the kernel stages them."""
     with torch.no_grad():
         Co, Ci = w.w.shape
+        vec = lambda v: v
         if route == "tc":
-            wk = w.w
+            Cp = tc_padded_co(Co)
+            wk = F.pad(w.w, (0, -(-Ci // 4) * 4 - Ci, 0, Cp - Co))
+            vec = lambda v: F.pad(v, (0, Cp - Co))
         elif route == "stream":
             wk = F.pad(w.w, (0, -(-Ci // 8) * 8 + 4 - Ci, 0, -(-Co // 16) * 16 - Co))
         else:
             raise ValueError(f"prepare_up: unknown route {route!r}")
-        parts = [wk, w.b] + ([] if w.norm_w is None else [w.norm_w, w.norm_b])
+        parts = [wk] + [vec(v) for v in (w.b, w.norm_w, w.norm_b) if v is not None]
         return torch.cat([t.reshape(-1).float() for t in parts])
 
 
@@ -148,12 +167,10 @@ def _launch(x: torch.Tensor, w: UpWeights, scale: int, *, channels_last: bool,
         raise ValueError(
             f"{name}: no kernel takes Ci = {Ci}, Co = {Co} "
             f"({'(B, T, C)' if channels_last else '(B, C, T)'}): the tensor-core kernel "
-            f"takes (B, T, C) with Ci % 4 == 0 and Co a multiple of 32 up to {TC_MAX_CO}, "
+            f"takes (B, T, C) with Ci <= {TC_WIDE_MAX_CI} and Co <= {TC_WIDE_MAX_CO}, "
             f"the streaming one Ci <= {STREAM_MAX_CI} and Co <= {STREAM_MAX_CO}")
     buf = (prepared if prepared is not None else prepared_up(w)).buffer(route, w)
     K.check_cuda({"x": x, "prepared": buf}, x.device)
-    if route == "tc" and x.data_ptr() % 16:
-        raise ValueError(f"{name}: x must be 16-byte aligned")
     if phase_split:
         out = torch.empty((scale, B, Co, T), device=x.device, dtype=x.dtype)
     elif channels_last:
@@ -161,8 +178,9 @@ def _launch(x: torch.Tensor, w: UpWeights, scale: int, *, channels_last: bool,
     else:
         out = torch.empty((B, Co, T * scale), device=x.device, dtype=x.dtype)
     if route == "tc":
-        p_b = buf.data_ptr() + 4 * Ci * Co
-        p_nw, p_nb = (None, None) if w.norm_w is None else (p_b + 4 * Co, p_b + 8 * Co)
+        Cp = tc_padded_co(Co)
+        p_b = buf.data_ptr() + 4 * Cp * (-(-Ci // 4) * 4)
+        p_nw, p_nb = (None, None) if w.norm_w is None else (p_b + 4 * Cp, p_b + 8 * Cp)
         fn = _build.function("l3ac_up_fused_tc", _TC_ARGTYPES)
         err = fn(x.data_ptr(), buf.data_ptr(), None, p_b, p_nw, p_nb, out.data_ptr(), B, Ci, Co,
                  T, scale, _build.stream_ptr())

@@ -9,7 +9,12 @@
   ``torch.nn.InstanceNorm1d(affine=True)`` as the EnhanceBlock uses it
   (``l3ac_tpu/ops/norms.py:instance_norm``, ``transposed.py:instance_norm_t``).
 
-``dim`` names the channel axis: -1 for (B, T, C), 1 for (B, C, T). fp32 only.
+``dim`` names the channel axis: -1 for (B, T, C), 1 for (B, C, T).
+
+bf16 input (``l3ac_tpu/ops/norms.py:_stat_dtype``): the moments and the
+normalization run in fp32, the normalized value is cast back to the input
+dtype, and the affine step runs in that dtype; GRN's scalar ``n`` likewise.
+fp32 input takes exactly the fp32 steps.
 """
 
 import torch
@@ -26,11 +31,17 @@ def _along(v: torch.Tensor, x: torch.Tensor, dim: int) -> torch.Tensor:
     return v.reshape(shape)
 
 
+def _stat(x: torch.Tensor) -> torch.Tensor:
+    """x in the dtype its moments are computed in: fp32 for narrower floats."""
+    return x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+
+
 def channel_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                  eps: float = EPS, dim: int = -1) -> torch.Tensor:
-    u = x.mean(dim=dim, keepdim=True)
-    s = ((x - u) ** 2).mean(dim=dim, keepdim=True)
-    xn = (x - u) / torch.sqrt(s + eps)
+    xs = _stat(x)
+    u = xs.mean(dim=dim, keepdim=True)
+    s = ((xs - u) ** 2).mean(dim=dim, keepdim=True)
+    xn = ((xs - u) / torch.sqrt(s + eps)).to(x.dtype)
     return _along(weight, x, dim) * xn + _along(bias, x, dim)
 
 
@@ -41,8 +52,9 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 def grn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         eps: float = EPS, dim: int = -1) -> torch.Tensor:
-    g = torch.sqrt((x * x).sum(dim=tuple(range(1, x.dim())), keepdim=True))
-    n = g / (g + eps)
+    xs = _stat(x)
+    g = torch.sqrt((xs * xs).sum(dim=tuple(range(1, x.dim())), keepdim=True))
+    n = (g / (g + eps)).to(x.dtype)
     return _along(gamma, x, dim) * (x * n) + _along(beta, x, dim) + x
 
 
@@ -51,7 +63,8 @@ def instance_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     """Normalize over time: the axis of (B, ., .) that is not the channel
     axis ``dim``."""
     t_dim = 1 if dim in (-1, 2) else 2
-    u = x.mean(dim=t_dim, keepdim=True)
-    s = ((x - u) ** 2).mean(dim=t_dim, keepdim=True)
-    xn = (x - u) / torch.sqrt(s + eps)
+    xs = _stat(x)
+    u = xs.mean(dim=t_dim, keepdim=True)
+    s = ((xs - u) ** 2).mean(dim=t_dim, keepdim=True)
+    xn = ((xs - u) / torch.sqrt(s + eps)).to(x.dtype)
     return _along(weight, x, dim) * xn + _along(bias, x, dim)

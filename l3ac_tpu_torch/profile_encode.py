@@ -2,6 +2,7 @@
 request from FSQ indices) goes, on a CUDA card.
 
     python3 -m l3ac_tpu_torch.profile_encode [--model 1kbps] [--batch 8] [--seconds 10] [--decode] [--int8]
+        [--dtype bfloat16]
 
 Builds the model with seeded random weights, warms it up on the request
 shape, then traces three requests with ``torch.profiler`` and prints, per
@@ -11,7 +12,9 @@ same time summed by the port's kernel families (``FAMILIES``: the wrapper
 calls behind each, and the GEMM core's int8 and fp32 instances apart) beside
 the wrappers' launch counts per request. A decode request decodes seeded
 random indices, as many tokens as the audio length gives. ``--int8``
-quantizes the weights first (``ops.quantized.quantize_params``). With
+quantizes the weights first (``ops.quantized.quantize_params``).
+``--dtype bfloat16`` builds the model in bf16 (``get_model(dtype=)``): its
+encode runs the bf16 kernels; its decode is not ported yet and raises. With
 ``--trace`` it also writes a Chrome trace there.
 """
 
@@ -33,10 +36,15 @@ REQUESTS = 3
 # (family, substrings of the device kernel names): the CUDA kernels behind
 # each wrapper; one conv_unit call on the tensor-core path is three launches
 # (dw_norm_kernel, gemm_kernel<false, snake or gelu>, gemm_kernel<false, residual>)
+# Each device kernel counts in the first family that names it.
 FAMILIES = (
     ("int8_matmul: tc_gemm int8 (3 bf16 passes)", ("gemm_kernel<true",)),
+    ("conv_unit bf16: tc_gemm bf16 (1 pass)", ("gemm_bf16_kernel",)),
+    ("conv_unit_ct bf16: narrow fused, tensor cores (1 bf16 pass)", ("narrow_bf16_kernel",)),
+    ("local_attention bf16: tensor cores (1 bf16 pass)", ("attention_bf16_kernel",)),
+    ("first_block bf16: tensor cores (1 bf16 pass)", ("first_block_bf16",)),
     ("conv_unit (C % 64 == 0): tc_gemm fp32 (3xTF32)", ("gemm_kernel<false",)),
-    ("conv_unit (C % 64 == 0): dw conv + ChannelNorm", ("dw_norm_kernel",)),
+    ("conv_unit (C % 64 == 0): dw conv + ChannelNorm (fp32 or bf16)", ("dw_norm_kernel",)),
     ("conv_unit_ct: narrow fused, tensor cores (3xTF32)", ("narrow_kernel",)),
     ("conv_unit (C % 64 != 0): SIMT", ("conv_unit_kernel",)),
     ("local_attention: tensor cores (3xTF32)", ("attention_kernel",)),
@@ -63,17 +71,22 @@ def main() -> int:
                     help="profile decode_audio(indices=...) instead of encode_audio")
     ap.add_argument("--int8", action="store_true",
                     help="int8 weight-only: quantize_params(model.codec) before profiling")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                    help="the model's dtype (bfloat16: encode only)")
     ap.add_argument("--trace", default=None, help="write a Chrome trace to this path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_encode: CUDA is not available")
+    if args.dtype == "bfloat16" and (args.decode or args.int8):
+        raise SystemExit("profile_encode: a bf16 model encodes only (its decode and int8 are "
+                         "the next slice)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
 
-    model = get_model(args.model, device="cuda", seed=0)
+    model = get_model(args.model, device="cuda", seed=0, dtype=getattr(torch, args.dtype))
     if args.int8:
         quantize_params(model.codec)
     n = int(args.seconds * model.config.sample_rate)
@@ -112,7 +125,8 @@ def main() -> int:
         raise SystemExit("profile_encode: the trace holds no device time")
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    what = ("int8 " if args.int8 else "") + ("decode" if args.decode else "encode")
+    what = ("int8 " if args.int8 else "") + ("bf16 " if args.dtype == "bfloat16" else "") + \
+        ("decode" if args.decode else "encode")
     print(f"[{card}] {args.model} {what} B={args.batch} x {args.seconds} s: wall {wall_ms:.3f} ms "
           f"per request, device {device_ms:.3f} ms, idle share "
           f"{max(0.0, 1 - device_ms / wall_ms):.3f}, {sum(r[2] for r in rows)} kernels")
@@ -120,8 +134,10 @@ def main() -> int:
         print(f"  {ms:9.4f} ms  {100 * ms / device_ms:5.1f} %  x{cnt:<4d} {key[:110]}")
     print(f"  by family (wrapper launches per request: "
           f"{ {k: v // REQUESTS for k, v in K.LAUNCHES.items() if v} }):")
+    taken = set()
     for family, keys in FAMILIES:
-        mine = [r for r in rows if any(k in r[0] for k in keys)]
+        mine = [r for r in rows if r[0] not in taken and any(k in r[0] for k in keys)]
+        taken.update(r[0] for r in mine)
         if mine:
             ms = sum(r[1] for r in mine)
             print(f"  {ms:9.4f} ms  {100 * ms / device_ms:5.1f} %  x{sum(r[2] for r in mine):<4d} "

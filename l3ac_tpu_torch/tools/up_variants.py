@@ -45,7 +45,7 @@ ITERS = 20
 PEAK_BYTES = 3.35e12
 
 # (name, substitutions, computes the up path)
-_STORE = "if (o < G::kCo) *reinterpret_cast<float4*>(orow + p * G::kCo + o) = v;"
+_STORE = "if (o < Co) *reinterpret_cast<float4*>(op) = v;"
 _CONV_ONLY = (("  const bool norm = a.norm_w != nullptr;\n  float* stats",
                "  return;\n  const bool norm = a.norm_w != nullptr;\n  float* stats"),)
 TC_VARIANTS = (
@@ -86,7 +86,7 @@ TC_VARIANTS = (
        "  return;\n  // one warp per owned row: for each phase the blend, the affine of the"),),
      False),
     ("ablation: no store (all computed, nothing written)",
-     ((_STORE, _STORE.replace("if (o < G::kCo)", "if (o < G::kCo && v.x == -1234.5f)")),),
+     ((_STORE, _STORE.replace("if (o < Co)", "if (o < Co && v.x == -1234.5f)")),),
      False),
     ("ablation: the conv only (z into shared memory, no epilogue)", _CONV_ONLY, False),
 )

@@ -16,7 +16,12 @@ dilations 1, 3, 9, both activations) and its shape rule, an int8 1kbps
 roundtrip of a model built under inference mode, int8_matmul at ragged M, K
 and N, and the two bf16 probe kernels (interleave in both layouts and store
 strategies; conv_unit_stages in all seven modes, at small shapes and at the
-probe's own, bit-equal where the chain has no sum over channels). Needs a
+probe's own, bit-equal where the chain has no sum over channels); the bf16
+variants of the four encode kernels against their bf16 plain versions
+(within 2^-6 x max(1, max |plain|)), the widths of ROADMAP C3 against the
+fp32 plain versions (head dim 64 and 128, stem Cout up to 256, conv_unit C
+768 and 1024, tail C 4-64, the tensor-core up path at any Co up to 512),
+and the prepared-weight caches of a model moved to bf16. Needs a
 CUDA device; skips without one. This file imports no JAX, so it runs on a
 machine without it:
 
@@ -285,10 +290,15 @@ def test_first_block_kernel_at_large_weights_and_from_a_module(dev):
 
 
 def test_first_block_kernel_raises_on_cout_above_64(dev):
+    """Above 64 channels the kernel walks 64-channel tiles (65 runs); it
+    raises above MAX_COUT (256)."""
     from l3ac_tpu_torch.ops.kernels import first_block as fb
+    x = _t(np.random.default_rng(1), (1, 300), 0.3, dev)
     w = _stem_weights(np.random.default_rng(0), 65, dev)
+    _check(fb.first_block(x, w), fb.first_block_plain(x, w))
+    w = _stem_weights(np.random.default_rng(0), fb.MAX_COUT + 1, dev)
     with pytest.raises(ValueError, match="weight shapes"):
-        fb.first_block(torch.zeros(1, 16, device=dev), w)
+        fb.first_block(x, w)
 
 
 @pytest.mark.parametrize("n,W,D,bias,strided,B,H", [
@@ -426,7 +436,8 @@ def test_up_fused_route_is_a_shape_rule(dev):
     from l3ac_tpu_torch.ops import kernels as K
     from l3ac_tpu_torch.ops.kernels import up_fused as uf
     for Ci, Co, cl, route in ((256, 96, True, "tc"), (100, 20, True, "stream"),
-                              (96, 48, False, "stream"), (64, 32, False, "stream")):
+                              (96, 48, False, "stream"), (64, 32, False, "stream"),
+                              (512, 100, True, "tc"), (256, 61, True, "tc")):
         w, x = _up_case(dev, Ci, Co, 70, cl)
         before = dict(uf.ROUTES)
         fn = uf.up_fused if cl else uf.up_fused_ct
@@ -435,7 +446,7 @@ def test_up_fused_route_is_a_shape_rule(dev):
             sum(before.values()) + 1, (Ci, Co, cl)
         _check(got, uf.up_fused_plain(x, w, scale=3, channel_dim=2 if cl else 1))
     K.reset_launches()
-    for Ci, Co, cl in ((512, 100, True), (256, 61, True), (96, 96, False), (200, 48, False)):
+    for Ci, Co, cl in ((1100, 100, True), (256, 513, True), (96, 96, False), (200, 48, False)):
         w, x = _up_case(dev, Ci, Co, 20, cl)
         with pytest.raises(ValueError, match="no kernel takes"):
             (uf.up_fused if cl else uf.up_fused_ct)(x, w, scale=2)
@@ -474,8 +485,8 @@ def test_legacy_tail_kernel(dev, C, T, poly):
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     from l3ac_tpu_torch.ops.kernels import local_attention as la
-    q = torch.zeros(1, 2, 32, 64, device=dev)
-    with pytest.raises(ValueError, match="D <= 32"):
+    q = torch.zeros(1, 2, 32, 132, device=dev)
+    with pytest.raises(ValueError, match="D <= 128"):
         la.local_attention(q, q, q, window_size=16)
     q = torch.zeros(1, 2, 30, 32, device=dev)
     with pytest.raises(ValueError, match="multiple"):
@@ -496,10 +507,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="no kernel takes"):
         uf.up_fused_ct(torch.zeros(1, 8, 10, device=dev), w, scale=2)
     tw = lt.TailWeights(*(torch.zeros(s, device=dev) for s in
-                          ((3, 20), (3, 20, 20, 7), (3, 20), (3, 20), (3, 20, 20), (3, 20),
-                           (20,), (1, 20, 7), (1,))))
-    with pytest.raises(ValueError, match="C in"):
-        lt.legacy_tail_ct(torch.zeros(1, 20, 10, device=dev), tw)
+                          ((3, 22), (3, 22, 22, 7), (3, 22), (3, 22), (3, 22, 22), (3, 22),
+                           (22,), (1, 22, 7), (1,))))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        lt.legacy_tail_ct(torch.zeros(1, 22, 10, device=dev), tw)
 
 
 @pytest.mark.parametrize("M,K,N,bias", [(1, 1, 1, True), (5, 64, 32, True), (300, 341, 128, False),
@@ -654,3 +665,184 @@ def test_probe_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         cs.conv_unit_stages(torch.zeros(1, 8, 128, device=dev, dtype=torch.bfloat16)[..., ::2],
                             *w, 32, "copy")
+
+
+# -- bf16 (the encode half of ROADMAP A6) and the widths of ROADMAP C3 --------
+
+BF16_TOL = 2.0 ** -6  # bf16: max abs error <= BF16_TOL * max(1, max |plain|), as in chip_smoke.py
+
+
+def _check_bf16(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= BF16_TOL * max(1.0, want.float().abs().max().item()), err
+
+
+@pytest.fixture()
+def bf16_products(dev):
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    return dev
+
+
+@pytest.mark.parametrize("Cout,B,T", [(24, 2, 5000), (24, 1, 30), (7, 3, 333), (128, 2, 700),
+                                      (256, 1, 300)])
+def test_first_block_bf16_kernel(bf16_products, Cout, B, T):
+    from l3ac_tpu_torch.ops.kernels import first_block as fb
+    dev = bf16_products
+    rng = np.random.default_rng(Cout + T)
+    w = fb.FirstBlockWeights(*(_t(rng, s, std, dev).bfloat16() for s, std in (
+        ((5, 4, 7), 0.4), ((5, 4), 0.1), ((80, 20), 20 ** -0.5), ((80,), 0.1),
+        ((Cout, 81), 81 ** -0.5), ((Cout,), 0.1))))
+    x = _t(rng, (B, T), 0.3, dev).bfloat16()
+    _check_bf16(fb.first_block(x, w), fb.first_block_plain(x, w))
+
+
+@pytest.mark.parametrize("C,T,channels_last,norm,snake", [
+    (24, 1000, False, True, True), (8, 157, False, True, True), (96, 333, False, False, True),
+    (12, 64, False, True, False), (48, 1, False, True, True),
+    (64, 150, True, True, True), (192, 203, True, True, True), (256, 70, True, False, False),
+    (16, 99, True, True, True), (40, 50, True, True, False),
+])
+def test_conv_unit_bf16_kernels(bf16_products, C, T, channels_last, norm, snake):
+    from l3ac_tpu_torch.ops.kernels import conv_unit as cu
+    dev = bf16_products
+    rng = np.random.default_rng(C + T)
+    w = cu.ConvUnitWeights(*(None if t is None else t.bfloat16()
+                             for t in _unit_weights(rng, C, norm, snake, dev)))
+    x = _t(rng, (2, T, C) if channels_last else (2, C, T), 1.0, dev).bfloat16()
+    fn = cu.conv_unit if channels_last else cu.conv_unit_ct
+    cd = 2 if channels_last else 1
+    _check_bf16(fn(x, w), cu.conv_unit_plain_bf16(x, w, channel_dim=cd))
+
+
+def test_conv_unit_bf16_raises_off_the_tensor_core_widths(bf16_products):
+    from l3ac_tpu_torch.ops import kernels as K
+    from l3ac_tpu_torch.ops.kernels import conv_unit as cu
+    dev = bf16_products
+    rng = np.random.default_rng(1)
+    w = cu.ConvUnitWeights(*(t.bfloat16() for t in _unit_weights(rng, 12, True, True, dev)))
+    K.reset_launches()
+    with pytest.raises(ValueError, match="tensor-core route only"):
+        cu.conv_unit(_t(rng, (1, 20, 12), 1.0, dev).bfloat16(), w)
+    assert K.LAUNCHES["conv_unit"] == 0
+
+
+@pytest.mark.parametrize("D,n,bias", [(32, 250, "table"), (8, 16, "full"), (64, 64, "table"),
+                                      (128, 40, "none"), (20, 16, "table")])
+def test_local_attention_bf16_kernel(bf16_products, D, n, bias):
+    from l3ac_tpu_torch.ops.attention import expand_position_table
+    from l3ac_tpu_torch.ops.kernels import local_attention as la
+    dev = bf16_products
+    rng = np.random.default_rng(D + n)
+    H, T = 3, 3 * n
+    qkv = _t(rng, (2, T, 3 * H * D), 1.0, dev).bfloat16()
+    q, k, v = (c.view(2, T, H, D).permute(0, 2, 1, 3) for c in qkv.chunk(3, dim=-1))
+    table = _t(rng, (2 * n, H), 1.0, dev).bfloat16()
+    kw = {"table": {"bias_table": table}, "full": {"bias": expand_position_table(table)},
+          "none": {}}[bias]
+    _check_bf16(la.local_attention(q, k, v, window_size=n, **kw),
+                la.local_attention_plain(q, k, v, window_size=n, **kw))
+
+
+@pytest.mark.parametrize("D", [40, 64, 100, 128])
+def test_local_attention_kernel_at_wide_heads(dev, D):
+    from l3ac_tpu_torch.ops.kernels import local_attention as la
+    rng = np.random.default_rng(D)
+    n, H, T = 48, 2, 144
+    qkv = _t(rng, (2, T, 3 * H * D), 1.0, dev)
+    q, k, v = (c.view(2, T, H, D).permute(0, 2, 1, 3) for c in qkv.chunk(3, dim=-1))
+    table = _t(rng, (2 * n, H), 1.0, dev)
+    _check(la.local_attention(q, k, v, window_size=n, bias_table=table),
+           la.local_attention_plain(q, k, v, window_size=n, bias_table=table))
+
+
+@pytest.mark.parametrize("Cout", [65, 128, 200, 256])
+def test_first_block_kernel_above_64_channels(dev, Cout):
+    from l3ac_tpu_torch.ops.kernels import first_block as fb
+    rng = np.random.default_rng(Cout)
+    w = fb.FirstBlockWeights(*(_t(rng, s, std, dev) for s, std in (
+        ((5, 4, 7), 0.4), ((5, 4), 0.1), ((80, 20), 20 ** -0.5), ((80,), 0.1),
+        ((Cout, 81), 81 ** -0.5), ((Cout,), 0.1))))
+    x = _t(rng, (2, 1000), 0.3, dev)
+    _check(fb.first_block(x, w), fb.first_block_plain(x, w))
+
+
+@pytest.mark.parametrize("C", [640, 768, 1024])
+def test_conv_unit_tensor_core_path_above_512(dev, C):
+    from l3ac_tpu_torch.ops.kernels import conv_unit as cu
+    rng = np.random.default_rng(C)
+    w = _unit_weights(rng, C, True, True, dev)
+    x = _t(rng, (2, 77, C), 1.0, dev)
+    _check(cu.conv_unit(x, w), cu.conv_unit_plain(x, w, channel_dim=2))
+
+
+def _tail_case(dev, C, T, std):
+    from l3ac_tpu_torch.ops.kernels import legacy_tail as lt
+    rng = np.random.default_rng(C + T)
+    pos = lambda shape: 1.0 + _t(rng, shape, 0.3, dev).abs()
+    w = lt.TailWeights(pos((3, C)), _t(rng, (3, C, C, 7), std, dev), _t(rng, (3, C), 0.1, dev),
+                       pos((3, C)), _t(rng, (3, C, C), std, dev), _t(rng, (3, C), 0.1, dev),
+                       pos((C,)), _t(rng, (1, C, 7), std, dev), _t(rng, (1,), 0.05, dev))
+    return w, _t(rng, (2, C, T), 1.0, dev)
+
+
+@pytest.mark.parametrize("C", [4, 20, 28, 32, 48, 64])
+@pytest.mark.parametrize("poly", [True, False])
+def test_legacy_tail_kernel_at_every_width(dev, C, poly):
+    """Every width, the weights at test_legacy_tail_kernel's conditioning:
+    its std of 0.1 at C = 24, scaled by sqrt(24 / C) as the fan-in grows."""
+    from l3ac_tpu_torch.ops.kernels import legacy_tail as lt
+    w, x = _tail_case(dev, C, 900, 0.1 * (24 / C) ** 0.5)
+    want = lt.legacy_tail_plain(x, w)
+    got = lt.legacy_tail_poly_ct(x[..., 0::2].contiguous(), x[..., 1::2].contiguous(), w) \
+        if poly else lt.legacy_tail_ct(x, w)
+    _check(got, want)
+
+
+def test_legacy_tail_kernel_at_64_channels_is_as_accurate_as_fp32(dev):
+    """C = 64 at a std of 0.1 (twice the init scale, 89 % of the outputs
+    saturated): the fp32 plain version itself is 7e-5 off float64 there, so
+    the kernel is held to float64, within 1.5x the fp32 plain version's own
+    error."""
+    from l3ac_tpu_torch.ops.kernels import legacy_tail as lt
+    w, x = _tail_case(dev, 64, 3000, 0.1)
+    exact = lt.legacy_tail_plain(x.double(), lt.TailWeights(*(t.double() for t in w))).float()
+    plain_err = (lt.legacy_tail_plain(x, w) - exact).abs().max().item()
+    err = (lt.legacy_tail_ct(x, w) - exact).abs().max().item()
+    assert err <= 1.5 * plain_err, (err, plain_err)
+
+
+@pytest.mark.parametrize("Ci,Co,scale", [(768, 320, 5), (320, 80, 3), (130, 100, 2),
+                                         (512, 512, 2), (98, 257, 3), (1024, 33, 1)])
+def test_up_fused_tensor_core_kernel_at_any_width(dev, Ci, Co, scale):
+    from l3ac_tpu_torch.ops.kernels import up_fused as uf
+    w, x = _up_case(dev, Ci, Co, 65, True)
+    before = uf.ROUTES["tc"]
+    got = uf.up_fused(x, w, scale=scale)
+    assert uf.ROUTES["tc"] == before + 1
+    _check(got, uf.up_fused_plain(x, w, scale=scale, channel_dim=2))
+
+
+def test_prepared_weights_rebuilt_after_a_move_to_bf16(dev):
+    """A model moved with .to(torch.bfloat16) rebuilds its packs: the cached
+    fp32 operands are not reused for the bf16 kernels."""
+    from l3ac_tpu_torch.models.zoo import get_model
+    from l3ac_tpu_torch.ops.kernels import conv_unit as cu
+    m = get_model("debug", device=dev, seed=3)
+    audio = np.random.default_rng(3).standard_normal((1, m.mc.hop_length * 20)).astype(np.float32)
+    m.encode_audio(audio)
+    unit, stem = m.codec.encoder.stages[0].units[0], m.codec.encoder.first
+    p32, s32 = unit.prepared(), stem.prepared()
+    assert isinstance(p32, cu.PreparedWeights)
+    m.codec.to(torch.bfloat16)
+    m = type(m)(m.config, m.codec)
+    pbf, sbf = unit.prepared(), stem.prepared()
+    assert isinstance(pbf, cu.PreparedBf16) and pbf.w1.dtype == torch.bfloat16
+    assert sbf is not s32 and sbf.packed.numel() != s32.packed.numel()
+    q, idx = m.encode_audio(audio)
+    assert q.dtype == torch.bfloat16
+    cpu = get_model("debug", device="cpu", seed=3, dtype=torch.bfloat16)
+    _, idx_c = cpu.encode_audio(audio)
+    assert (idx.cpu() == idx_c).float().mean().item() >= 0.97

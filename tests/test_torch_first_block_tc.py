@@ -235,8 +235,12 @@ def test_pack_holds_the_weights_in_fragment_order(Cout):
 
 
 def test_pack_rejects_cout_above_64():
+    """Above 64 output channels the pack pads Cout to whole tiles of 64 (the
+    kernel's third grid axis walks them); above MAX_COUT (256) it raises."""
+    assert fb.pack(_weights(np.random.default_rng(0), 65)).shape == (fb.packed_floats(65),)
+    assert fb.padded_cout(65) == 128 and fb.padded_cout(64) == 64
     with pytest.raises(ValueError, match="weight shapes"):
-        fb.pack(_weights(np.random.default_rng(0), 65))
+        fb.pack(_weights(np.random.default_rng(0), fb.MAX_COUT + 1))
 
 
 def _stem(seed=0, Cout=24):

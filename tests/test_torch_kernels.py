@@ -316,12 +316,20 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 
 
 def test_wrappers_take_fp32_only():
+    """fp32 everywhere; bf16 only on the four encode kernels (their own tests
+    are in test_torch_bf16.py), never another dtype, and the decode-only
+    kernels refuse bf16 naming the decode half of ROADMAP A6."""
     unit = ConvUnit(8)
     with pytest.raises(TypeError, match="float32"):
-        cu.conv_unit_ct(torch.zeros(1, 8, 16, dtype=torch.bfloat16), unit.kernel_weights())
+        cu.conv_unit_ct(torch.zeros(1, 8, 16, dtype=torch.float16), unit.kernel_weights())
     with pytest.raises(TypeError, match="float32"):
-        fb.first_block(torch.zeros(1, 16, dtype=torch.bfloat16),
+        fb.first_block(torch.zeros(1, 16, dtype=torch.float16),
                        FirstBlock(8).kernel_weights())
-    q = torch.zeros(1, 1, 16, 32, dtype=torch.bfloat16)
+    q = torch.zeros(1, 1, 16, 32, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32"):
         la.local_attention(q, q, q, window_size=16)
+    x = torch.zeros(1, 8, 40, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="A6"):
+        uf.up_fused_ct(x, _up_weights(_up_stage(8, 4)), scale=2)
+    with pytest.raises(TypeError, match="A6"):
+        lt.legacy_tail_ct(x, _tail_weights(*_tail_params(8)))

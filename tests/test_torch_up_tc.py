@@ -268,7 +268,8 @@ def test_route_is_a_shape_rule():
     assert uf.route_for(96, 48, False) == uf.route_for(48, 24, False) == "stream"
     assert uf.route_for(100, 20, True) == "stream"       # Co % 32 != 0
     assert uf.route_for(16, 12, False) == uf.route_for(8, 8, False) == "stream"
-    assert uf.route_for(512, 100, True) is None          # Ci > 128 and Co % 32 != 0
+    assert uf.route_for(512, 100, True) == "tc"          # Ci > 128, Co % 32 != 0: Co padded
+    assert uf.route_for(1025, 100, True) is None and uf.route_for(512, 513, True) is None
     assert uf.route_for(96, 61, False) == uf.route_for(128, 60, True) == "stream"
     assert uf.route_for(96, 65, False) is None and uf.route_for(129, 48, False) is None
 
