@@ -71,7 +71,7 @@ def cmd_decode(args) -> int:
         length = int(z["length"])
     model = _load_model(args.model or model_name, args.pretrained, args.device)
     audio = model.decode_audio(indices=indices[None], audio_length=length)
-    write_wav(args.output, audio[0].cpu().numpy(), model.config.sample_rate)
+    write_wav(args.output, audio[0].float().cpu().numpy(), model.config.sample_rate)
     print(f"{args.input}: {indices.shape[-1]} tokens -> "
           f"{length/model.config.sample_rate:.2f}s -> {args.output}")
     return 0

@@ -15,6 +15,12 @@
 // only the 1-byte weight; the int8 tile is widened to fp32 in shared memory.
 // GEGLU widths (K = 341, N = 682) take 4-byte copies of x and byte loads of
 // w_q with zero fill at the edges.
+// bf16 x (l3ac_int8_matmul_bf16): the rounding of the TPU kernel (:37-40),
+// y = bf16(x . bf16(q s)^T + bf16(b)) with fp32 sums: each int8 tile is
+// dequantized to bf16(fp32(q) s) as it goes into shared memory (the scale
+// in the tile load, not the epilogue), and one bf16 pass (mma.sync
+// m16n8k16) runs on tc_gemm.cuh's bf16 GEMM. Bound: 2 M K N operations
+// against 2 M (K + N) + K N bytes.
 #include "tc_gemm.cuh"
 
 namespace {
@@ -47,4 +53,26 @@ extern "C" int l3ac_int8_matmul(const float* x, const signed char* w_q, const fl
   const bool vec_b = K % 4 == 0 && l3ac::tc::aligned(w_q, 4);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return vec_a ? launch<true>(p, vec_b, s) : launch<false>(p, vec_b, s);
+}
+
+// x: (M, K) bf16; w_q: (N, K) int8; scale: (N) fp32; bias: (N) bf16 or null;
+// out: (M, N) bf16. All contiguous, out not aliasing x. Returns the CUDA
+// error code.
+extern "C" int l3ac_int8_matmul_bf16(const __nv_bfloat16* x, const signed char* w_q,
+                                     const float* scale, const __nv_bfloat16* bias,
+                                     __nv_bfloat16* out, int M, int N, int K, void* stream) {
+  using l3ac::tc::launch_gemm_int8_bf16;
+  l3ac::tc::ParamsBf16 p{};
+  p.a = x;
+  p.b_q = w_q;
+  p.scale = scale;
+  p.bias16 = bias;
+  p.out = out;
+  p.M = M, p.N = N, p.K = K;
+  const bool vec_a = K % 8 == 0 && l3ac::tc::aligned(x, 16);
+  const bool vec_b = K % 4 == 0 && l3ac::tc::aligned(w_q, 4);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec_a)
+    return vec_b ? launch_gemm_int8_bf16<true, true>(p, s) : launch_gemm_int8_bf16<true, false>(p, s);
+  return vec_b ? launch_gemm_int8_bf16<false, true>(p, s) : launch_gemm_int8_bf16<false, false>(p, s);
 }

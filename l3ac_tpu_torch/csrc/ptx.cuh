@@ -86,6 +86,18 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// d += A (16 x 8, row) * B (8 x 8, col), bf16 operands, fp32 sums: the k8
+// shape, for products whose K is a multiple of 8 only. Lane l, g = l / 4,
+// t = l % 4: a = {A[g][2t..2t+1], A[g+8][2t..2t+1]}, b = B[2t..2t+1][g], d as
+// for mma_tf32.
+__device__ __forceinline__ void mma_bf16_k8(float (&d)[4], const uint32_t (&a)[2], uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
 // Hopper's warpgroup mma. A warpgroup is 4 consecutive warps; wgmma runs
 // asynchronously: wgmma_fence before it reads registers other instructions
 // wrote, wgmma_commit to close a group, wgmma_wait<n> until at most n groups

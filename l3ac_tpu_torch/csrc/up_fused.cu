@@ -46,6 +46,25 @@
 //      destination quad is whole, so an output row whose start is not
 //      16-byte aligned (T s is odd at 1kbps) still goes out in 16-byte
 //      stores between its ends.
+// Widths: Ci <= 128 and Co <= 128. ChannelNorm reduces over Co at each
+// position, so a block holds all Co rows of z for its columns and
+// normalizes in one pass: at Co = 128 z takes 128 x (S + 8) floats (74 KB at
+// S = 128), and where W, x, z and the output tile do not fit the 227 KB the
+// tile halves (S = 64 at 128 -> 128, s = 3). A second pass over Co tiles with
+// the statistics summed across them would write z to device memory and read
+// it back, more bytes for a kernel that is bound by its bytes. Above Co = 64
+// a warp computes one n8 tile of columns at a time (the accumulators of 8
+// m16 tiles).
+// bf16 (x and out bf16, the bf16 weights' values in the same fp32 buffer):
+// one bf16 tensor-core pass, mma.sync m16n8k8, whose k pairs are taken as the
+// fp32 kernel's ldmatrix words t and t + 4 (a permutation of K applied to W
+// and x alike, so the product is unchanged); the k8 shape keeps K = Ci
+// rounded up to 8, as the fp32 path stages it. z, the bias, the blend and the
+// norm stay fp32 and the store rounds once, as upsample.py:_kernel_ct does.
+// x is staged by plain loads, converted to fp32 in shared memory: on (B, C,
+// T) a warp per channel row, its lanes along time, five loads in flight.
+#include <type_traits>
+
 #include "common.cuh"
 #include "ptx.cuh"
 
@@ -59,16 +78,17 @@ constexpr int kMaxS = 128;         // input columns per block
 constexpr int kBK = 32;            // K step of the conv, one fresh accumulator each
 // n8 tiles of time columns a warp computes at once: two from kPairFromMT m16
 // tiles of channels on (Co = 48 measured 7 % faster with two, Co = 24 4 %
-// slower: the registers of the second tile cost it a block per SM)
+// slower: the registers of the second tile cost it a block per SM), up to
+// four m16 tiles
 constexpr int kPairFromMT = 3;
 constexpr int kMaxScale = 16;
 constexpr float kNormEps = 1e-8f;
 enum Order { kTimeFastest = 0, kChannelFastest = 1, kPhaseFastest = 2 };
 
 struct Args {
-  const float* x;
+  const void* x;        // float or bf16
   const float* w;       // the prepared buffer: W (Mp, Kp + 4) zero-padded, b, norm_w, norm_b
-  float* out;
+  void* out;            // x's type
   int Ci, Co, T, s, S;
   int norm;
   long long xB, xC, xT;      // input strides
@@ -119,9 +139,24 @@ __device__ __forceinline__ void split(uint32_t raw, uint32_t& hi, uint32_t& lo) 
   lo = ptx::tf32_rna(v - __uint_as_float(hi));
 }
 
-// kMT: m16 tiles of output channels, Co rounded up to 16, over 16
-template <int kMT>
+using bf16 = __nv_bfloat16;
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+// four consecutive outputs at an address aligned to four of them
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(bf16* p, const float* v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(ptx::bf16x2_rn(v[0], v[1]), ptx::bf16x2_rn(v[2], v[3]));
+}
+
+// TX: the type of x and out (float or bf16); kMT: m16 tiles of output
+// channels, Co rounded up to 16, over 16
+template <typename TX, int kMT>
 __global__ void __launch_bounds__(kThreads) up_fused_stream_kernel(const Args a) {
+  constexpr bool kBf16 = std::is_same_v<TX, bf16>;
   extern __shared__ __align__(16) float smem[];
   __shared__ float taps[kMaxScale * 3];
   const int Ci = a.Ci, Co = a.Co, T = a.T, s = a.s, S = a.S;
@@ -129,7 +164,7 @@ __global__ void __launch_bounds__(kThreads) up_fused_stream_kernel(const Args a)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int t0 = blockIdx.x * S;
   const long long b = blockIdx.y;
-  const float* xb = a.x + b * a.xB;
+  const TX* xb = static_cast<const TX*>(a.x) + b * a.xB;
   float* ws = smem;                                  // (mp, wsr) W
   float* xs = ws + g.w_floats;                       // (kp, xs) x
   float* os = smem;                                  // the output tile, over W and x
@@ -147,7 +182,30 @@ __global__ void __launch_bounds__(kThreads) up_fused_stream_kernel(const Args a)
   //    Ci .. kp zero) and the norm's affine
   for (int e = 4 * tid; e < g.w_floats; e += 4 * kThreads) ptx::cp_async16(ws + e, a.w + e, 16);
   const int qx = g.xs / 4;  // quads of a staged row
-  if (a.xT == 1) {          // (B, C, T): along T
+  if constexpr (kBf16) {    // plain loads, converted to fp32
+    constexpr int kPerLane = (kMaxS + 8 + 31) / 32;
+    if (a.xT == 1) {        // (B, C, T): a warp per row, its lanes along T
+      for (int c = warp; c < Ci; c += kWarps) {
+        const TX* row = xb + c * a.xC;
+        float v[kPerLane];
+#pragma unroll
+        for (int k = 0; k < kPerLane; ++k) {
+          const int j = lane + 32 * k;
+          const int t = t0 - 4 + j < 0 ? 0 : (t0 - 4 + j >= T ? T - 1 : t0 - 4 + j);
+          v[k] = j < g.xs ? to_float(row[t]) : 0.0f;
+        }
+#pragma unroll
+        for (int k = 0; k < kPerLane; ++k)
+          if (lane + 32 * k < g.xs) xs[c * g.xs + lane + 32 * k] = v[k];
+      }
+    } else {                // (B, T, C): along C
+      for (int e = tid; e < Ci * g.xs; e += kThreads) {
+        const int j = e / Ci, c = e - j * Ci;
+        const int t = t0 - 4 + j < 0 ? 0 : (t0 - 4 + j >= T ? T - 1 : t0 - 4 + j);
+        xs[c * g.xs + j] = to_float(xb[c * a.xC + t * a.xT]);
+      }
+    }
+  } else if (a.xT == 1) {   // (B, C, T): along T
     for (int e = tid; e < Ci * qx; e += kThreads) {
       const int c = e / qx, u = e - c * qx, t = t0 - 4 + 4 * u;
       float* dst = xs + c * g.xs + 4 * u;
@@ -183,7 +241,7 @@ __global__ void __launch_bounds__(kThreads) up_fused_stream_kernel(const Args a)
   //    S + 8 staged columns), K = Ci; 3xTF32 as in tc_gemm.cuh, both
   //    operands split at fragment load, a fresh accumulator per K step of 32
   {
-    constexpr int kTilesPerPass = kMT >= kPairFromMT ? 2 : 1;
+    constexpr int kTilesPerPass = kMT >= kPairFromMT && kMT <= 4 ? 2 : 1;
     const int q = lane >> 3, r = lane & 7, gq = lane >> 2, tq = lane & 3;
     const float* pa = ws + ((q & 1) * 8 + r) * g.wsr + (q >> 1) * 4;
     const int n_tiles = g.xs / 8;
@@ -207,6 +265,27 @@ __global__ void __launch_bounds__(kThreads) up_fused_stream_kernel(const Args a)
         for (int kk = 0; kk < kBK; kk += 8) {
           const int k8 = k0 + kk;
           if (k8 >= g.kp) break;
+          if constexpr (kBf16) {
+            // one bf16 pass: the pairs (column t, column t + 4) of W's rows g,
+            // g + 8 and of x's column n, exact bf16 values in fp32
+            uint32_t bb[kTilesPerPass];
+#pragma unroll
+            for (int u = 0; u < kTilesPerPass; ++u) {
+              const int n = nt0 + u < n_tiles ? 8 * (nt0 + u) + gq : g.xs - 1;
+              bb[u] = ptx::bf16x2_rn(xs[(k8 + tq) * g.xs + n], xs[(k8 + tq + 4) * g.xs + n]);
+            }
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt) {
+              uint32_t raw[4];
+              ptx::ldmatrix_x4(raw, pa + mt * 16 * g.wsr + k8);
+              const uint32_t af[2] = {
+                  ptx::bf16x2_rn(__uint_as_float(raw[0]), __uint_as_float(raw[2])),
+                  ptx::bf16x2_rn(__uint_as_float(raw[1]), __uint_as_float(raw[3]))};
+#pragma unroll
+              for (int u = 0; u < kTilesPerPass; ++u) ptx::mma_bf16_k8(acc[u][mt], af, bb[u]);
+            }
+            continue;
+          }
           // x[k8 + t][n + g], x[k8 + t + 4][n + g] of each tile; a tile past
           // the last (an odd count) reads the last column, and is not stored
           uint32_t bh[kTilesPerPass][2], bl[kTilesPerPass][2];
@@ -332,65 +411,55 @@ __global__ void __launch_bounds__(kThreads) up_fused_stream_kernel(const Args a)
   }
   __syncthreads();
 
-  // 5. copy the tile out, one warp per run, 16-byte stores wherever the
-  //    destination quad is whole
+  // 5. copy the tile out, one warp per run, a vector of four outputs (16
+  //    bytes fp32, 8 bf16) wherever the destination quad is whole
   int runs = g.runs, len;
   if (a.order == kTimeFastest) len = cols * s;
   else if (a.order == kPhaseFastest) len = cols;
   else len = Co, runs = cols * s;
   for (int r = warp; r < runs; r += kWarps) {
-    float* dst = a.out + b * a.oB + static_cast<long long>(t0) * a.oT;
+    TX* dst = static_cast<TX*>(a.out) + b * a.oB + static_cast<long long>(t0) * a.oT;
     if (a.order == kTimeFastest) dst += r * a.oC;
     else if (a.order == kPhaseFastest) dst += (r % Co) * a.oC + (r / Co) * a.oP;
     else dst += r * a.oP;
     const float* src = os + r * g.os;
-    const int mis = static_cast<int>((reinterpret_cast<uintptr_t>(dst) >> 2) & 3);
+    const int mis = static_cast<int>((reinterpret_cast<uintptr_t>(dst) / sizeof(TX)) & 3);
     for (int e0 = 4 * lane - mis; e0 < len; e0 += 128) {  // e0: run element at a quad's start
       if (e0 >= 0 && e0 + 4 <= len) {
-        *reinterpret_cast<float4*>(dst + e0) =
-            make_float4(src[e0], src[e0 + 1], src[e0 + 2], src[e0 + 3]);
+        store4(dst + e0, src + e0);
       } else {
-        for (int u = e0 < 0 ? 0 : e0; u < e0 + 4 && u < len; ++u) dst[u] = src[u];
+        for (int u = e0 < 0 ? 0 : e0; u < e0 + 4 && u < len; ++u) store1(dst + u, src[u]);
       }
     }
   }
 }
 
-template <int kMT>
+template <typename TX, int kMT>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   const Geometry g(a.Ci, a.Co, a.s, a.S, a.order);
   const size_t smem = sizeof(float) * static_cast<size_t>(g.total);
-  cudaError_t err = cudaFuncSetAttribute(up_fused_stream_kernel<kMT>,
+  cudaError_t err = cudaFuncSetAttribute(up_fused_stream_kernel<TX, kMT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   dim3 grid(l3ac::ceil_div(a.T, a.S), B);
-  up_fused_stream_kernel<kMT><<<grid, kThreads, smem, stream>>>(a);
+  up_fused_stream_kernel<TX, kMT><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-}  // namespace
-
-// x: (B, Ci, T) with (xC, xT) = (T, 1), or (B, T, Ci) with (xC, xT) = (1, Ci);
-// w: the prepared buffer (ops/kernels/up_fused.py:prepare_up): W as (Mp, Kp +
-// 4), Mp = Co rounded up to 16, Kp = Ci rounded up to 8, zero-padded, then b,
-// and norm_w, norm_b when norm is set; 16-byte aligned. out[b oB + o oC + t oT
-// + p oP] receives phase p of input column t; order names the output's
-// fastest axis (0 time, 1 channel, 2 time within a phase array) and must
-// match the strides. All fp32 and contiguous; 1 <= Ci <= 128, 1 <= Co <= 64,
-// 1 <= s <= 16. Returns the CUDA error code (invalid value for a shape it does
-// not take).
-extern "C" int l3ac_up_fused(const float* x, const float* w, float* out, int norm, int B,
-                             int Ci, int Co, int T, int s, long long xB, long long xC,
-                             long long xT, long long oB, long long oC, long long oT,
-                             long long oP, int order, void* stream) {
-  if (B < 1 || B > 65535 || Ci < 1 || Ci > 128 || Co < 1 || Co > 64 || T < 1 || s < 1 ||
+template <typename TX>
+int run(const TX* x, const float* w, TX* out, int norm, int B, int Ci, int Co, int T, int s,
+        long long xB, long long xC, long long xT, long long oB, long long oC, long long oT,
+        long long oP, int order, void* stream) {
+  if (B < 1 || B > 65535 || Ci < 1 || Ci > 128 || Co < 1 || Co > 128 || T < 1 || s < 1 ||
       s > kMaxScale || order < 0 || order > 2 || !aligned16(w))
     return cudaErrorInvalidValue;
   Args a{x, w, out, Ci, Co, T, s, kMaxS, norm != 0, xB, xC, xT, oB, oC, oT, oP, order,
-         xT == 1 && T % 4 == 0 && aligned16(x) && xB % 4 == 0 && xC % 4 == 0, {}};
+         std::is_same_v<TX, float> && xT == 1 && T % 4 == 0 && aligned16(x) && xB % 4 == 0 &&
+             xC % 4 == 0,
+         {}};
   // the widest tile (a multiple of 32 columns) whose shared memory fits
   auto fits = [&](int S) {
     return sizeof(float) * static_cast<size_t>(Geometry(Ci, Co, s, S, order).total) <=
@@ -407,10 +476,40 @@ extern "C" int l3ac_up_fused(const float* x, const float* w, float* out, int nor
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch ((Co + 15) / 16) {
-    case 1: return launch<1>(a, B, st);
-    case 2: return launch<2>(a, B, st);
-    case 3: return launch<3>(a, B, st);
-    case 4: return launch<4>(a, B, st);
+    case 1: return launch<TX, 1>(a, B, st);
+    case 2: return launch<TX, 2>(a, B, st);
+    case 3: return launch<TX, 3>(a, B, st);
+    case 4: return launch<TX, 4>(a, B, st);
+    case 5: return launch<TX, 5>(a, B, st);
+    case 6: return launch<TX, 6>(a, B, st);
+    case 7: return launch<TX, 7>(a, B, st);
+    case 8: return launch<TX, 8>(a, B, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// x: (B, Ci, T) with (xC, xT) = (T, 1), or (B, T, Ci) with (xC, xT) = (1, Ci);
+// w: the prepared buffer (ops/kernels/up_fused.py:prepare_up): W as (Mp, Kp +
+// 4), Mp = Co rounded up to 16, Kp = Ci rounded up to 8, zero-padded, then b,
+// and norm_w, norm_b when norm is set; fp32 (a bf16 weight set's values),
+// 16-byte aligned. out[b oB + o oC + t oT + p oP] receives phase p of input
+// column t; order names the output's fastest axis (0 time, 1 channel, 2 time
+// within a phase array) and must match the strides. x and out fp32
+// (l3ac_up_fused) or bf16 (l3ac_up_fused_bf16), contiguous; 1 <= Ci <= 128,
+// 1 <= Co <= 128, 1 <= s <= 16. Returns the CUDA error code (invalid value
+// for a shape it does not take).
+extern "C" int l3ac_up_fused(const float* x, const float* w, float* out, int norm, int B,
+                             int Ci, int Co, int T, int s, long long xB, long long xC,
+                             long long xT, long long oB, long long oC, long long oT,
+                             long long oP, int order, void* stream) {
+  return run(x, w, out, norm, B, Ci, Co, T, s, xB, xC, xT, oB, oC, oT, oP, order, stream);
+}
+
+extern "C" int l3ac_up_fused_bf16(const __nv_bfloat16* x, const float* w, __nv_bfloat16* out,
+                                  int norm, int B, int Ci, int Co, int T, int s, long long xB,
+                                  long long xC, long long xT, long long oB, long long oC,
+                                  long long oT, long long oP, int order, void* stream) {
+  return run(x, w, out, norm, B, Ci, Co, T, s, xB, xC, xT, oB, oC, oT, oP, order, stream);
 }

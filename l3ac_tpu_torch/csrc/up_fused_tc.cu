@@ -57,6 +57,17 @@
 // by pass or per accumulator: all within 1-5 % or slower. The products run at about a quarter of the TF32 rate, no faster
 // than cuBLAS's fp32 conv of the same shapes; the same structure on wgmma
 // (tools/up_fused_wgmma.cu) was right and slower.
+// bf16 (l3ac_up_fused_tc_bf16: x, out and the prepared buffer bf16, W's rows
+// padded to Ci8 = Ci rounded up to 8): one bf16 tensor-core pass, mma.sync
+// m16n8k16, the ring's tiles bf16 in rows of 40 (80 bytes, so ldmatrix's
+// eight rows hit distinct banks), both fragments by ldmatrix in the mma's
+// natural k order, as tc_gemm.cuh's bf16 GEMM. x by 16-byte copies where
+// Ci % 8 == 0, else by plain loads with zero fill. z, the bias, the blend
+// and the norm are fp32 from the bf16 values, and the store rounds once, as
+// upsample.py:_kernel does. The bound halves (bf16 bytes): 0.038 ms for the
+// 1kbps pair at B = 8.
+#include <type_traits>
+
 #include "common.cuh"
 #include "ptx.cuh"
 
@@ -72,22 +83,24 @@ constexpr bool kTallTiles = false;    // 128-row tiles where Co <= 128
 constexpr int kMaxScale = 16;
 constexpr float kNormEps = 1e-8f;
 
+// Pointers of the kernel's element type: fp32, or bf16 throughout (x, out,
+// W and the vectors) in the bf16 kernel.
 struct Args {
-  const float* x;       // (B, T, Ci)
-  const float* w_hi;    // (Cp, Ci4): W, or its TF32 hi when pre-split
-  const float* w_lo;    // (Cp, Ci4): the TF32 lo when pre-split, else unused
-  const float* bias;    // (Cp)
-  const float* norm_w;  // (Cp) or null: no norm
-  const float* norm_b;  // (Cp) or null
-  float* out;           // (B, T s, Co)
+  const void* x;        // (B, T, Ci)
+  const void* w_hi;     // (Cp, CiR): W, or its TF32 hi when pre-split
+  const void* w_lo;     // (Cp, CiR): the TF32 lo when pre-split, else unused
+  const void* bias;     // (Cp)
+  const void* norm_w;   // (Cp) or null: no norm
+  const void* norm_b;   // (Cp) or null
+  void* out;            // (B, T s, Co)
   int Ci, Co, T, s;
-  int Ci4;              // W's row stride: Ci rounded up to 4
-  int x_vec;            // Ci % 4 == 0: 16-byte copies of x
-  int o_vec;            // Co % 4 == 0 and out 16-byte aligned: 16-byte stores
+  int Ci4;              // W's row stride CiR: Ci rounded up to 4 (fp32) or 8 (bf16)
+  int x_vec;            // Ci % 4 == 0 (bf16: % 8) and x aligned: 16-byte copies of x
+  int o_vec;            // Co % 4 == 0 and out 16 (bf16: 8)-byte aligned: vector stores
   float taps[kMaxScale][3];  // per phase: w_prev, w_cur, w_next
 };
 
-template <int kMW, int kNW>
+template <int kMW, int kNW, bool kBf16 = false>
 struct Tile {
   static constexpr int kRows = 32 * kMW;        // z rows per block
   static constexpr int kOwn = kRows - 2;        // rows it stores
@@ -96,7 +109,11 @@ struct Tile {
   static constexpr int kWarps = kThreads / 32;
   static constexpr int kZS = kCo + 4;           // row stride of z in shared memory
   static constexpr int kSlots = (kCo + 127) / 128;  // float4 slots per lane in a row
-  static constexpr int kStage = (kRows + (kPreSplit ? 2 : 1) * kCo) * kRow;
+  static constexpr int kRowB = kBK + 8;         // bf16 row stride of the ring tiles
+  // floats of one ring stage: x rows and W rows, fp32 (W hi and lo when
+  // pre-split) or bf16
+  static constexpr int kStage = kBf16 ? (kRows + kCo) * kRowB / 2
+                                      : (kRows + (kPreSplit ? 2 : 1) * kCo) * kRow;
   static constexpr int kRingStages = kCo > 256 ? 2 : kStages;  // a 512-column W tile: 2
   static constexpr int kRing = kRingStages * kStage;
   // z, the row statistics, the phase parameters
@@ -177,12 +194,33 @@ __device__ __forceinline__ void split(uint32_t raw, uint32_t& hi, uint32_t& lo) 
   lo = ptx::tf32_rna(v - __uint_as_float(hi));
 }
 
+using bf16 = __nv_bfloat16;
+__device__ __forceinline__ float ld1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld1(const bf16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+}
+__device__ __forceinline__ void st1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st1(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void st4(bf16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(ptx::bf16x2_rn(v.x, v.y), ptx::bf16x2_rn(v.z, v.w));
+}
+
 // kExact: Co == kCo, Ci % 4 == 0 and 16-byte aligned x and out (every released
 // config's shapes): Co and the vector paths are compile-time facts, the code
 // the kernel was tuned as; otherwise the padded, masked, 4-byte paths.
-template <int kMW, int kNW, bool kExact>
-__global__ void __launch_bounds__(Tile<kMW, kNW>::kThreads, 1) up_fused_tc_kernel(const Args a) {
-  using G = Tile<kMW, kNW>;
+// kBf16: x, out and the buffer bf16, one bf16 pass (see the head note).
+template <int kMW, int kNW, bool kExact, bool kBf16>
+__global__ void __launch_bounds__(Tile<kMW, kNW, kBf16>::kThreads, 1)
+    up_fused_tc_kernel(const Args a) {
+  using G = Tile<kMW, kNW, kBf16>;
+  using TX = std::conditional_t<kBf16, bf16, float>;
   const int Co = kExact ? G::kCo : a.Co;
   const bool x_vec = kExact || a.x_vec, o_vec = kExact || a.o_vec;
   extern __shared__ __align__(16) float smem[];
@@ -196,27 +234,57 @@ __global__ void __launch_bounds__(Tile<kMW, kNW>::kThreads, 1) up_fused_tc_kerne
   const int Ci = a.Ci, T = a.T;
   const int t0 = blockIdx.x * G::kOwn;  // first owned row; z row i is t0 - 1 + i
   const long long b = blockIdx.y;
-  const float* xb = a.x + b * T * static_cast<long long>(Ci);
+  const TX* xb = static_cast<const TX*>(a.x) + b * T * static_cast<long long>(Ci);
   const int steps = (Ci + kBK - 1) / kBK;
 
   // rows of x (clamped into [0, T)) and W, K columns [32 s, 32 s + 32), into stage s
   constexpr int kRing = G::kRingStages;
+  auto stage_in_bf16 = [&](int s, int k0) {
+    bf16* st = reinterpret_cast<bf16*>(smem + (s % kRing) * G::kStage);
+    const bf16* x0 = static_cast<const bf16*>(a.x);
+    for (int e = tid; e < G::kRows * (kBK / 8); e += G::kThreads) {
+      const int row = e / (kBK / 8), col = (e % (kBK / 8)) * 8;
+      int t = t0 - 1 + row;
+      t = t < 0 ? 0 : (t >= T ? T - 1 : t);
+      const bf16* xr = reinterpret_cast<const bf16*>(xb) + static_cast<long long>(t) * Ci + k0 + col;
+      if (x_vec) {
+        const bool ok = k0 + col < Ci;
+        ptx::cp_async16(st + row * G::kRowB + col, ok ? xr : x0, ok ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          st[row * G::kRowB + col + u] = k0 + col + u < Ci ? xr[u] : __float2bfloat16_rn(0.0f);
+      }
+    }
+    const bf16* w = static_cast<const bf16*>(a.w_hi);
+    for (int e = tid; e < G::kCo * (kBK / 8); e += G::kThreads) {
+      const int row = e / (kBK / 8), col = (e % (kBK / 8)) * 8;
+      const bool ok = k0 + col < a.Ci4;
+      ptx::cp_async16(st + (G::kRows + row) * G::kRowB + col,
+                      ok ? w + static_cast<long long>(row) * a.Ci4 + k0 + col : w, ok ? 16 : 0);
+    }
+  };
   auto stage_in = [&](int s) {
-    float* st = smem + (s % kRing) * G::kStage;
     const int k0 = s * kBK;
+    if constexpr (kBf16) {
+      stage_in_bf16(s, k0);
+      return;
+    }
+    float* st = smem + (s % kRing) * G::kStage;
     for (int e = tid; e < G::kRows * (kBK / 4); e += G::kThreads) {
       const int row = e / (kBK / 4), col = (e % (kBK / 4)) * 4;
       int t = t0 - 1 + row;
       t = t < 0 ? 0 : (t >= T ? T - 1 : t);
-      const float* xr = xb + static_cast<long long>(t) * Ci + k0 + col;
+      const float* xr = reinterpret_cast<const float*>(xb) + static_cast<long long>(t) * Ci + k0 + col;
+      const float* x0 = static_cast<const float*>(a.x);
       if (x_vec) {
         const bool ok = k0 + col < Ci;
-        ptx::cp_async16(st + row * kRow + col, ok ? xr : a.x, ok ? 16 : 0);
+        ptx::cp_async16(st + row * kRow + col, ok ? xr : x0, ok ? 16 : 0);
       } else {
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const bool ok = k0 + col + u < Ci;
-          ptx::cp_async4(st + row * kRow + col + u, ok ? xr + u : a.x, ok ? 4 : 0);
+          ptx::cp_async4(st + row * kRow + col + u, ok ? xr + u : x0, ok ? 4 : 0);
         }
       }
     }
@@ -224,7 +292,7 @@ __global__ void __launch_bounds__(Tile<kMW, kNW>::kThreads, 1) up_fused_tc_kerne
       const int hl = e / (G::kCo * (kBK / 4)), rem = e % (G::kCo * (kBK / 4));
       const int row = rem / (kBK / 4), col = (rem % (kBK / 4)) * 4;
       const bool ok = k0 + col < a.Ci4;
-      const float* src = hl ? a.w_lo : a.w_hi;
+      const float* src = static_cast<const float*>(hl ? a.w_lo : a.w_hi);
       ptx::cp_async16(st + (G::kRows + hl * G::kCo + row) * kRow + col,
                       ok ? src + static_cast<long long>(row) * a.Ci4 + k0 + col : src, ok ? 16 : 0);
     }
@@ -262,8 +330,32 @@ __global__ void __launch_bounds__(Tile<kMW, kNW>::kThreads, 1) up_fused_tc_kerne
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
     const float* st = smem + (s % kRing) * G::kStage;
+    if constexpr (kBf16) {
+      // one bf16 pass per k16 step; ldmatrix rows as tc_gemm.cuh's bf16 GEMM
+      const bf16* sb = reinterpret_cast<const bf16*>(st);
+      const int oa16 = (wm * 32 + (q & 1) * 8 + r) * G::kRowB + (q >> 1) * 8;
+      const int ob16 = (G::kRows + wn * 32 + (q >> 1) * 8 + r) * G::kRowB + (q & 1) * 8;
 #pragma unroll
-    for (int ks = 0; ks < kBK / 8; ++ks) {
+      for (int ks = 0; ks < kBK / 16; ++ks) {
+        uint32_t bf[4][2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          uint32_t t4[4];
+          ptx::ldmatrix_x4(t4, sb + ob16 + j * 16 * G::kRowB + ks * 16);
+          bf[2 * j][0] = t4[0], bf[2 * j][1] = t4[1], bf[2 * j + 1][0] = t4[2],
+          bf[2 * j + 1][1] = t4[3];
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          uint32_t af[4];
+          ptx::ldmatrix_x4(af, sb + oa16 + mt * 16 * G::kRowB + ks * 16);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) ptx::mma_bf16(acc[mt][nt], af, bf[nt]);
+        }
+      }
+    }
+#pragma unroll
+    for (int ks = 0; ks < (kBf16 ? 0 : kBK / 8); ++ks) {
       uint32_t bh[4][2], bl[4][2];
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
@@ -325,7 +417,8 @@ __global__ void __launch_bounds__(Tile<kMW, kNW>::kThreads, 1) up_fused_tc_kerne
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
       const int o = wn * 32 + nt * 8 + 2 * t;
-      const float b0 = __ldg(a.bias + o), b1 = __ldg(a.bias + o + 1);
+      const TX* bias = static_cast<const TX*>(a.bias);
+      const float b0 = ld1(bias + o), b1 = ld1(bias + o + 1);
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -396,8 +489,8 @@ __global__ void __launch_bounds__(Tile<kMW, kNW>::kThreads, 1) up_fused_tc_kerne
     const int o = 4 * lane + 128 * k;
     nw[k] = nb[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (norm && o < G::kCo) {
-      nw[k] = __ldg(reinterpret_cast<const float4*>(a.norm_w + o));
-      nb[k] = __ldg(reinterpret_cast<const float4*>(a.norm_b + o));
+      nw[k] = ld4(static_cast<const TX*>(a.norm_w) + o);
+      nb[k] = ld4(static_cast<const TX*>(a.norm_b) + o);
     }
   }
   for (int i = 1 + warp; i < G::kRows - 1; i += G::kWarps) {
@@ -407,7 +500,7 @@ __global__ void __launch_bounds__(Tile<kMW, kNW>::kThreads, 1) up_fused_tc_kerne
     load_row<G::kSlots, G::kCo, G::kZS>(zp, zs, i - 1, lane);
     load_row<G::kSlots, G::kCo, G::kZS>(zc, zs, i, lane);
     load_row<G::kSlots, G::kCo, G::kZS>(zn, zs, i + 1, lane);
-    float* orow = a.out + ((b * T + t) * a.s) * static_cast<long long>(Co);
+    TX* orow = static_cast<TX*>(a.out) + ((b * T + t) * a.s) * static_cast<long long>(Co);
     for (int p = 0; p < a.s; ++p) {
       const float wp = taps[3 * p], wc = taps[3 * p + 1], wx = taps[3 * p + 2];
       const bool prev = wp != 0.0f;
@@ -425,14 +518,14 @@ __global__ void __launch_bounds__(Tile<kMW, kNW>::kThreads, 1) up_fused_tc_kerne
                           fmaf((v.z - mu) * rsd, nw[k].z, nb[k].z),
                           fmaf((v.w - mu) * rsd, nw[k].w, nb[k].w));
         const int o = 4 * lane + 128 * k;
-        float* op = orow + p * Co + o;
+        TX* op = orow + p * Co + o;
         if (o_vec) {
-          if (o < Co) *reinterpret_cast<float4*>(op) = v;
+          if (o < Co) st4(op, v);
         } else {
           const float vv[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
           for (int u = 0; u < 4; ++u)
-            if (o + u < Co) op[u] = vv[u];
+            if (o + u < Co) st1(op + u, vv[u]);
         }
       }
     }
@@ -441,20 +534,60 @@ __global__ void __launch_bounds__(Tile<kMW, kNW>::kThreads, 1) up_fused_tc_kerne
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-template <int kNW>
+template <int kNW, bool kBf16>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   constexpr int kMW = kNW > 8 ? 1 : (kTallTiles && kNW <= 4) ? 4 : 2;
-  using G = Tile<kMW, kNW>;
+  using G = Tile<kMW, kNW, kBf16>;
   constexpr size_t smem = sizeof(float) * static_cast<size_t>(G::kFloats);
   static_assert(smem <= 227 * 1024, "shared memory");
   const bool exact = kNW <= 8 && a.Co == G::kCo && a.x_vec && a.o_vec;
-  auto kernel = exact ? up_fused_tc_kernel<kMW, kNW, kNW <= 8> : up_fused_tc_kernel<kMW, kNW, false>;
+  auto kernel = exact ? up_fused_tc_kernel<kMW, kNW, kNW <= 8, kBf16>
+                      : up_fused_tc_kernel<kMW, kNW, false, kBf16>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   dim3 grid(l3ac::ceil_div(a.T, G::kOwn), B);
   kernel<<<grid, G::kThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <bool kBf16>
+int run(Args a, int B, void* stream) {
+  const int Ci = a.Ci, Co = a.Co, s = a.s;
+  const int es = kBf16 ? 2 : 4;  // element bytes
+  if (B < 1 || B > 65535 || Ci < 1 || Ci > 1024 || Co < 1 || Co > 512 || a.T < 1 || s < 1 ||
+      s > kMaxScale || !aligned16(a.w_hi) ||
+      (!kBf16 && kPreSplit && (a.w_lo == nullptr || !aligned16(a.w_lo))) ||
+      (a.norm_w == nullptr) != (a.norm_b == nullptr) ||
+      (a.norm_w != nullptr && (reinterpret_cast<uintptr_t>(a.norm_w) % (4 * es) != 0 ||
+                               reinterpret_cast<uintptr_t>(a.norm_b) % (4 * es) != 0)) ||
+      static_cast<long long>(a.T) * s * Co >= (1LL << 40))
+    return cudaErrorInvalidValue;
+  a.Ci4 = kBf16 ? (Ci + 7) / 8 * 8 : (Ci + 3) / 4 * 4;
+  a.x_vec = Ci % (16 / es) == 0 && aligned16(a.x);
+  a.o_vec = Co % 4 == 0 && reinterpret_cast<uintptr_t>(a.out) % (4 * es) == 0;
+  for (int p = 0; p < s; ++p) {  // ops/resample.py:phase_weights, in double
+    const double d = (p + 0.5) / s - 0.5;
+    const double w = 1.0 + d;
+    a.taps[p][0] = d >= 0.0 ? 0.0f : static_cast<float>(1.0 - w);
+    a.taps[p][1] = d >= 0.0 ? static_cast<float>(1.0 - d) : static_cast<float>(w);
+    a.taps[p][2] = d >= 0.0 ? static_cast<float>(d) : 0.0f;
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch ((Co + 31) / 32) {
+    case 1: return launch<1, kBf16>(a, B, st);
+    case 2: return launch<2, kBf16>(a, B, st);
+    case 3: return launch<3, kBf16>(a, B, st);
+    case 4: return launch<4, kBf16>(a, B, st);
+    case 5: return launch<5, kBf16>(a, B, st);
+    case 6: return launch<6, kBf16>(a, B, st);
+    case 7: return launch<7, kBf16>(a, B, st);
+    case 8: return launch<8, kBf16>(a, B, st);
+    case 9: case 10: return launch<10, kBf16>(a, B, st);    // 320
+    case 11: case 12: return launch<12, kBf16>(a, B, st);   // 384
+    case 13: case 14: return launch<14, kBf16>(a, B, st);   // 448
+    default: return launch<16, kBf16>(a, B, st);            // 512
+  }
 }
 
 }  // namespace
@@ -469,35 +602,17 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
 extern "C" int l3ac_up_fused_tc(const float* x, const float* w_hi, const float* w_lo,
                                 const float* bias, const float* norm_w, const float* norm_b,
                                 float* out, int B, int Ci, int Co, int T, int s, void* stream) {
-  if (B < 1 || B > 65535 || Ci < 1 || Ci > 1024 || Co < 1 || Co > 512 ||
-      T < 1 || s < 1 || s > kMaxScale || !aligned16(w_hi) ||
-      (kPreSplit && (w_lo == nullptr || !aligned16(w_lo))) ||
-      (norm_w == nullptr) != (norm_b == nullptr) ||
-      (norm_w != nullptr && (!aligned16(norm_w) || !aligned16(norm_b))) ||
-      static_cast<long long>(T) * s * Co >= (1LL << 40))
-    return cudaErrorInvalidValue;
-  Args a{x, w_hi, w_lo, bias, norm_w, norm_b, out, Ci, Co, T, s,
-         (Ci + 3) / 4 * 4, Ci % 4 == 0 && aligned16(x), Co % 4 == 0 && aligned16(out), {}};
-  for (int p = 0; p < s; ++p) {  // ops/resample.py:phase_weights, in double
-    const double d = (p + 0.5) / s - 0.5;
-    const double w = 1.0 + d;
-    a.taps[p][0] = d >= 0.0 ? 0.0f : static_cast<float>(1.0 - w);
-    a.taps[p][1] = d >= 0.0 ? static_cast<float>(1.0 - d) : static_cast<float>(w);
-    a.taps[p][2] = d >= 0.0 ? static_cast<float>(d) : 0.0f;
-  }
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((Co + 31) / 32) {
-    case 1: return launch<1>(a, B, st);
-    case 2: return launch<2>(a, B, st);
-    case 3: return launch<3>(a, B, st);
-    case 4: return launch<4>(a, B, st);
-    case 5: return launch<5>(a, B, st);
-    case 6: return launch<6>(a, B, st);
-    case 7: return launch<7>(a, B, st);
-    case 8: return launch<8>(a, B, st);
-    case 9: case 10: return launch<10>(a, B, st);    // 320
-    case 11: case 12: return launch<12>(a, B, st);   // 384
-    case 13: case 14: return launch<14>(a, B, st);   // 448
-    default: return launch<16>(a, B, st);            // 512
-  }
+  return run<false>(Args{x, w_hi, w_lo, bias, norm_w, norm_b, out, Ci, Co, T, s, 0, 0, 0, {}},
+                    B, stream);
+}
+
+// The same in bf16: x, out, w (Cp, Ci8 = Ci rounded up to 8), bias and the
+// norm bf16 (up_fused.py:prepare_up of a bf16 weight set); w 16-byte and the
+// norm 8-byte aligned.
+extern "C" int l3ac_up_fused_tc_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                                     const __nv_bfloat16* bias, const __nv_bfloat16* norm_w,
+                                     const __nv_bfloat16* norm_b, __nv_bfloat16* out, int B,
+                                     int Ci, int Co, int T, int s, void* stream) {
+  return run<true>(Args{x, w, nullptr, bias, norm_w, norm_b, out, Ci, Co, T, s, 0, 0, 0, {}},
+                   B, stream);
 }

@@ -1,7 +1,8 @@
 """Codec assembly: encoder -> en_encoder -> FSQ -> en_decoder -> decoder
 (``l3ac_tpu/models/codec.py:24-112``).
 
-Audio is (B, T) float32; features are channels-last (B, T', C).
+Audio is (B, T) in the model's dtype (float32 or bfloat16); features are
+channels-last (B, T', C).
 """
 
 import math
@@ -78,5 +79,6 @@ class Codec(nn.Module):
         return self.decoder(self.en_decoder_apply(q_trans_feature))
 
     def decode_indices(self, indices: torch.Tensor) -> torch.Tensor:
-        """(B, T'') indices -> (B, T) audio."""
-        return self.decode(self.quantizer.indices_to_features(indices))
+        """(B, T'') indices -> (B, T) audio, features made in the decoder's dtype."""
+        dtype = self.decoder.in_conv.weight.dtype
+        return self.decode(self.quantizer.indices_to_features(indices, dtype))

@@ -18,6 +18,11 @@ Wide stages run on (B, T, C); once a stage's width is at most
 ``NARROW_MAX_C`` the activation flips to (B, C, T) once and stays there, the
 same switch as the JAX decoder. The reference's fp64 tail flag is not ported
 (ROADMAP).
+
+A bf16 decoder runs in bf16 throughout, each kernel's bf16 variant, and
+returns bf16 audio (JAX casts the tail's tanh back to the ambient dtype,
+``l3ac_tpu/models/decoder.py:decoder_apply``); the prepared buffers are
+keyed on the weights' dtype, so a model moved with ``.to()`` rebuilds them.
 """
 
 import torch

@@ -3,16 +3,19 @@
 
 ConvUnit: ``x + pw2(GRN(act(pw1(ChannelNorm(dwconv7(x))))))``, act = snake or
 exact GELU. Its forward is the ``conv_unit_ct`` kernel on (B, C, T) or the
-``conv_unit`` kernel on (B, T, C) (plain versions on the CPU). With int8
-weights (``ops.quantized.quantize_params``) it follows the JAX dispatch
+``conv_unit`` kernel on (B, T, C) (plain versions on the CPU), in the
+activations' dtype (fp32 or bf16). With int8 weights
+(``ops.quantized.quantize_params``) it follows the JAX dispatch
 (``l3ac_tpu/models/layers.py:74-130``), whose fused kernels take dense
 weights only: on (B, T, C) the unfused body runs, its two products through
-the ``int8_matmul`` kernel. On (B, C, T) JAX runs the unfused body on the
-dequantized weights; the port's CPU path does the same (``conv_unit_ct``'s
-plain version on weights dequantized per call, no dense copy kept), and on
-the card ``conv_unit_ct``'s kernel runs on operands prepared once from the
-int8 weights (:meth:`ConvUnit.prepared`), which differ from that body only
-by the GRN fold (``ops/kernels/conv_unit.py``).
+the ``int8_matmul`` kernel (bf16 too). On (B, C, T) JAX runs the unfused
+body on dense weights made from the int8 ones (``_dense_w``: ``q`` and the
+scale cast to the activation dtype, then multiplied); the port's CPU path
+does the same (``conv_unit_ct``'s plain version on weights made per call,
+no dense copy kept), and on the card ``conv_unit_ct``'s kernel runs on
+operands prepared once from the int8 weights (:meth:`ConvUnit.prepared`),
+which differ from that body only by the GRN fold
+(``ops/kernels/conv_unit.py``).
 
 LegacyUnit: snake -> conv k7 at dilation d -> snake -> conv k1, residual
 outside. It holds the weights of one unit of the decoder's legacy tail, which
@@ -88,10 +91,12 @@ class ConvUnit(nn.Module):
         pinit.weight_norm_layer_(self.pw2, gen)
 
     def kernel_weights(self, dense: bool = True) -> ConvUnitWeights:
-        """The fused kernels' weights, int8 layers dequantized (fp32); with
-        ``dense=False`` the two product weights are left out (None)."""
+        """The fused kernels' weights, int8 layers made dense in the unit's
+        dtype (:meth:`Int8Linear.dense`); with ``dense=False`` the two
+        product weights are left out (None)."""
         n = self.norm
-        pw1_w, pw2_w = ((_dense_weight(self.pw1), _dense_weight(self.pw2))
+        dtype = self.dw.weight.dtype
+        pw1_w, pw2_w = ((_dense_weight(self.pw1, dtype), _dense_weight(self.pw2, dtype))
                         if dense else (None, None))
         return ConvUnitWeights(
             self.dw.weight, self.dw.bias,
@@ -102,20 +107,18 @@ class ConvUnit(nn.Module):
     def prepared(self) -> PreparedWeights:
         """The tensor-core kernels' product operands (``prepare_weights``),
         cached. Dense layers: on their weights (``prepared_weights``). int8
-        layers: on the ``w_q`` / ``w_scale`` buffers of both, pw2's bias and
-        GRN, prepared from the dequantized weights on a miss, so no call
-        dequantizes once the set is cached."""
+        layers: on the ``w_q`` / ``w_scale`` buffers of both and every other
+        weight of the unit (a bf16 unit's operands hold them all, and their
+        dtype is the unit's), prepared from the dense weights on a miss, so
+        no call dequantizes once the set is cached."""
         if not isinstance(self.pw1, Int8Linear):
             return prepared_weights(self.kernel_weights())
-        src = (self.pw1.w_q, self.pw1.w_scale, self.pw2.w_q, self.pw2.w_scale,
-               self.pw2.bias, self.grn.gamma, self.grn.beta)
+        src = (self.pw1.w_q, self.pw1.w_scale, self.pw2.w_q, self.pw2.w_scale)
+        src += tuple(t for t in self.kernel_weights(dense=False) if t is not None)
         return cached_prepare(self.pw1.w_q, src, lambda: prepare_weights(self.kernel_weights()))
 
     def forward(self, x: torch.Tensor, *, channels_last: bool) -> torch.Tensor:
         """Residual unit: x (B, T, C) if ``channels_last`` else (B, C, T)."""
-        if x.dtype == torch.bfloat16 and isinstance(self.pw1, Int8Linear):
-            raise TypeError("ConvUnit: int8 weights with bf16 activations are not ported "
-                            "yet (the decode half of bf16 inference, ROADMAP A6)")
         if channels_last and isinstance(self.pw1, Int8Linear):
             # JAX conv_unit_apply's unfused body: elementwise steps in plain
             # PyTorch, pw1 / pw2 as modules (int8_matmul), the exact GRN
@@ -129,8 +132,8 @@ class ConvUnit(nn.Module):
                             dilation=self.dilation, prepared=self.prepared)
 
 
-def _dense_weight(lin: nn.Module) -> torch.Tensor:
-    return lin.dequantized() if isinstance(lin, Int8Linear) else lin.weight
+def _dense_weight(lin: nn.Module, dtype: torch.dtype) -> torch.Tensor:
+    return lin.dense(dtype) if isinstance(lin, Int8Linear) else lin.weight
 
 
 class LegacyUnit(nn.Module):

@@ -37,7 +37,10 @@ class Quantizer(nn.Module):
         q = self.proj_out(q_z) if self.has_proj else q_z
         return q, indices, li
 
-    def indices_to_features(self, indices: torch.Tensor) -> torch.Tensor:
-        """indices (B, T) -> fp32 features (B, T, feature_dim)."""
-        codes = fsq.indices_to_codes(indices, self.levels)
+    def indices_to_features(self, indices: torch.Tensor,
+                            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """indices (B, T) -> features (B, T, feature_dim) in ``dtype`` (the
+        model's): the codes, exact in any float dtype, are cast to it
+        (``l3ac_tpu/models/codec.py:decode_indices``)."""
+        codes = fsq.indices_to_codes(indices, self.levels).to(dtype)
         return self.proj_out(codes) if self.has_proj else codes

@@ -10,7 +10,9 @@
 - EnhanceBlock: BaseBlock(4, pk = (1, 3, 5, 9), dilations (1, 2, 3, 5)) on
   **channel 0 only** -> InstanceNorm(4, affine) -> plain 1x1 Conv(4 -> dim),
   and the gate ``x * (1 + g)``. Plain PyTorch in both layouts: the JAX package
-  runs it outside any Pallas kernel too.
+  runs it outside any Pallas kernel too. In bf16 every step runs in bf16
+  (``enhance_block_apply`` / ``_t`` on bf16 parameters), the instance norm by
+  ``ops.norms``' bf16 rule (fp32 statistics), and the gate in bf16.
 
 Activations are (B, C, T) unless a forward says otherwise.
 """

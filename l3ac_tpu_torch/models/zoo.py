@@ -9,11 +9,11 @@ than run on the CPU unasked.
 
 ``get_model(..., dtype=torch.bfloat16)`` builds a bf16 model: the weights
 are drawn in fp32 from the seed and then cast, as the JAX package's
-``get_model(dtype=)`` casts its fp32 init. A bf16 model encodes
-(``encode_audio``, ``extract_unit``, ``runtime.streaming.StreamCodec``'s
-encode) on the bf16 kernels; decoding it is the next slice of the port
-(the decode half of ROADMAP A6) and raises ``TypeError`` at the entry
-point.
+``get_model(dtype=)`` casts its fp32 init. A bf16 model encodes and decodes
+through every entry point (``encode_audio``, ``decode_audio``, ``roundtrip``,
+``extract_unit`` / ``decode_unit``, ``runtime.streaming.StreamCodec``) on
+the bf16 kernels, int8 weights too (``ops.quantized.quantize_params``):
+tensors it returns are bf16, audio returned as numpy fp32.
 
 Unlike the JAX package, nothing here downloads: ``load_pretrained`` reads
 the reference's five ``.pt`` files from a local directory and raises,
@@ -76,29 +76,22 @@ class L3AC:
         padded, _ = self.preprocess(audio)
         return self.codec.encode(padded.contiguous())
 
-    def _check_decode(self, entry: str) -> None:
-        """Decoding runs in fp32 only: a bf16 model raises before any launch."""
-        if self.dtype != torch.float32:
-            raise TypeError(f"{entry}: decoding a {self.dtype} model is not ported yet (the "
-                            "decode half of bf16 inference, ROADMAP A6, is the next slice); "
-                            "encode in bf16 and decode the indices with an fp32 model")
-
     @torch.inference_mode()
     def decode_audio(self, audio_feature=None, indices=None,
                      audio_length: int | None = None) -> torch.Tensor:
-        """Features (B, T'', C) or indices (B, T'') -> (B, T) audio, cropped
-        to ``audio_length`` when given. fp32 models only."""
-        self._check_decode("decode_audio")
+        """Features (B, T'', C), cast to the model's dtype, or indices (B, T'')
+        -> (B, T) audio in the model's dtype, cropped to ``audio_length`` when
+        given."""
         if audio_feature is not None:
-            out = self.codec.decode(self._on_device(audio_feature).float().contiguous())
+            out = self.codec.decode(self._on_device(audio_feature).to(self.dtype).contiguous())
         else:
             out = self.codec.decode_indices(self._on_device(indices))
         return out if audio_length is None else out[..., :audio_length]
 
     @torch.inference_mode()
     def roundtrip(self, audio) -> torch.Tensor:
-        """Encode then decode, cropped to the input length. fp32 models only."""
-        self._check_decode("roundtrip")
+        """Encode then decode, cropped to the input length; audio in the
+        model's dtype."""
         padded, length = self.preprocess(audio)
         q, _ = self.codec.encode(padded.contiguous())
         return self.codec.decode(q)[..., :length]
@@ -154,18 +147,18 @@ class L3AC:
     def decode_unit(self, chunk_indices=None, chunk_q_feature=None) -> np.ndarray:
         """Batch-1 chunked decode (reference ``l3ac/codec.py:149-156``) of
         ``extract_unit``'s chunks, by features when given, else by indices;
-        returns (1, T) numpy audio with each later chunk's one-hop prefix
-        dropped. fp32 models only."""
-        self._check_decode("decode_unit")
+        returns (1, T) numpy fp32 audio with each later chunk's one-hop
+        prefix dropped. Features are cast to the model's dtype."""
         hop = self.mc.hop_length
         if chunk_q_feature is not None:
-            chunks = [self.codec.decode(self._on_device(np.ascontiguousarray(x))[None])[0]
-                      for x in chunk_q_feature.chunk_data]
+            chunks = [self.codec.decode(
+                self._on_device(np.ascontiguousarray(x))[None].to(self.dtype))[0]
+                for x in chunk_q_feature.chunk_data]
         else:
             chunks = [self.codec.decode_indices(self._on_device(np.ascontiguousarray(x))[None])[0]
                       for x in chunk_indices.chunk_data]
         out = ChunkData(chunk_len=len(chunks[0]), prefix_len=hop,
-                        chunk_data=[c.cpu().numpy() for c in chunks])
+                        chunk_data=[c.float().cpu().numpy() for c in chunks])
         return out.data[None]
 
 

@@ -4,9 +4,9 @@ the two ``tools/`` probes, and their wrappers.
 
 Each wrapper:
 - checks device, dtype, shape and contiguity, and raises on what its kernel
-  does not take. fp32 everywhere; bf16 too for the four kernels of the
-  encode path (``ENCODE_BF16``) and the two probe kernels. The decode-only
-  kernels raise on bf16 (the decode half of ROADMAP A6);
+  does not take. fp32 and bf16 (``DTYPES``) for every kernel of the codec,
+  each dtype its own kernel (no bf16 tensor is cast to fp32 for an fp32
+  kernel); bf16 only for the two probe kernels;
 - on a CUDA tensor launches its kernel or raises; there is no fallback;
 - on a CPU tensor runs the plain PyTorch version in the same module;
 - adds one to ``LAUNCHES[name]`` where it launches its kernel, and nowhere
@@ -28,8 +28,8 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-# the dtypes of the kernels that take bf16 as well as fp32: the encode path
-ENCODE_BF16 = (torch.float32, torch.bfloat16)
+# the activation dtypes of the codec's kernels: an fp32 and a bf16 variant each
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def check_input(t: torch.Tensor, name: str, ndim: int | None = None,
@@ -38,10 +38,6 @@ def check_input(t: torch.Tensor, name: str, ndim: int | None = None,
     ``dtype`` is the one dtype the kernel takes or a tuple of them."""
     dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
     if t.dtype not in dtypes:
-        if t.dtype == torch.bfloat16:
-            raise TypeError(f"{name}: bf16 is not supported by this kernel yet (the "
-                            "decode half of bf16 inference, ROADMAP A6); it takes "
-                            f"{', '.join(map(str, dtypes))}")
         raise TypeError(f"{name}: {', '.join(map(str, dtypes))} only, got {t.dtype}")
     if ndim is not None and t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")

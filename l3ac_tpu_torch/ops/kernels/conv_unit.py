@@ -409,7 +409,7 @@ def conv_unit_ct(x: torch.Tensor, w: ConvUnitWeights, *, dilation: int = 1,
     operands from ``prepared()`` when given (then ``w`` may leave pw1_w /
     pw2_w out), else from :func:`prepared_weights`. Plain on the CPU, from
     ``w``'s dense weights."""
-    K.check_input(x, "conv_unit_ct x", ndim=3, dtype=K.ENCODE_BF16)
+    K.check_input(x, "conv_unit_ct x", ndim=3, dtype=K.DTYPES)
     bf16 = x.dtype == torch.bfloat16
     if not K.route(x, "conv_unit_ct"):
         if bf16:
@@ -432,7 +432,7 @@ def conv_unit(x: torch.Tensor, w: ConvUnitWeights, *,
     """Residual ConvUnit on (B, T, C), fp32 or bf16. On CUDA: the tensor-core
     path when C is a multiple of TC_MULTIPLE (bf16: of BF16_MULTIPLE), else
     (fp32 only) the SIMT kernel; one count either way. Plain on CPU."""
-    K.check_input(x, "conv_unit x", ndim=3, dtype=K.ENCODE_BF16)
+    K.check_input(x, "conv_unit x", ndim=3, dtype=K.DTYPES)
     bf16 = x.dtype == torch.bfloat16
     if not K.route(x, "conv_unit"):
         if bf16:

@@ -275,7 +275,7 @@ def first_block(x: torch.Tensor, w: FirstBlockWeights | PreparedStem) -> torch.T
     """x: (B, T) fp32 or bf16 audio -> (B, Cout, T) in x's dtype. ``w``: the
     weights (of x's dtype), or a :class:`PreparedStem` whose buffer the
     kernel takes as it is. Kernel on CUDA, plain on CPU."""
-    K.check_input(x, "first_block x", ndim=2, dtype=K.ENCODE_BF16)
+    K.check_input(x, "first_block x", ndim=2, dtype=K.DTYPES)
     if not K.route(x, "first_block"):
         return first_block_plain(x, w.weights if isinstance(w, PreparedStem) else w)
     return _launch(x, w)

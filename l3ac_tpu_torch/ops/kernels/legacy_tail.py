@@ -26,6 +26,15 @@ design: the note at the head of ``csrc/legacy_tail.cu``.
 Widths: C a multiple of 4 up to ``MAX_C`` (64); :func:`admits` is the rule.
 Up to 24 channels the kernel keeps every weight in shared memory; wider, it
 reads the matrices from device memory.
+
+bf16 (x bf16 with bf16 weights): the kernel's bf16 variant, one bf16
+tensor-core pass per product, rounding where
+``l3ac_tpu/ops/pallas/legacy_tail.py`` does (its activations stay in the
+input dtype between steps: each snake in fp32 then rounded, each conv's fp32
+sum + bias rounded, the residual ``x + h`` rounded after every unit; the
+output conv and tanh in fp32, the audio rounded once). Its buffer is
+:func:`pack` of the bf16 weights' values (the TF32 lo parts zero).
+:func:`legacy_tail_plain_bf16` rounds at the same points.
 """
 
 from __future__ import annotations
@@ -78,6 +87,31 @@ def legacy_tail_plain(x: torch.Tensor, w: TailWeights) -> torch.Tensor:
     return torch.tanh(h)[:, 0]
 
 
+def _conv_taps(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, d: int) -> torch.Tensor:
+    """The zero-padded k7 conv at dilation d as the kernel sums it: one fp32
+    product per tap, the taps added in order, then the bias."""
+    T = x.shape[-1]
+    xp = F.pad(x, (3 * d, 3 * d))
+    y = sum(torch.einsum("oc,bct->bot", w[..., k], xp[..., k * d:k * d + T]) for k in range(7))
+    return y + b[:, None]
+
+
+def legacy_tail_plain_bf16(x: torch.Tensor, w: TailWeights) -> torch.Tensor:
+    """The bf16 kernel's function in plain PyTorch: bf16 activations between
+    the steps, each product on the bf16 values with an fp32 sum (+ bias),
+    rounded, the k7 convs summed tap by tap as the kernel sums them; the
+    output conv and tanh in fp32, the audio rounded once."""
+    bf, f = x.dtype, lambda t: t.float()
+    for u, d in enumerate(DILATIONS):
+        h = snake(x, w.a1[u][:, None])
+        h = _conv_taps(f(h), f(w.w1[u]), f(w.b1[u]), d).to(bf)
+        h = snake(h, w.a2[u][:, None])
+        h = (torch.einsum("oc,bct->bot", f(w.w2[u]), f(h)) + f(w.b2[u])[:, None]).to(bf)
+        x = x + h
+    h = F.conv1d(f(snake(x, w.ao[:, None])), f(w.wo), f(w.bo), padding=3)
+    return torch.tanh(h).to(bf)[:, 0]
+
+
 class PreparedTail(NamedTuple):
     """A tail's weights as both versions take them."""
     weights: TailWeights  # stacked: the plain version's operands
@@ -109,11 +143,14 @@ def pack(w: TailWeights) -> torch.Tensor:
     w2 (3, Cout, Cin) hi, then lo, rows of Cp + 4 floats (Cp = C rounded up
     to 8; the rest zero); then (3, Cp) b1, a1, 1 / (a1 + eps), a2,
     1 / (a2 + eps), b2; (Cp) ao, 1 / (ao + eps); wo (7, Cp); bo and three
-    zeros. The reciprocals are fp32 quotients of the fp32 ``alpha + EPS``."""
+    zeros. The reciprocals are fp32 quotients of the fp32 ``alpha + EPS``.
+    bf16 weights are packed as their fp32 values, exact in TF32, so their lo
+    parts are zero (the bf16 kernel reads the hi parts only)."""
     C = w.ao.shape[0]
     _check_shapes(w, C, "legacy_tail pack")
     Cp = padded_channels(C)
     with torch.no_grad():
+        w = TailWeights(*(t.float() for t in w))
         w1 = w.w1.new_zeros(3, 7, Cp, Cp + 4)
         w1[:, :, :C, :C] = w.w1.permute(0, 3, 1, 2)
         w2 = w.w2.new_zeros(3, Cp, Cp + 4)
@@ -141,6 +178,9 @@ def _launch(x0: torch.Tensor, x1: torch.Tensor | None, w: TailWeights | Prepared
     why = admits(C)
     if why is not None:
         raise ValueError(f"{name}: {why}")
+    w_dtype = _plain_weights(w).w1.dtype
+    if w_dtype != x0.dtype:
+        raise TypeError(f"{name}: x is {x0.dtype} but the weights are {w_dtype}")
     if isinstance(w, PreparedTail):
         wp = w.packed
     else:
@@ -148,11 +188,13 @@ def _launch(x0: torch.Tensor, x1: torch.Tensor | None, w: TailWeights | Prepared
         wp = prepared_tail(w)
     if wp.shape != (packed_floats(C),):
         raise ValueError(f"{name}: packed weights {tuple(wp.shape)} do not match C = {C}")
-    K.check_cuda({"x0": x0, "x1": x1, "weights": wp}, x0.device)
+    K.check_cuda({"x0": x0, "x1": x1}, x0.device, dtype=x0.dtype)
+    K.check_cuda({"weights": wp}, x0.device)
     if _build.function("l3ac_legacy_tail_weight_floats", [ctypes.c_int])(C) != wp.numel():
         raise RuntimeError(f"{name}: pack's layout differs from the kernel's")
     out = torch.empty((B, T), device=x0.device, dtype=x0.dtype)
-    fn = _build.function("l3ac_legacy_tail", _ARGTYPES)
+    fn = _build.function("l3ac_legacy_tail_bf16" if x0.dtype == torch.bfloat16
+                         else "l3ac_legacy_tail", _ARGTYPES)
     err = fn(x0.data_ptr(), _build.ptr(x1), wp.data_ptr(), out.data_ptr(), B, C, T,
              x0.stride(0), x0.stride(1), _build.stream_ptr())
     _build.check(err, name)
@@ -164,25 +206,30 @@ def _plain_weights(w: TailWeights | PreparedTail) -> TailWeights:
     return w.weights if isinstance(w, PreparedTail) else w
 
 
+def _plain(x: torch.Tensor):
+    return legacy_tail_plain_bf16 if x.dtype == torch.bfloat16 else legacy_tail_plain
+
+
 def legacy_tail_poly_ct(x0: torch.Tensor, x1: torch.Tensor,
                         w: TailWeights | PreparedTail) -> torch.Tensor:
     """Phase pair x0, x1 (B, C, Tt) of the interleaved input
-    (``x[.., 2 t + q] = x_q[.., t]``) -> audio (B, 2 Tt). ``w``: the weights,
-    or a :class:`PreparedTail` whose buffer the kernel takes as it is.
-    Kernel on CUDA, plain on CPU."""
-    K.check_input(x0, "legacy_tail_poly_ct x0", ndim=3)
-    K.check_input(x1, "legacy_tail_poly_ct x1", ndim=3)
+    (``x[.., 2 t + q] = x_q[.., t]``) -> audio (B, 2 Tt) in x's dtype (fp32
+    or bf16). ``w``: the weights, or a :class:`PreparedTail` whose buffer
+    the kernel takes as it is. Kernel on CUDA, plain on CPU."""
+    K.check_input(x0, "legacy_tail_poly_ct x0", ndim=3, dtype=K.DTYPES)
+    K.check_input(x1, "legacy_tail_poly_ct x1", ndim=3, dtype=x0.dtype)
     if x0.shape != x1.shape:
         raise ValueError(f"legacy_tail_poly_ct: phases {tuple(x0.shape)} and "
                          f"{tuple(x1.shape)} differ")
     if not K.route(x0, "legacy_tail_poly_ct"):
-        return legacy_tail_plain(interleave([x0, x1], 2), _plain_weights(w))
+        return _plain(x0)(interleave([x0, x1], 2), _plain_weights(w))
     return _launch(x0, x1, w, 2 * x0.shape[2], "legacy_tail_poly_ct")
 
 
 def legacy_tail_ct(x: torch.Tensor, w: TailWeights | PreparedTail) -> torch.Tensor:
-    """Interleaved (B, C, T) -> audio (B, T). Kernel on CUDA, plain on CPU."""
-    K.check_input(x, "legacy_tail_ct x", ndim=3)
+    """Interleaved (B, C, T) -> audio (B, T) in x's dtype (fp32 or bf16).
+    Kernel on CUDA, plain on CPU."""
+    K.check_input(x, "legacy_tail_ct x", ndim=3, dtype=K.DTYPES)
     if not K.route(x, "legacy_tail_ct"):
-        return legacy_tail_plain(x, _plain_weights(w))
+        return _plain(x)(x, _plain_weights(w))
     return _launch(x, None, w, x.shape[2], "legacy_tail_ct")

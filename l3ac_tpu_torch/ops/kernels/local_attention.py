@@ -94,7 +94,7 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     CUDA a permuted view of a (B, T, H, D) tensor. Kernel on CUDA, plain on
     CPU."""
     for name, t in (("q", q), ("k", k), ("v", v)):
-        K.check_input(t, f"local_attention {name}", ndim=4, dtype=K.ENCODE_BF16)
+        K.check_input(t, f"local_attention {name}", ndim=4, dtype=K.DTYPES)
     if bias is not None and bias_table is not None:
         raise ValueError("local_attention: pass bias or bias_table, not both")
     if not K.route(q, "local_attention"):

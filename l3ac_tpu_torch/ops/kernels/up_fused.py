@@ -14,14 +14,22 @@ Replaces ``l3ac_tpu/ops/pallas/upsample.py:up_fused_ct`` (body ``_kernel_ct``,
   62 rows (30 above Co = 256) and its two halo rows, and its epilogue
   blends, normalizes and stores each output row at its interleaved address.
 - ``csrc/up_fused.cu`` (route ``"stream"``): a streaming pass for
-  Ci <= 128 and Co <= 64 in either layout (the narrow (B, C, T) stages,
+  Ci <= 128 and Co <= 128 in either layout (the narrow (B, C, T) stages,
   ``phase_split`` included), bound by its bytes; its conv also runs on the
   tensor cores, with the output channels as the M axis.
 
 A shape that neither takes raises on a CUDA tensor; the plain version runs
-only for a CPU tensor. The one shape the decoder can hand them that neither
-takes: a (B, C, T) stage (input width <= 96) whose output is wider than 64
-(ROADMAP C3).
+only for a CPU tensor. The decoder hands them no such shape: its (B, C, T)
+stages have inputs of at most 96 channels, and the streaming kernel takes
+their outputs up to 128 (wider ones run into ``conv_unit_ct``'s C <= 96
+first, ROADMAP C3).
+
+bf16 (x bf16 with bf16 weights): each kernel's bf16 variant, one bf16
+tensor-core pass with fp32 sums; the bias, the blend and the norm in fp32
+from the bf16 parameters, and one rounding at the store, where
+``l3ac_tpu/ops/pallas/upsample.py`` rounds (``_kernel`` / ``_kernel_ct``,
+``out_shape`` in x's dtype). :func:`up_fused_plain_bf16` rounds at the same
+point.
 
 Semantics are those of the jnp chain (``models/decoder.py:_up_path``): conv,
 ``upsample_linear`` with the phase weights of ``ops/resample.py``, then the
@@ -54,7 +62,7 @@ from .conv_unit import cached_prepare
 MAX_SCALE = 16
 TC_MAX_CO = 256                        # up_fused_tc.cu at Co % 32 == 0, Ci % 4 == 0 ...
 TC_WIDE_MAX_CI, TC_WIDE_MAX_CO = 1024, 512  # ... and at any other Ci, Co up to these
-STREAM_MAX_CI, STREAM_MAX_CO = 128, 64  # up_fused.cu
+STREAM_MAX_CI, STREAM_MAX_CO = 128, 128  # up_fused.cu
 TC_OWN_ROWS = 62                        # up_fused_tc.cu: rows a block stores (64 z rows)
 ROUTES: dict[str, int] = {"tc": 0, "stream": 0}  # launches by kernel
 
@@ -82,6 +90,17 @@ def up_fused_plain(x: torch.Tensor, w: UpWeights, *, scale: int, channel_dim: in
     return tuple(phases) if phase_split else interleave(phases, t_dim)
 
 
+def up_fused_plain_bf16(x: torch.Tensor, w: UpWeights, *, scale: int, channel_dim: int,
+                        phase_split: bool = False):
+    """The bf16 kernels' function in plain PyTorch: the bf16 values in fp32
+    (the conv's products exact, its sums fp32), the blend and the norm in
+    fp32, one rounding to x's dtype at the end."""
+    w32 = UpWeights(*(None if t is None else t.float() for t in w))
+    out = up_fused_plain(x.float(), w32, scale=scale, channel_dim=channel_dim,
+                         phase_split=phase_split)
+    return tuple(p.to(x.dtype) for p in out) if phase_split else out.to(x.dtype)
+
+
 def route_for(Ci: int, Co: int, channels_last: bool) -> str | None:
     """The kernel that takes this shape: ``"tc"``, ``"stream"``, or None."""
     if channels_last and Ci % 4 == 0 and Co % 32 == 0 and 32 <= Co <= TC_MAX_CO:
@@ -100,28 +119,38 @@ def tc_padded_co(Co: int) -> int:
     return -(-Co // q) * q
 
 
+def tc_row_elems(Ci: int, dtype: torch.dtype) -> int:
+    """The row length of W in the ``"tc"`` buffer: Ci rounded up to 4 (fp32)
+    or 8 (bf16), 16 bytes either way."""
+    q = 8 if dtype == torch.bfloat16 else 4
+    return -(-Ci // q) * q
+
+
 def prepare_up(w: UpWeights, route: str) -> torch.Tensor:
-    """One fp32 buffer: the conv weight as its kernel reads it, then b, then
+    """One buffer: the conv weight as its kernel reads it, then b, then
     norm_w and norm_b where there is a norm. ``"tc"``: W (Co, Ci) in its
     nn.Linear layout (K-major), the tensor-core kernel's B operand (split
     into TF32 hi / lo as its fragments are loaded), its rows zero-padded to
-    (:func:`tc_padded_co`) and its columns to a multiple of 4, b and the norm
-    to the same padded Co.
-    ``"stream"``: W zero-padded to (Co rounded up to 16, Ci rounded up to 8,
-    plus 4), the A operand's rows as the kernel stages them."""
+    (:func:`tc_padded_co`) and its columns to :func:`tc_row_elems`, b and
+    the norm to the same padded Co; in the weights' dtype (fp32, or bf16 for
+    the bf16 kernel). ``"stream"``: W zero-padded to (Co rounded up to 16, Ci
+    rounded up to 8, plus 4), the A operand's rows as the kernel stages them;
+    fp32 for both kernels (a bf16 weight set's values, exact)."""
     with torch.no_grad():
         Co, Ci = w.w.shape
         vec = lambda v: v
+        dtype = torch.float32
         if route == "tc":
             Cp = tc_padded_co(Co)
-            wk = F.pad(w.w, (0, -(-Ci // 4) * 4 - Ci, 0, Cp - Co))
+            dtype = w.w.dtype
+            wk = F.pad(w.w, (0, tc_row_elems(Ci, dtype) - Ci, 0, Cp - Co))
             vec = lambda v: F.pad(v, (0, Cp - Co))
         elif route == "stream":
             wk = F.pad(w.w, (0, -(-Ci // 8) * 8 + 4 - Ci, 0, -(-Co // 16) * 16 - Co))
         else:
             raise ValueError(f"prepare_up: unknown route {route!r}")
         parts = [wk] + [vec(v) for v in (w.b, w.norm_w, w.norm_b) if v is not None]
-        return torch.cat([t.reshape(-1).float() for t in parts])
+        return torch.cat([t.reshape(-1).to(dtype) for t in parts])
 
 
 class UpPrepared(dict):
@@ -148,6 +177,7 @@ def prepared_up(w: UpWeights) -> UpPrepared:
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 7 + \
     [ctypes.c_int, ctypes.c_void_p]
 _TC_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_TC_BF16_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 ORDER_TIME, ORDER_CHANNEL, ORDER_PHASE = 0, 1, 2  # fastest axis of the stores
 
 
@@ -162,6 +192,8 @@ def _launch(x: torch.Tensor, w: UpWeights, scale: int, *, channels_last: bool,
         raise ValueError(f"{name}: scale {scale} outside 1..{MAX_SCALE}")
     if (w.norm_w is None) != (w.norm_b is None):
         raise ValueError(f"{name}: norm weight and bias go together")
+    if w.w.dtype != x.dtype:
+        raise TypeError(f"{name}: x is {x.dtype} but the weights are {w.w.dtype}")
     route = route_for(Ci, Co, channels_last)
     if route is None:
         raise ValueError(
@@ -170,7 +202,10 @@ def _launch(x: torch.Tensor, w: UpWeights, scale: int, *, channels_last: bool,
             f"takes (B, T, C) with Ci <= {TC_WIDE_MAX_CI} and Co <= {TC_WIDE_MAX_CO}, "
             f"the streaming one Ci <= {STREAM_MAX_CI} and Co <= {STREAM_MAX_CO}")
     buf = (prepared if prepared is not None else prepared_up(w)).buffer(route, w)
-    K.check_cuda({"x": x, "prepared": buf}, x.device)
+    bf16 = x.dtype == torch.bfloat16
+    K.check_cuda({"x": x}, x.device, dtype=K.DTYPES)
+    K.check_cuda({"prepared": buf}, x.device,
+                 dtype=torch.bfloat16 if bf16 and route == "tc" else torch.float32)
     if phase_split:
         out = torch.empty((scale, B, Co, T), device=x.device, dtype=x.dtype)
     elif channels_last:
@@ -178,12 +213,17 @@ def _launch(x: torch.Tensor, w: UpWeights, scale: int, *, channels_last: bool,
     else:
         out = torch.empty((B, Co, T * scale), device=x.device, dtype=x.dtype)
     if route == "tc":
-        Cp = tc_padded_co(Co)
-        p_b = buf.data_ptr() + 4 * Cp * (-(-Ci // 4) * 4)
-        p_nw, p_nb = (None, None) if w.norm_w is None else (p_b + 4 * Cp, p_b + 8 * Cp)
-        fn = _build.function("l3ac_up_fused_tc", _TC_ARGTYPES)
-        err = fn(x.data_ptr(), buf.data_ptr(), None, p_b, p_nw, p_nb, out.data_ptr(), B, Ci, Co,
-                 T, scale, _build.stream_ptr())
+        Cp, es = tc_padded_co(Co), buf.element_size()
+        p_b = buf.data_ptr() + es * Cp * tc_row_elems(Ci, buf.dtype)
+        p_nw, p_nb = (None, None) if w.norm_w is None else (p_b + es * Cp, p_b + 2 * es * Cp)
+        if bf16:
+            fn = _build.function("l3ac_up_fused_tc_bf16", _TC_BF16_ARGTYPES)
+            err = fn(x.data_ptr(), buf.data_ptr(), p_b, p_nw, p_nb, out.data_ptr(), B, Ci, Co, T,
+                     scale, _build.stream_ptr())
+        else:
+            fn = _build.function("l3ac_up_fused_tc", _TC_ARGTYPES)
+            err = fn(x.data_ptr(), buf.data_ptr(), None, p_b, p_nw, p_nb, out.data_ptr(), B, Ci,
+                     Co, T, scale, _build.stream_ptr())
     else:
         if phase_split:
             os_, order = (Co * T, T, 1, B * Co * T), ORDER_PHASE
@@ -192,7 +232,7 @@ def _launch(x: torch.Tensor, w: UpWeights, scale: int, *, channels_last: bool,
         else:
             os_, order = (Co * T * scale, T * scale, scale, 1), ORDER_TIME
         xs = (x.stride(0), 1, Ci) if channels_last else (x.stride(0), T, 1)
-        fn = _build.function("l3ac_up_fused", _ARGTYPES)
+        fn = _build.function("l3ac_up_fused_bf16" if bf16 else "l3ac_up_fused", _ARGTYPES)
         err = fn(x.data_ptr(), buf.data_ptr(), out.data_ptr(), int(w.norm_w is not None),
                  B, Ci, Co, T, scale, *xs, *os_, order, _build.stream_ptr())
     _build.check(err, name)
@@ -205,20 +245,24 @@ def up_fused_ct(x: torch.Tensor, w: UpWeights, *, scale: int, phase_split: bool 
                 prepared: UpPrepared | None = None):
     """(B, Ci, T) -> (B, Co, T * scale), or with ``phase_split`` the tuple of
     ``scale`` phases (B, Co, T) with ``out[.., t * scale + p] ==
-    phases[p][.., t]``. Kernel on CUDA, plain on CPU. ``prepared``: the
-    weights' :class:`UpPrepared` (default: :func:`prepared_up`)."""
-    K.check_input(x, "up_fused_ct x", ndim=3)
+    phases[p][.., t]``; fp32 or bf16. Kernel on CUDA, plain on CPU.
+    ``prepared``: the weights' :class:`UpPrepared` (default:
+    :func:`prepared_up`)."""
+    K.check_input(x, "up_fused_ct x", ndim=3, dtype=K.DTYPES)
     if not K.route(x, "up_fused_ct"):
-        return up_fused_plain(x, w, scale=scale, channel_dim=1, phase_split=phase_split)
+        plain = up_fused_plain_bf16 if x.dtype == torch.bfloat16 else up_fused_plain
+        return plain(x, w, scale=scale, channel_dim=1, phase_split=phase_split)
     return _launch(x, w, scale, channels_last=False, phase_split=phase_split,
                    name="up_fused_ct", prepared=prepared)
 
 
 def up_fused(x: torch.Tensor, w: UpWeights, *, scale: int,
              prepared: UpPrepared | None = None) -> torch.Tensor:
-    """(B, T, Ci) -> (B, T * scale, Co). Kernel on CUDA, plain on CPU."""
-    K.check_input(x, "up_fused x", ndim=3)
+    """(B, T, Ci) -> (B, T * scale, Co), fp32 or bf16. Kernel on CUDA, plain
+    on CPU."""
+    K.check_input(x, "up_fused x", ndim=3, dtype=K.DTYPES)
     if not K.route(x, "up_fused"):
-        return up_fused_plain(x, w, scale=scale, channel_dim=2)
+        plain = up_fused_plain_bf16 if x.dtype == torch.bfloat16 else up_fused_plain
+        return plain(x, w, scale=scale, channel_dim=2)
     return _launch(x, w, scale, channels_last=True, phase_split=False, name="up_fused",
                    prepared=prepared)

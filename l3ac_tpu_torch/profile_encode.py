@@ -13,14 +13,15 @@ calls behind each, and the GEMM core's int8 and fp32 instances apart) beside
 the wrappers' launch counts per request. A decode request decodes seeded
 random indices, as many tokens as the audio length gives. ``--int8``
 quantizes the weights first (``ops.quantized.quantize_params``).
-``--dtype bfloat16`` builds the model in bf16 (``get_model(dtype=)``): its
-encode runs the bf16 kernels; its decode is not ported yet and raises. With
-``--trace`` it also writes a Chrome trace there.
+``--dtype bfloat16`` builds the model in bf16 (``get_model(dtype=)``): encode
+and decode run the bf16 kernels, with ``--int8`` too. With ``--trace`` it
+also writes a Chrome trace there.
 """
 
 from __future__ import annotations
 
 import argparse
+import re
 import subprocess
 import time
 
@@ -33,13 +34,23 @@ from .ops import kernels as K
 from .ops.quantized import quantize_params
 
 REQUESTS = 3
-# (family, substrings of the device kernel names): the CUDA kernels behind
-# each wrapper; one conv_unit call on the tensor-core path is three launches
-# (dw_norm_kernel, gemm_kernel<false, snake or gelu>, gemm_kernel<false, residual>)
-# Each device kernel counts in the first family that names it.
+# (family, patterns searched for in the device kernel names): the CUDA
+# kernels behind each wrapper; one conv_unit call on the tensor-core path is
+# three launches (dw_norm_kernel, gemm_kernel<false, snake or gelu>,
+# gemm_kernel<false, residual>). The bf16 variants carry their dtype in a
+# template argument (the last bool of up_fused_tc_kernel and
+# legacy_tail_kernel, the element type of up_fused_stream_kernel, the second
+# argument of gemm_bf16_kernel: its int8 B). Each device kernel counts in
+# the first family that names it.
 FAMILIES = (
     ("int8_matmul: tc_gemm int8 (3 bf16 passes)", ("gemm_kernel<true",)),
+    ("int8_matmul bf16: tc_gemm bf16, int8 tiles dequantized (1 pass)",
+     (r"gemm_bf16_kernel<[^,]*, true",)),
     ("conv_unit bf16: tc_gemm bf16 (1 pass)", ("gemm_bf16_kernel",)),
+    ("up_fused bf16 (B, T, C): tensor cores (1 bf16 pass)", (r"up_fused_tc_kernel<.*, true>",)),
+    ("up_fused_ct bf16 (B, C, T): streaming (1 bf16 pass)",
+     (r"up_fused_stream_kernel<[^,]*bfloat16",)),
+    ("legacy_tail bf16: tensor cores (1 bf16 pass)", (r"legacy_tail_kernel<\d+, \w+, true>",)),
     ("conv_unit_ct bf16: narrow fused, tensor cores (1 bf16 pass)", ("narrow_bf16_kernel",)),
     ("local_attention bf16: tensor cores (1 bf16 pass)", ("attention_bf16_kernel",)),
     ("first_block bf16: tensor cores (1 bf16 pass)", ("first_block_bf16",)),
@@ -72,14 +83,11 @@ def main() -> int:
     ap.add_argument("--int8", action="store_true",
                     help="int8 weight-only: quantize_params(model.codec) before profiling")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
-                    help="the model's dtype (bfloat16: encode only)")
+                    help="the model's dtype")
     ap.add_argument("--trace", default=None, help="write a Chrome trace to this path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_encode: CUDA is not available")
-    if args.dtype == "bfloat16" and (args.decode or args.int8):
-        raise SystemExit("profile_encode: a bf16 model encodes only (its decode and int8 are "
-                         "the next slice)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -136,7 +144,7 @@ def main() -> int:
           f"{ {k: v // REQUESTS for k, v in K.LAUNCHES.items() if v} }):")
     taken = set()
     for family, keys in FAMILIES:
-        mine = [r for r in rows if r[0] not in taken and any(k in r[0] for k in keys)]
+        mine = [r for r in rows if r[0] not in taken and any(re.search(k, r[0]) for k in keys)]
         taken.update(r[0] for r in mine)
         if mine:
             ms = sum(r[1] for r in mine)

@@ -6,8 +6,8 @@ B independent streams go through the codec over fixed-size chunks with a
 one-hop prefix (the reference's overlap), so two shapes serve the chunks of
 audio of any length and only the tails take shapes of their own. Chunks of
 different streams share a call. Batches go to the model's device and tokens
-and audio come back as numpy; the encode runs in the model's dtype (fp32 or
-bf16), the decode in fp32.
+and audio come back as numpy (audio fp32); encode and decode run in the
+model's dtype (fp32 or bf16).
 
 Unlike the JAX package's ``StreamCodec``, the encode does not zero-pad a
 first or a tail chunk to the full row length: that padding is not
@@ -47,11 +47,12 @@ class StreamCodec:
 
     @torch.inference_mode()
     def _decode(self, batch: np.ndarray) -> np.ndarray:
-        return self.model.codec.decode(self._to_device(batch)).cpu().numpy()
+        audio = self.model.codec.decode(self._to_device(batch).to(self.model.dtype))
+        return audio.float().cpu().numpy()
 
     @torch.inference_mode()
     def _decode_idx(self, batch: np.ndarray) -> np.ndarray:
-        return self.model.codec.decode_indices(self._to_device(batch)).cpu().numpy()
+        return self.model.codec.decode_indices(self._to_device(batch)).float().cpu().numpy()
 
     def _padded(self, audio) -> np.ndarray:
         a = np.asarray(audio, np.float32).reshape(-1)
@@ -159,7 +160,6 @@ class StreamCodec:
                                     self._decode_idx)
 
     def _decode_grouped(self, arrays: list[np.ndarray], lengths, fn):
-        self.model._check_decode("StreamCodec decode")
         hop = self.mc.hop_length
         tok_in = self.tok_prefix + self.tok_chunk
         n_chunks = [max(1, math.ceil(len(f) / self.tok_chunk)) for f in arrays]

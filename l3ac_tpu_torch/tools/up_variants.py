@@ -45,7 +45,7 @@ ITERS = 20
 PEAK_BYTES = 3.35e12
 
 # (name, substitutions, computes the up path)
-_STORE = "if (o < Co) *reinterpret_cast<float4*>(op) = v;"
+_STORE = "if (o < Co) st4(op, v);"
 _CONV_ONLY = (("  const bool norm = a.norm_w != nullptr;\n  float* stats",
                "  return;\n  const bool norm = a.norm_w != nullptr;\n  float* stats"),)
 TC_VARIANTS = (

@@ -151,7 +151,8 @@ def from_jax_params(tree: dict, mc: ModelConfig) -> dict[str, torch.Tensor]:
 
 
 def _to_jax_layout(name: str, t: torch.Tensor) -> np.ndarray:
-    a = t.detach().cpu().numpy()
+    t = t.detach().cpu()
+    a = (t.float() if t.dtype == torch.bfloat16 else t).numpy()  # no bf16 in numpy: exact fp32
     leaf = name.rsplit(".", 1)[-1]
     if leaf == "w_scale":
         return a.reshape(1, -1)
@@ -165,6 +166,8 @@ def _to_jax_layout(name: str, t: torch.Tensor) -> np.ndarray:
 def to_jax_params(state_dict: dict, mc: ModelConfig) -> dict:
     """The port's ``Codec`` state dict -> the JAX param tree (numpy, JAX
     layouts, no ``bias_cache`` leaves): the inverse of ``from_jax_params``.
+    bf16 tensors come back as fp32 arrays of their values (numpy has no
+    bf16), which ``astype(jnp.bfloat16)`` restores exactly.
     Strict: the state dict holds exactly the codec's keys (a quantized codec's
     when it holds ``w_q`` buffers) with their shapes."""
     expected = _expected(mc, any(k.endswith(".w_q") for k in state_dict))

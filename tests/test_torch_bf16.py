@@ -305,15 +305,52 @@ def test_bf16_model_holds_bf16_weights_and_encodes_in_bf16():
 
 
 def test_decode_on_a_bf16_model_raises_naming_the_next_slice():
+    """What this test held (a bf16 model's decode refused, naming the next
+    slice of ROADMAP A6) is done: the decode entry points run a bf16 model
+    (``tests/test_torch_bf16_decode.py``, and the test below). fp16 is still
+    refused, by ``get_model`` and by the kernels of a model moved to it."""
     m = get_model("debug", device="cpu", dtype=torch.bfloat16)
     a = np.zeros((1, m.mc.hop_length * 8), np.float32)
     q, idx = m.encode_audio(a)
-    for call in (lambda: m.decode_audio(indices=idx), lambda: m.decode_audio(audio_feature=q),
-                 lambda: m.roundtrip(a)):
-        with pytest.raises(TypeError, match="decode half"):
-            call()
+    assert m.decode_audio(indices=idx).dtype == torch.bfloat16
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         get_model("debug", device="cpu", dtype=torch.float16)
+    m.codec.to(torch.float16)
+    m.dtype = torch.float16
+    with pytest.raises(TypeError, match="float32, torch.bfloat16 only"):
+        m.decode_audio(indices=idx)
+
+
+def test_a_bf16_model_decodes_through_every_entry_point():
+    """decode_audio by indices and by features, roundtrip, decode_unit (both
+    ways) and StreamCodec's decodes on a bf16 model: bf16 audio (numpy fp32
+    where the entry point returns numpy), finite, of the right lengths."""
+    from l3ac_tpu_torch.runtime.streaming import StreamCodec
+    m = get_model("debug", device="cpu", dtype=torch.bfloat16)
+    hop = m.mc.hop_length
+    rng = np.random.default_rng(21)
+    a = (rng.standard_normal((2, hop * 30 + 7)) * 0.3).astype(np.float32)
+    q, idx = m.encode_audio(a)
+    outs = {"indices": m.decode_audio(indices=idx, audio_length=a.shape[1]),
+            "features": m.decode_audio(audio_feature=q.float().numpy(), audio_length=a.shape[1]),
+            "roundtrip": m.roundtrip(a)}
+    for name, y in outs.items():
+        assert y.dtype == torch.bfloat16 and y.shape == a.shape, name
+        assert torch.isfinite(y.float()).all(), name
+    assert torch.equal(outs["indices"], outs["features"])
+    chunk_idx, chunk_q = m.extract_unit(a[:1], process_window=hop * 12)
+    for kw in ({"chunk_indices": chunk_idx}, {"chunk_q_feature": chunk_q}):
+        y = m.decode_unit(**kw)
+        assert y.dtype == np.float32 and y.shape == (1, idx.shape[1] * hop)
+        assert np.isfinite(y).all()
+    sc = StreamCodec(m, chunk_seconds=hop * 10 / m.config.sample_rate, batch_size=2)
+    lengths = [a.shape[1], hop * 11 + 3]
+    tokens = sc.encode_streams([a[0], a[1][:lengths[1]]])
+    feats = [m.codec.quantizer.indices_to_features(torch.from_numpy(t)[None], torch.bfloat16)[0]
+             .detach().float().numpy() for t in tokens]    # numpy fp32, cast back by the codec
+    for y in (sc.decode_indices_streams(tokens, lengths), sc.decode_streams(feats, lengths)):
+        assert [o.shape for o in y] == [(n,) for n in lengths]
+        assert all(o.dtype == np.float32 and np.isfinite(o).all() for o in y)
 
 
 def test_prepared_weights_rebuilt_after_a_move_to_bf16():

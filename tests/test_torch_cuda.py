@@ -20,8 +20,13 @@ probe's own, bit-equal where the chain has no sum over channels); the bf16
 variants of the four encode kernels against their bf16 plain versions
 (within 2^-6 x max(1, max |plain|)), the widths of ROADMAP C3 against the
 fp32 plain versions (head dim 64 and 128, stem Cout up to 256, conv_unit C
-768 and 1024, tail C 4-64, the tensor-core up path at any Co up to 512),
-and the prepared-weight caches of a model moved to bf16. Needs a
+768 and 1024, tail C 4-64, the tensor-core up path at any Co up to 512, the
+streaming one at (B, C, T) Co up to 128), the prepared-weight caches of a
+model moved to bf16; the bf16 variants of the decode kernels (both up
+paths, the tail in both input modes, int8_matmul) against their bf16 plain
+versions at the released and at ragged shapes, each launching its bf16
+kernel on bf16 input (launch counts and output dtype), and a bf16 debug
+decode and bf16 int8 roundtrip against the CPU. Needs a
 CUDA device; skips without one. This file imports no JAX, so it runs on a
 machine without it:
 
@@ -446,7 +451,7 @@ def test_up_fused_route_is_a_shape_rule(dev):
             sum(before.values()) + 1, (Ci, Co, cl)
         _check(got, uf.up_fused_plain(x, w, scale=3, channel_dim=2 if cl else 1))
     K.reset_launches()
-    for Ci, Co, cl in ((1100, 100, True), (256, 513, True), (96, 96, False), (200, 48, False)):
+    for Ci, Co, cl in ((1100, 100, True), (256, 513, True), (96, 130, False), (200, 48, False)):
         w, x = _up_case(dev, Ci, Co, 20, cl)
         with pytest.raises(ValueError, match="no kernel takes"):
             (uf.up_fused if cl else uf.up_fused_ct)(x, w, scale=2)
@@ -503,7 +508,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
                            bias_table=torch.zeros(32, 2, device=dev))
     from l3ac_tpu_torch.ops.kernels import legacy_tail as lt
     from l3ac_tpu_torch.ops.kernels import up_fused as uf
-    w = uf.UpWeights(torch.zeros(96, 8, device=dev), torch.zeros(96, device=dev), None, None)
+    w = uf.UpWeights(torch.zeros(136, 8, device=dev), torch.zeros(136, device=dev), None, None)
     with pytest.raises(ValueError, match="no kernel takes"):
         uf.up_fused_ct(torch.zeros(1, 8, 10, device=dev), w, scale=2)
     tw = lt.TailWeights(*(torch.zeros(s, device=dev) for s in
@@ -547,8 +552,16 @@ def test_int8_matmul_rejects_what_the_kernel_does_not_take(dev):
     from l3ac_tpu_torch.ops.quantized import quantize_weight
     w_q, scale = quantize_weight(torch.ones(8, 16, device=dev))
     x = torch.ones(4, 16, device=dev)
-    with pytest.raises(TypeError, match="A6"):
-        im.int8_matmul(x.bfloat16(), w_q, scale)
+    with pytest.raises(TypeError, match="float32, torch.bfloat16 only"):
+        im.int8_matmul(x.half(), w_q, scale)
+    with pytest.raises(TypeError, match="bfloat16"):       # the bias in x's dtype
+        im.int8_matmul(x.bfloat16(), w_q, scale, torch.zeros(8, device=dev))
+    # bf16 x launches the bf16 kernel (no cast to the fp32 one)
+    from l3ac_tpu_torch.ops import kernels as K
+    K.reset_launches()
+    got = im.int8_matmul(x.bfloat16(), w_q, scale)
+    assert got.dtype == torch.bfloat16 and K.LAUNCHES["int8_matmul"] == 1
+    _check_bf16(got, im.int8_matmul_plain_bf16(x.bfloat16(), w_q, scale))
     with pytest.raises(ValueError, match="contiguous"):
         im.int8_matmul(torch.ones(4, 32, device=dev)[:, ::2], w_q, scale)
     with pytest.raises(ValueError, match="cuda"):
@@ -846,3 +859,158 @@ def test_prepared_weights_rebuilt_after_a_move_to_bf16(dev):
     cpu = get_model("debug", device="cpu", seed=3, dtype=torch.bfloat16)
     _, idx_c = cpu.encode_audio(audio)
     assert (idx.cpu() == idx_c).float().mean().item() >= 0.97
+
+
+# -- bf16 decode and bf16 int8; the (B, C, T) up path up to Co 128 -----------
+
+@pytest.mark.parametrize("Ci,Co,scale,split", [(12, 80, 2, False), (12, 80, 2, True),
+                                               (96, 128, 3, False), (128, 128, 4, True),
+                                               (37, 113, 3, False), (80, 65, 2, True)])
+@pytest.mark.parametrize("T", [1, 333, 1001])
+def test_up_fused_ct_streaming_kernel_to_128_channels(dev, Ci, Co, scale, split, T):
+    """The streaming kernel past Co = 64 (whole Co per block; the tile halves
+    where shared memory needs it), odd T, phase_split."""
+    from l3ac_tpu_torch.ops.kernels import up_fused as uf
+    w, x = _up_case(dev, Ci, Co, T, False)
+    before = uf.ROUTES["stream"]
+    got = uf.up_fused_ct(x, w, scale=scale, phase_split=split)
+    want = uf.up_fused_plain(x, w, scale=scale, channel_dim=1, phase_split=split)
+    assert uf.ROUTES["stream"] == before + 1
+    if split:
+        got, want = torch.stack(got), torch.stack(want)
+    _up_check(got, want)
+
+
+def _bf16_up(w, x):
+    from l3ac_tpu_torch.ops.kernels import up_fused as uf
+    return uf.UpWeights(*(None if t is None else t.bfloat16() for t in w)), x.bfloat16()
+
+
+@pytest.mark.parametrize("Ci,Co,T,scale,cl,split,norm", [
+    (512, 256, 1779, 5, True, False, True), (256, 96, 150, 3, True, False, True),
+    (130, 100, 65, 2, True, False, True), (20, 36, 301, 3, True, False, False),
+    (768, 320, 63, 5, True, False, True), (96, 48, 333, 3, False, False, True),
+    (48, 24, 1001, 2, False, True, True), (12, 80, 300, 2, False, False, True),
+    (128, 128, 129, 3, False, True, True), (16, 12, 70, 1, False, False, False),
+    (24, 72, 99, 2, True, False, True)])
+def test_up_fused_bf16_kernels(bf16_products, Ci, Co, T, scale, cl, split, norm):
+    """Both up paths' bf16 variants at the 1kbps widths and at ragged ones
+    (Ci % 8 != 0, Co not a multiple of 4 or 32, no norm), on the route the
+    shape takes; each launch counted, the output bf16."""
+    from l3ac_tpu_torch.ops import kernels as K
+    from l3ac_tpu_torch.ops.kernels import up_fused as uf
+    dev = bf16_products
+    w, x = _bf16_up(*_up_case(dev, Ci, Co, T, cl, norm=norm))
+    name = "up_fused" if cl else "up_fused_ct"
+    route = uf.route_for(Ci, Co, cl)
+    before, K.LAUNCHES[name] = dict(uf.ROUTES), 0
+    got = uf.up_fused(x, w, scale=scale) if cl else \
+        uf.up_fused_ct(x, w, scale=scale, phase_split=split)
+    want = uf.up_fused_plain_bf16(x, w, scale=scale, channel_dim=2 if cl else 1,
+                                  phase_split=split)
+    assert uf.ROUTES[route] == before[route] + 1 and K.LAUNCHES[name] == 1
+    if split:
+        got, want = torch.stack(got), torch.stack(want)
+    if cl:
+        got, want = got.transpose(1, 2), want.transpose(1, 2)
+    _check_bf16(got, want)
+    _check_bf16(torch.cat([got[..., :8], got[..., -8:]], -1),
+                torch.cat([want[..., :8], want[..., -8:]], -1))
+
+
+def _bf16_tail(dev, C, T, std):
+    from l3ac_tpu_torch.ops.kernels import legacy_tail as lt
+    w, x = _tail_case(dev, C, T, std)
+    return lt.TailWeights(*(t.bfloat16() for t in w)), x.bfloat16()
+
+
+@pytest.mark.parametrize("C,T", [(24, 3000), (24, 160110), (8, 4002), (32, 900), (64, 1000),
+                                 (20, 600)])
+@pytest.mark.parametrize("poly", [True, False])
+def test_legacy_tail_bf16_kernel(bf16_products, C, T, poly):
+    """The bf16 tail, weights at 2.5x the model's init scale (std 0.05 at C =
+    24, scaled by sqrt(24 / C)), at the 8 x 10 s row length and ragged ones;
+    the launch counted, the audio bf16."""
+    from l3ac_tpu_torch.ops import kernels as K
+    from l3ac_tpu_torch.ops.kernels import legacy_tail as lt
+    w, x = _bf16_tail(bf16_products, C, T, 0.05 * (24 / C) ** 0.5)
+    name = "legacy_tail_poly_ct" if poly else "legacy_tail_ct"
+    K.LAUNCHES[name] = 0
+    got = lt.legacy_tail_poly_ct(x[..., 0::2].contiguous(), x[..., 1::2].contiguous(), w) \
+        if poly else lt.legacy_tail_ct(x, w)
+    assert K.LAUNCHES[name] == 1
+    _check_bf16(got, lt.legacy_tail_plain_bf16(x, w))
+
+
+def test_legacy_tail_bf16_kernel_is_as_accurate_as_its_plain_version(bf16_products):
+    """At 5x init (a saturated output) one-ulp differences of intermediate
+    bf16 roundings grow, so the kernel is held to the float64 chain on the
+    same bf16 values: within 2 % of the bf16 plain version's relative L2."""
+    from l3ac_tpu_torch.ops.kernels import legacy_tail as lt
+    w, x = _bf16_tail(bf16_products, 24, 20000, 0.1)
+    exact = lt.legacy_tail_plain(x.double(), lt.TailWeights(*(t.double() for t in w)))
+    rel = lambda a: ((a.double() - exact).norm() / exact.norm()).item()
+    got = lt.legacy_tail_poly_ct(x[..., 0::2].contiguous(), x[..., 1::2].contiguous(), w)
+    assert rel(got) <= 1.02 * rel(lt.legacy_tail_plain_bf16(x, w))
+
+
+@pytest.mark.parametrize("M,K,N,bias", [(18000, 128, 576, False), (18000, 341, 128, False),
+                                        (6000, 128, 682, False), (14232, 192, 768, True),
+                                        (1, 341, 682, True), (127, 37, 15, True),
+                                        (200, 16, 7, False)])
+def test_int8_matmul_bf16_kernel(bf16_products, M, K, N, bias):
+    """The bf16 variant at the int8 path's product shapes (K = 341 and N =
+    682 ragged) and odd ones: within one bf16 ulp of its plain version almost
+    everywhere, and within 2^-6 x max(1, max |plain|)."""
+    from l3ac_tpu_torch.ops import kernels as Kn
+    from l3ac_tpu_torch.ops.kernels import int8_matmul as im
+    from l3ac_tpu_torch.ops.quantized import quantize_weight
+    dev = bf16_products
+    rng = np.random.default_rng(M + K + N)
+    w_q, scale = quantize_weight(_t(rng, (N, K), K ** -0.5, dev))
+    b = _t(rng, (N,), 0.3, dev).bfloat16() if bias else None
+    x = _t(rng, (M, K), 1.0, dev).bfloat16()
+    Kn.LAUNCHES["int8_matmul"] = 0
+    got = im.int8_matmul(x, w_q, scale, b)
+    want = im.int8_matmul_plain_bf16(x, w_q, scale, b)
+    assert Kn.LAUNCHES["int8_matmul"] == 1
+    _check_bf16(got, want)
+    ulp = want.float().abs() * 2.0 ** -7
+    assert ((got.float() - want.float()).abs() <= ulp).float().mean().item() >= 0.999
+
+
+def test_debug_bf16_decode_and_int8_roundtrip_match_cpu(dev):
+    """A bf16 debug model decodes on the card through the bf16 kernels (each
+    decode kernel launched, bf16 audio), as close to the fp32 decode as the
+    CPU's bf16 plain decode is (within 1.5x; chip_smoke.py's rule: one-ulp
+    differences early in the seeded decoder move its audio as far as bf16
+    does); the same model quantized roundtrips with int8_matmul launched,
+    indices >= 0.97 equal to the CPU's."""
+    from l3ac_tpu_torch.models.zoo import get_model
+    from l3ac_tpu_torch.ops import kernels as K
+    from l3ac_tpu_torch.ops.quantized import quantize_params
+    idx = np.random.default_rng(2).integers(0, 125, (2, 40)).astype(np.int32)
+    gpu = get_model("debug", device=dev, seed=6, dtype=torch.bfloat16)
+    cpu = get_model("debug", device="cpu", seed=6, dtype=torch.bfloat16)
+    K.reset_launches()
+    a_g = gpu.decode_audio(indices=idx)
+    torch.cuda.synchronize()
+    assert a_g.dtype == torch.bfloat16
+    assert K.LAUNCHES["legacy_tail_poly_ct"] == 1 and K.LAUNCHES["up_fused_ct"] > 0, K.LAUNCHES
+    a32 = get_model("debug", device="cpu", seed=6).decode_audio(indices=idx).double()
+    rel = lambda a, b: ((a.double() - b.double()).norm() / b.double().norm()).item()
+    vs32 = rel(a_g.cpu(), a32)
+    assert vs32 <= 0.25 and vs32 <= 1.5 * rel(cpu.decode_audio(indices=idx), a32)
+    for m in (gpu, cpu):
+        quantize_params(m.codec)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.codec.state_dict().items()})
+    audio = (np.random.default_rng(3).standard_normal((2, gpu.mc.hop_length * 40)) * 0.3
+             ).astype(np.float32)
+    K.reset_launches()
+    _, i_g = gpu.encode_audio(audio)
+    y = gpu.decode_audio(indices=i_g)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["int8_matmul"] > 0 and y.dtype == torch.bfloat16
+    assert torch.isfinite(y.float()).all()
+    _, i_c = cpu.encode_audio(audio)
+    assert (i_g.cpu() == i_c).float().mean().item() >= 0.97

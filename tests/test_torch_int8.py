@@ -33,6 +33,7 @@ from l3ac_tpu_torch.models.layers import ConvUnit
 from l3ac_tpu_torch.models.zoo import get_model
 from l3ac_tpu_torch.ops import fsq
 from l3ac_tpu_torch.ops import kernels as K
+from l3ac_tpu_torch.ops.kernels import int8_matmul as im
 from l3ac_tpu_torch.ops.kernels.int8_matmul import int8_matmul, int8_matmul_plain
 from l3ac_tpu_torch.ops.quantized import (Int8Linear, dequantize_weight, quantize_params,
                                           quantize_weight)
@@ -103,9 +104,15 @@ def test_int8_matmul_plain_matches_jax(M, K_in, N, bias):
 
 
 def test_int8_matmul_raises_on_bf16_naming_the_roadmap_item():
+    """What this test held (bf16 refused, ROADMAP A6) is done: bf16 x runs
+    the bf16 variant's plain version on the CPU; fp16 still raises."""
     wq, s = quantize_weight(torch.ones(4, 8))
-    with pytest.raises(TypeError, match="A6"):
-        int8_matmul(torch.ones(2, 8, dtype=torch.bfloat16), wq, s)
+    with pytest.raises(TypeError, match="float32, torch.bfloat16 only"):
+        int8_matmul(torch.ones(2, 8, dtype=torch.float16), wq, s)
+    x = torch.ones(2, 8, dtype=torch.bfloat16)
+    got = int8_matmul(x, wq, s)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, im.int8_matmul_plain_bf16(x, wq, s))
 
 
 def _jax_int8_names(tree) -> set:

@@ -316,9 +316,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 
 
 def test_wrappers_take_fp32_only():
-    """fp32 everywhere; bf16 only on the four encode kernels (their own tests
-    are in test_torch_bf16.py), never another dtype, and the decode-only
-    kernels refuse bf16 naming the decode half of ROADMAP A6."""
+    """fp32 and bf16 only (the bf16 variants' own tests are in
+    test_torch_bf16.py and test_torch_bf16_decode.py), never another dtype:
+    fp16 raises on every wrapper, the decode-only ones included; bf16 reaches
+    their bf16 plain versions on the CPU."""
     unit = ConvUnit(8)
     with pytest.raises(TypeError, match="float32"):
         cu.conv_unit_ct(torch.zeros(1, 8, 16, dtype=torch.float16), unit.kernel_weights())
@@ -328,8 +329,12 @@ def test_wrappers_take_fp32_only():
     q = torch.zeros(1, 1, 16, 32, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32"):
         la.local_attention(q, q, q, window_size=16)
+    uw, tw = _up_weights(_up_stage(8, 4)), _tail_weights(*_tail_params(8))
+    x = torch.zeros(1, 8, 40, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32"):
+        uf.up_fused_ct(x, uw, scale=2)
+    with pytest.raises(TypeError, match="float32"):
+        lt.legacy_tail_ct(x, tw)
     x = torch.zeros(1, 8, 40, dtype=torch.bfloat16)
-    with pytest.raises(TypeError, match="A6"):
-        uf.up_fused_ct(x, _up_weights(_up_stage(8, 4)), scale=2)
-    with pytest.raises(TypeError, match="A6"):
-        lt.legacy_tail_ct(x, _tail_weights(*_tail_params(8)))
+    assert uf.up_fused_ct(x, uf.UpWeights(*(t.bfloat16() for t in uw)), scale=2).dtype == x.dtype
+    assert lt.legacy_tail_ct(x, lt.TailWeights(*(t.bfloat16() for t in tw))).dtype == x.dtype

@@ -3,7 +3,8 @@ on the CPU.
 
 - For each override of ``debug`` that reaches a width the kernels did not
   take before (head dim 64 and 128, tail C 32 and 20, stem Cout 128, a
-  conv unit at C = 768 with up paths 768 -> 320 -> 80 -> 24), the model's
+  conv unit at C = 768 with up paths 768 -> 320 -> 80 -> 24, a (B, C, T) up
+  path 12 -> 80, the streaming kernel's Co above 64), the model's
   encode and decode run on the CPU with every kernel wrapper watched, and
   each shape a wrapper was handed is held to that wrapper's admission rule,
   the function its launch calls before it launches (``conv_unit.admits``,
@@ -11,7 +12,8 @@ on the CPU.
   ``up_fused.route_for``, ``legacy_tail.admits``). So the card takes every
   shape the model hands it at these widths.
 - The port's plain encode and decode against the JAX package's jnp path at
-  ``{"feature_dim": 256}`` (head dim 64): indices equal, audio within 1e-4.
+  ``{"feature_dim": 256}`` (head dim 64) and ``{"decoder_dims": (16, 12, 80,
+  24)}``: indices equal, audio within 1e-4.
 
 The kernels themselves run these widths on the card in ``chip_smoke.py``'s
 C3 phase and ``tests/test_torch_cuda.py``.
@@ -43,6 +45,7 @@ OVERRIDES = (
     {"decoder_dims": (16, 12, 8, 20)},         # tail C = 20
     {"encoder_dims": (128, 12, 16)},           # stem Cout = 128
     {"decoder_dims": (768, 320, 80, 24)},      # conv_unit C = 768; up 768 -> 320 -> 80 -> 24
+    {"decoder_dims": (16, 12, 80, 24)},        # a (B, C, T) up path 12 -> 80
 )
 
 
@@ -121,6 +124,24 @@ def test_plain_path_at_head_dim_64_matches_jnp():
     m = get_model("debug", device="cpu", network_config={"feature_dim": 256})
     m.load_state_dict(weights.from_jax_params(p, mc))
     rng = np.random.default_rng(1000)
+    audio = (rng.standard_normal((2, mc.hop_length * 60)) * 0.3).astype(np.float32)
+    _, j_idx = jax.jit(lambda p, a: jcodec.encode(p, a, mc))(p, audio)
+    j_audio = jax.jit(lambda p, i: jcodec.decode_indices(p, i, mc))(p, j_idx)
+    _, idx = m.encode_audio(audio)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(j_idx))
+    y = m.decode_audio(indices=idx)
+    np.testing.assert_allclose(y.numpy(), np.asarray(j_audio), rtol=0, atol=1e-4)
+
+
+def test_plain_path_at_up_width_80_matches_jnp():
+    """``{"decoder_dims": (16, 12, 80, 24)}`` (a (B, C, T) up path 12 -> 80):
+    the port's plain encode and decode against the JAX package's jnp path on
+    the port's seeded weights (carried to JAX by ``weights.to_jax_params``)."""
+    net = {"decoder_dims": (16, 12, 80, 24)}
+    mc = jax_config("debug", network_config=net).network_config
+    m = get_model("debug", device="cpu", seed=3, network_config=net)
+    p = jax.tree.map(jax.numpy.asarray, weights.to_jax_params(m.codec.state_dict(), mc))
+    rng = np.random.default_rng(1001)
     audio = (rng.standard_normal((2, mc.hop_length * 60)) * 0.3).astype(np.float32)
     _, j_idx = jax.jit(lambda p, a: jcodec.encode(p, a, mc))(p, audio)
     j_audio = jax.jit(lambda p, i: jcodec.decode_indices(p, i, mc))(p, j_idx)

@@ -271,7 +271,10 @@ def test_route_is_a_shape_rule():
     assert uf.route_for(512, 100, True) == "tc"          # Ci > 128, Co % 32 != 0: Co padded
     assert uf.route_for(1025, 100, True) is None and uf.route_for(512, 513, True) is None
     assert uf.route_for(96, 61, False) == uf.route_for(128, 60, True) == "stream"
-    assert uf.route_for(96, 65, False) is None and uf.route_for(129, 48, False) is None
+    # the streaming kernel takes (B, C, T) outputs up to 128 wide
+    assert uf.route_for(96, 65, False) == uf.route_for(12, 80, False) == "stream"
+    assert uf.route_for(128, 128, False) == "stream"
+    assert uf.route_for(96, 129, False) is None and uf.route_for(129, 48, False) is None
 
 
 def test_prepare_up_lays_the_weights_out_as_the_kernels_read_them():
