@@ -16,11 +16,14 @@
 // GEGLU widths (K = 341, N = 682) take 4-byte copies of x and byte loads of
 // w_q with zero fill at the edges.
 // bf16 x (l3ac_int8_matmul_bf16): the rounding of the TPU kernel (:37-40),
-// y = bf16(x . bf16(q s)^T + bf16(b)) with fp32 sums: each int8 tile is
-// dequantized to bf16(fp32(q) s) as it goes into shared memory (the scale
-// in the tile load, not the epilogue), and one bf16 pass (mma.sync
-// m16n8k16) runs on tc_gemm.cuh's bf16 GEMM. Bound: 2 M K N operations
-// against 2 M (K + N) + K N bytes.
+// y = bf16(x . bf16(q s)^T + bf16(b)) with fp32 sums, on the wgmma core
+// (gemm_sm90.cuh, Int8Config): TMA stages each int8 tile, the producer's
+// warps widen it to bf16(fp32(q) s) in the swizzled B stage (the scale in
+// the tile, not the epilogue), one accumulator runs across K. The weight
+// stays int8 in device memory. Shapes TMA cannot take (K % 16 != 0, as the
+// GEGLU w2 at K = 341) take the core's cp.async route. Bound: 2 M K N
+// operations against 2 M (K + N) + K N bytes.
+#include "gemm_sm90.cuh"
 #include "tc_gemm.cuh"
 
 namespace {
@@ -55,24 +58,23 @@ extern "C" int l3ac_int8_matmul(const float* x, const signed char* w_q, const fl
   return vec_a ? launch<true>(p, vec_b, s) : launch<false>(p, vec_b, s);
 }
 
-// x: (M, K) bf16; w_q: (N, K) int8; scale: (N) fp32; bias: (N) bf16 or null;
-// out: (M, N) bf16. All contiguous, out not aliasing x. Returns the CUDA
-// error code.
+// x: (M, K) bf16; w_q: (N, K) int8, w_map its tensor map
+// (l3ac_sm90_weight_map) or null; scale: (N) fp32; bias: (N) bf16 or null;
+// out: (M, N) bf16; route 0 TMA, 1 cp.async (gemm_sm90.py:route_for). All
+// contiguous, out not aliasing x. Returns the CUDA error code.
 extern "C" int l3ac_int8_matmul_bf16(const __nv_bfloat16* x, const signed char* w_q,
-                                     const float* scale, const __nv_bfloat16* bias,
-                                     __nv_bfloat16* out, int M, int N, int K, void* stream) {
-  using l3ac::tc::launch_gemm_int8_bf16;
-  l3ac::tc::ParamsBf16 p{};
+                                     const void* w_map, const float* scale,
+                                     const __nv_bfloat16* bias, __nv_bfloat16* out, int M, int N,
+                                     int K, int route, void* stream) {
+  namespace sm90 = l3ac::sm90;
+  if (route != 0 && route != 1) return cudaErrorInvalidValue;
+  sm90::Params p{};
   p.a = x;
   p.b_q = w_q;
   p.scale = scale;
   p.bias16 = bias;
   p.out = out;
   p.M = M, p.N = N, p.K = K;
-  const bool vec_a = K % 8 == 0 && l3ac::tc::aligned(x, 16);
-  const bool vec_b = K % 4 == 0 && l3ac::tc::aligned(w_q, 4);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec_a)
-    return vec_b ? launch_gemm_int8_bf16<true, true>(p, s) : launch_gemm_int8_bf16<true, false>(p, s);
-  return vec_b ? launch_gemm_int8_bf16<false, true>(p, s) : launch_gemm_int8_bf16<false, false>(p, s);
+  return sm90::launch<sm90::Int8Config, sm90::Epi::kBias>(p, static_cast<sm90::Route>(route), w_map,
+                                                         true, static_cast<cudaStream_t>(stream));
 }

@@ -26,10 +26,15 @@ route and C <= ``MAX_C`` (512) on the SIMT route; ``conv_unit_ct`` C <=
 for a walk of a model.
 
 bf16 (the encode half of ROADMAP A6): both wrappers take bf16 x with a bf16
-unit. ``conv_unit_ct`` runs ``csrc/conv_unit_narrow_bf16.cu`` and
-``conv_unit`` the bf16 path of ``csrc/conv_unit_tc.cu`` (C % 8 == 0, so
-``debug``'s 16 too; another C raises on the card), each product one bf16
-tensor-core pass (mma.sync m16n8k16) with fp32 sums. They round where
+unit. ``conv_unit_ct`` runs ``csrc/conv_unit_narrow_bf16.cu`` (each product
+one bf16 mma.sync pass) and ``conv_unit`` the bf16 path of
+``csrc/conv_unit_tc.cu`` (C % 8 == 0, so ``debug``'s 16 too; another C
+raises on the card): a depthwise conv + norm pass that stages its time rows
+and halo in shared memory, then both products on the wgmma core
+(``csrc/gemm_sm90.cuh``, ``ops/kernels/gemm_sm90.py``: TMA ring, producer
+warp, fp32 sums in one accumulator across K), each product's route from
+``gemm_sm90.route_for`` and W1's / W2''s tensor maps from
+``gemm_sm90.weight_map`` (built once, cached on the prepared weights). They round where
 ``l3ac_tpu/ops/pallas/conv_unit.py`` does: the depthwise conv, the norm and
 the activation in fp32; pw1's operand rounded to bf16 (:126), the hidden
 activation rounded to bf16 (:136), the residual added in fp32 and the sum
@@ -70,7 +75,7 @@ import torch.nn.functional as F
 from .. import kernels as K
 from ..activations import gelu, snake
 from ..norms import channel_norm, grn
-from . import _build
+from . import _build, gemm_sm90
 from .tc_gemm import split_tf32
 
 MAX_C = 512        # conv_unit, SIMT route: conv_unit.cu's accumulators and shared memory
@@ -208,8 +213,10 @@ _PREPARED: dict[int, tuple] = {}
 
 
 def cached_prepare(owner: torch.Tensor, src: tuple[torch.Tensor, ...],
-                   build: Callable[[], PreparedWeights]) -> PreparedWeights:
-    """``build()``, cached under ``owner`` and rebuilt whenever a tensor of
+                   build: Callable[[], PreparedWeights], store: dict | None = None
+                   ) -> PreparedWeights:
+    """``build()``, cached under ``owner`` in ``store`` (default: the
+    prepared weights' own dict) and rebuilt whenever a tensor of
     ``src`` is another object or has changed in place (``load_state_dict``,
     ``mul_``, ...: each bumps its ``_version``) or has another dtype (a model
     moved with ``.to(torch.bfloat16)``), so no stale weight is used.
@@ -218,15 +225,16 @@ def cached_prepare(owner: torch.Tensor, src: tuple[torch.Tensor, ...],
     never cached."""
     if any(t.is_inference() for t in src):
         return build()
+    store = _PREPARED if store is None else store
     key = tuple((t.data_ptr(), t._version, t.dtype) for t in src)
     slot = id(owner)
-    hit = _PREPARED.get(slot)
+    hit = store.get(slot)
     if hit is not None and hit[0] == key and all(r() is t for r, t in zip(hit[1], src)):
         return hit[2]
     prep = build()
     if hit is None:
-        weakref.finalize(owner, _PREPARED.pop, slot, None)
-    _PREPARED[slot] = (key, tuple(weakref.ref(t) for t in src), prep)
+        weakref.finalize(owner, store.pop, slot, None)
+    store[slot] = (key, tuple(weakref.ref(t) for t in src), prep)
     return prep
 
 
@@ -356,7 +364,7 @@ def _launch_narrow(x: torch.Tensor, w: ConvUnitWeights, p: PreparedWeights,
 
 
 _BF16_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_TC_BF16_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_TC_BF16_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def _check_bf16(x: torch.Tensor, p: PreparedBf16, C: int, name: str) -> int:
@@ -388,11 +396,27 @@ def _launch_bf16(x: torch.Tensor, p: PreparedBf16, dilation: int, *,
            p.w1.data_ptr(), p.b1.data_ptr(), _build.ptr(p.alpha), p.w2.data_ptr(),
            p.b2.data_ptr())
     if channels_last:
-        a = torch.empty(B * T, C, device=x.device, dtype=torch.bfloat16)
-        h = torch.empty(B * T, 4 * C, device=x.device, dtype=torch.bfloat16)
+        if x.data_ptr() % 16:
+            raise ValueError("conv_unit: bf16 x must be 16-byte aligned")
+        M = B * T
+        a = torch.empty(M, C, device=x.device, dtype=torch.bfloat16)
+        h = torch.empty(M, 4 * C, device=x.device, dtype=torch.bfloat16)
+        r1 = gemm_sm90.route_for(M, 4 * C, C, int8=False, a_ptr=a.data_ptr(),
+                                 b_ptr=p.w1.data_ptr())
+        r2 = gemm_sm90.route_for(M, C, 4 * C, int8=False, a_ptr=h.data_ptr(),
+                                 b_ptr=p.w2.data_ptr())
+        # the maps stay referenced until the launch has copied them
+        maps = [gemm_sm90.weight_map(w) if r == "tma" else None
+                for w, r in ((p.w1, r1), (p.w2, r2))]
         fn = _build.function("l3ac_conv_unit_tc_bf16", _TC_BF16_ARGTYPES)
-        err = fn(x.data_ptr(), out.data_ptr(), a.data_ptr(), h.data_ptr(), *vec,
-                 B, T, C, ksz, dilation, _build.stream_ptr())
+        err = fn(x.data_ptr(), out.data_ptr(), a.data_ptr(), h.data_ptr(), *vec[:5],
+                 gemm_sm90.map_ptr(maps[0]), *vec[5:8], gemm_sm90.map_ptr(maps[1]), vec[8],
+                 B, T, C, ksz, dilation, gemm_sm90.ROUTE_CODE[r1], gemm_sm90.ROUTE_CODE[r2],
+                 _build.stream_ptr())
+        _build.check(err, name)
+        gemm_sm90.ROUTES[r1] += 1
+        gemm_sm90.ROUTES[r2] += 1
+        return out
     else:
         fn = _build.function("l3ac_conv_unit_narrow_bf16", _BF16_ARGTYPES)
         err = fn(x.data_ptr(), out.data_ptr(), *vec, B, C, T, ksz, dilation,

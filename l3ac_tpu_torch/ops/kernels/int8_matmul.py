@@ -19,10 +19,14 @@ M; here each block computes a 128 x 128 output tile, streaming K in steps of
 Device memory sees only the 1-byte weight.
 
 bf16 x (the bf16 model's layers): ``l3ac_int8_matmul_bf16``, the TPU
-kernel's rounding (``int8_matmul.py:37-40``): each int8 tile is dequantized
-to ``bf16(fp32(q) * scale)`` as it goes into shared memory, one bf16
-tensor-core pass sums in fp32, ``bf16(b)`` is added in fp32 and the output
-rounded to bf16 once. The bias is the layer's bf16 bias. The plain version
+kernel's rounding (``int8_matmul.py:37-40``), on the wgmma core
+(``csrc/gemm_sm90.cuh``): TMA stages each int8 tile and the producer's
+warps dequantize it to ``bf16(fp32(q) * scale)`` in shared memory, wgmma
+sums in fp32 in one accumulator across K, ``bf16(b)`` is added in fp32 and
+the output rounded to bf16 once. The weight stays int8 in device memory;
+its tensor map is built once (``gemm_sm90.weight_map``). Shapes TMA cannot
+take (K % 16 != 0: the GEGLU w2 at K = 341) run the core's cp.async route
+(``gemm_sm90.route_for``). The bias is the layer's bf16 bias. The plain version
 (:func:`int8_matmul_plain_bf16`) rounds at the same points, so the two
 differ only by the order of the fp32 sums.
 """
@@ -34,7 +38,7 @@ import ctypes
 import torch
 
 from .. import kernels as K
-from . import _build
+from . import _build, gemm_sm90
 
 
 def dequantize_weight(w_q: torch.Tensor, scale: torch.Tensor,
@@ -63,6 +67,7 @@ def int8_matmul_plain_bf16(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tens
 
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_BF16_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def _launch(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
@@ -79,11 +84,20 @@ def _launch(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
     K.check_cuda({"scale": scale}, x.device)
     M = x.numel() // Kd
     out = torch.empty(*x.shape[:-1], N, device=x.device, dtype=x.dtype)
-    fn = _build.function("l3ac_int8_matmul_bf16" if x.dtype == torch.bfloat16
-                         else "l3ac_int8_matmul", _ARGTYPES)
-    err = fn(x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), _build.ptr(b),
-             out.data_ptr(), M, N, Kd, _build.stream_ptr())
-    _build.check(err, "int8_matmul")
+    if x.dtype == torch.bfloat16:
+        route = gemm_sm90.route_for(M, N, Kd, int8=True, a_ptr=x.data_ptr(),
+                                    b_ptr=w_q.data_ptr())
+        wmap = gemm_sm90.weight_map(w_q) if route == "tma" else None  # alive across the launch
+        fn = _build.function("l3ac_int8_matmul_bf16", _BF16_ARGTYPES)
+        err = fn(x.data_ptr(), w_q.data_ptr(), gemm_sm90.map_ptr(wmap), scale.data_ptr(), _build.ptr(b),
+                 out.data_ptr(), M, N, Kd, gemm_sm90.ROUTE_CODE[route], _build.stream_ptr())
+        _build.check(err, "int8_matmul")
+        gemm_sm90.ROUTES[route] += 1
+    else:
+        fn = _build.function("l3ac_int8_matmul", _ARGTYPES)
+        err = fn(x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), _build.ptr(b),
+                 out.data_ptr(), M, N, Kd, _build.stream_ptr())
+        _build.check(err, "int8_matmul")
     K.LAUNCHES["int8_matmul"] += 1
     return out
 

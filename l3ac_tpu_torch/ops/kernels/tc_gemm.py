@@ -17,6 +17,11 @@ passes:
 Each K step of 32 sums into a fresh accumulator, which is added to the fp32
 total with an ordinary rounded add: the tensor core's own fp32 adds truncate,
 and a chain of hundreds of them drifts toward zero.
+
+The bf16 core (``csrc/gemm_sm90.cuh``, wgmma) needs no such rule: its
+output is bf16, whose ulp (2^-8 relative) is far above the drift of one fp32
+accumulator across the whole of K (about 2^-24 a k16 step, 2^-17 at K =
+2048). :func:`gemm_bf16_emulated` models that scheme.
 """
 
 from __future__ import annotations
@@ -93,3 +98,25 @@ def gemm_emulated(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor | None =
     if int8:
         total = (total.double() * scale.double()).float()
     return total if bias is None else total + bias
+
+
+def gemm_bf16_emulated(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor | None = None,
+                       bias: torch.Tensor | None = None) -> torch.Tensor:
+    """The wgmma core's fp32 ``a @ b.T`` (+ bias) before its output rounding:
+    a (M, K) bf16; b (N, K) bf16, or int8 with ``scale`` (N,) fp32, each
+    weight dequantized first to ``bf16(fp32(q) * scale)``. One fp32
+    accumulator across the whole of K: each k16 step's products (exact here,
+    as bf16 x bf16 is exact in fp32) added in fp32 toward zero; then the
+    fp32 bias. Returns fp32."""
+    if (b.dtype == torch.int8) != (scale is not None):
+        raise ValueError("gemm_bf16_emulated: an int8 b goes with a scale, a bf16 b without")
+    if scale is not None:
+        b = (b.float() * scale.float()[:, None]).bfloat16()
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise TypeError("gemm_bf16_emulated: bf16 operands only")
+    x, w = a.double(), b.double()
+    acc = torch.zeros(a.shape[0], b.shape[0], dtype=torch.float32)
+    step = MMA_K["bf16"]
+    for k in range(0, a.shape[1], step):
+        acc = _add_rz(acc, x[:, k:k + step] @ w[:, k:k + step].T)
+    return acc if bias is None else acc + bias.float()

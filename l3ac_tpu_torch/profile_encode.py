@@ -37,16 +37,18 @@ REQUESTS = 3
 # (family, patterns searched for in the device kernel names): the CUDA
 # kernels behind each wrapper; one conv_unit call on the tensor-core path is
 # three launches (dw_norm_kernel, gemm_kernel<false, snake or gelu>,
-# gemm_kernel<false, residual>). The bf16 variants carry their dtype in a
-# template argument (the last bool of up_fused_tc_kernel and
-# legacy_tail_kernel, the element type of up_fused_stream_kernel, the second
-# argument of gemm_bf16_kernel: its int8 B). Each device kernel counts in
-# the first family that names it.
+# gemm_kernel<false, residual>); its bf16 call is dw_norm_bf16_kernel and two
+# launches of the wgmma core (sm90::gemm_kernel, whose Config ends in the
+# int8 flag). The other bf16 variants carry their dtype in a template
+# argument (the last bool of up_fused_tc_kernel and legacy_tail_kernel, the
+# element type of up_fused_stream_kernel). Each device kernel counts in the
+# first family that names it.
 FAMILIES = (
     ("int8_matmul: tc_gemm int8 (3 bf16 passes)", ("gemm_kernel<true",)),
-    ("int8_matmul bf16: tc_gemm bf16, int8 tiles dequantized (1 pass)",
-     (r"gemm_bf16_kernel<[^,]*, true",)),
-    ("conv_unit bf16: tc_gemm bf16 (1 pass)", ("gemm_bf16_kernel",)),
+    ("int8_matmul bf16: wgmma core, int8 tiles widened in shared memory",
+     (r"sm90::gemm_kernel<l3ac::sm90::Config<\d+, \d+, \w+, true[,>]",)),
+    ("conv_unit bf16: wgmma core (pw1, pw2)", ("sm90::gemm_kernel",)),
+    ("conv_unit bf16: dw conv + ChannelNorm", ("dw_norm_bf16_kernel",)),
     ("up_fused bf16 (B, T, C): tensor cores (1 bf16 pass)", (r"up_fused_tc_kernel<.*, true>",)),
     ("up_fused_ct bf16 (B, C, T): streaming (1 bf16 pass)",
      (r"up_fused_stream_kernel<[^,]*bfloat16",)),
@@ -55,7 +57,7 @@ FAMILIES = (
     ("local_attention bf16: tensor cores (1 bf16 pass)", ("attention_bf16_kernel",)),
     ("first_block bf16: tensor cores (1 bf16 pass)", ("first_block_bf16",)),
     ("conv_unit (C % 64 == 0): tc_gemm fp32 (3xTF32)", ("gemm_kernel<false",)),
-    ("conv_unit (C % 64 == 0): dw conv + ChannelNorm (fp32 or bf16)", ("dw_norm_kernel",)),
+    ("conv_unit (C % 64 == 0): dw conv + ChannelNorm", ("dw_norm_kernel",)),
     ("conv_unit_ct: narrow fused, tensor cores (3xTF32)", ("narrow_kernel",)),
     ("conv_unit (C % 64 != 0): SIMT", ("conv_unit_kernel",)),
     ("local_attention: tensor cores (3xTF32)", ("attention_kernel",)),
