@@ -1,5 +1,6 @@
 // Residual ConvUnit on bf16 (B, C, T) for C <= 96, fused, both products one
-// bf16 tensor-core pass: the bf16 variant of conv_unit_narrow.cu.
+// bf16 tensor-core pass: the bf16 variant of conv_unit_narrow.cu, designed
+// for the H100.
 //
 // Replaces l3ac_tpu/ops/pallas/conv_unit.py:conv_unit_ct (body _kernel_t) on
 // bf16 activations at the encoder's channels-first widths (24, 48, 96; debug's
@@ -9,29 +10,52 @@
 //   -> bf16 -> pw1 C->4C (fp32 sums) + b1 -> snake (or exact GELU) in fp32
 //   -> bf16 -> pw2 4C->C with GRN folded (W2' bf16, fp32 sums) + b2'
 //   -> + x in fp32 -> bf16.
-// Vectors (dw, dw bias, norm, b1, alpha, b2') arrive in fp32, W1 and W2' in
-// bf16, prepared once per weight set by ops/kernels/conv_unit.py.
+// Its operands come in one buffer prepared once per weight set
+// (ops/kernels/conv_unit.py:narrow_pack): W1 and W2' in bf16, already in the
+// mma B-fragment order of each lane; per hidden unit b1, alpha, alpha + eps
+// and its correctly rounded reciprocal; the depthwise taps (K, Cp), dw bias,
+// norm weight and bias and b2' in fp32.
 //
-// Bound on the H100: 16 C^2 operations per column against 4 C bytes; at the
-// bf16 tensor-core rate (989 TFLOP/s) that is below the bytes bound up to
-// C = 96, so the kernel is bound by its bytes and its SIMT work (the exact
-// snake on 4C values per column, the depthwise conv, the norm).
+// Bound on the H100: 16 C^2 operations per column on the tensor cores
+// against 4 C bytes moved, and 4 C snakes per column on the fp32 pipe. Per
+// 8 x 10 s decode the bytes take 0.10 ms at 3.35 TB/s, the products 0.09
+// at the bf16 rate, and the snakes 0.18 (21 instructions each as sin2_ilp
+// runs them, at the SMs' issue rate of one warp instruction per scheduler
+// per clock), 0.22 with the taps, the norm and the adds (chip_smoke.py
+// snake_bound_ms).
+// The former design ran at 3.71 ms: the library sine and IEEE division were
+// 1.65 of it, x in and out by 2-byte loads 0.70 (tools/narrow_variants.py
+// --bf16). This one runs at 1.19 ms (0.64 encode), where the same tool puts
+// the snake at 0.41 (its sines 0.33), the products about 0.3, the depthwise
+// taps 0.2, the norm 0.06 and x in and out 0.20 (PERF.md §6): the SMs' fp32
+// issue of the snake, then the mma.sync products, bound it.
 //
-// Design: the structure of conv_unit_stages.cu's full mode (the bisection
-// probe of this chain) with the codec's unit in it: one block per (batch
-// row, kS = 128 time columns), 8 warps of 16 rows, time as the M axis.
-//   1. x and its halo (rounded up to 16-byte pieces) staged by cp.async
-//      (16-byte pieces where T % 8 == 0, else 2-byte loads; zero outside
-//      [0, T)); the depthwise conv of each (channel, column) in fp32 into an
-//      fp32 (C, kS) tile; ChannelNorm's moments per column in fp32 (two
-//      passes), the tile normalized, then rounded to bf16 and transposed into
-//      pw1's (kS, C) K-major A operand, zero-filled to k16 steps.
-//   2. The 4C hidden units in chunks of 32; W1's rows and W2''s columns of a
-//      chunk through a 2-stage cp.async ring; per warp pw1 (m16n8k16), b1
-//      and the activation in fp32, the chunk rounded to bf16 into the warp's
-//      own buffer, and pw2 of the chunk added into its (16, C) sums.
-//   3. b2' is added and the tile goes through shared memory, transposed
-//      back; out = bf16(x + y), x read again from device memory.
+// Design:
+//   - A persistent grid: each block (8 warps, 128 time columns a tile, 16 a
+//     warp as the M axis of both products) stages the whole prepared buffer
+//     in shared memory once (W1 and W2' are 16 C^2 bytes: 147 KB at C = 96)
+//     and walks tiles of (batch row, 128 columns).
+//   - x is staged channel-major with its halo, rounded out to the aligned
+//     16-byte pieces that hold it (cp.async, zero past the tensor's ends;
+//     a row starts at its own offset o_c in [0, 8), so any T works), two
+//     stages: the next tile's x lands while this one computes. Positions
+//     outside [0, T) are zeroed on the edge tiles. Where a halo is too wide
+//     for two stages beside the weights, the stage holds what fits and the
+//     outer taps read device memory (a warp-uniform choice per tap).
+//   - Each warp computes the depthwise conv of its 16 columns straight into
+//     pw1's A-fragment layout in registers (lane (g, t): rows g, g + 8 and
+//     channels 2t, 2t + 1, 2t + 8, 2t + 9 of each k16 step), ChannelNorm's
+//     moments by quad shuffles, no fp32 tile and no transpose.
+//   - The 4C hidden units in steps of 32: pw1 (m16n8k16, B fragments one
+//     16-byte shared-memory load per two n8 tiles), + b1 and the snake
+//     (sin2_ilp and a Newton quotient on the prepared reciprocal, 16 values
+//     at once: no branch per value) in fp32, rounded into pw2's A fragments
+//     in registers (h never leaves them), pw2 into the (16, C) sums. No
+//     block barrier inside the walk.
+//   - The residual x is read from the staged tile, out = bf16(x + y) written
+//     over it in place, and the tile's columns stored as 16-byte pieces.
+// Three block barriers a tile (stage landed; all depthwise reads done before
+// the stage is overwritten; the output complete before it is stored).
 #include "common.cuh"
 #include "ptx.cuh"
 
@@ -42,326 +66,380 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kS = 16 * kWarps;  // columns per block: one m16 tile per warp
-constexpr int kNC = 32;          // hidden units per chunk: one K step of pw2
-constexpr int kStages = 2;       // weight-chunk ring
-constexpr int kHS = kNC + 8;     // bf16 row stride of a hidden chunk and of W2''s tile
-constexpr int kACS = kS + 4;     // fp32 row stride of the activation tile
+constexpr int kS = 16 * kWarps;  // columns per tile: one m16 slab per warp
+constexpr int kStep = 32;        // hidden units per step: two k16 steps of pw2
 constexpr int kMaxC = 96;
+constexpr int kSmemMax = 227 * 1024;
 constexpr float kNormEps = 1e-8f;
 
 struct Args {
   const bf16* x;
   bf16* out;
-  const float* dw;      // (C, K)
-  const float* dw_b;    // (C)
-  const float* norm_w;  // (C) or null
-  const float* norm_b;
-  const bf16* w1;       // (4C, C)
-  const float* b1;      // (4C)
-  const float* alpha;   // (4C) or null: exact GELU
-  const bf16* w2;       // (C, 4C) pw2 with GRN folded
-  const float* b2;      // (C)
-  int C, T, K, dil;
-  int vec;              // T % 8 == 0, x and out 16-byte aligned
-  int wvec;             // C % 8 == 0, W1 and W2' 16-byte aligned
+  const uint4* pk;   // narrow_pack's buffer
+  int B, C, T, K, dil;
+  int norm, snake;   // ChannelNorm present; snake (else exact GELU)
+  int steps;         // hidden steps of 32: ceil(4C / 32)
+  int halo, sp;      // the conv's halo; the staged halo (a multiple of 8, <= round8(halo))
+  int xw, rs;        // staged columns kS + 2 sp; a stage row's stride, xw + 8
+  int fast;          // x and out 16-byte aligned: cp.async staging, 16-byte stores
 };
 
-// shared-memory regions, in bytes
-struct Geometry {
-  int halo, pad;  // the conv's halo; the staged halo, rounded up to 8 columns
-  int xw;         // staged columns: kS + 2 pad
-  int kp;         // K of pw1 zero-filled to k16 steps
-  int as;         // bf16 row stride of the A tile and of W1's tile: kp + 8
-  int acc, a, w1, w2, stage, hb, xs, total;
-  __host__ __device__ Geometry(int C, int K, int dil, int pairs) {
-    halo = (K - 1) * dil / 2;
-    pad = (halo + 7) / 8 * 8;
-    xw = kS + 2 * pad;
-    kp = (C + 15) / 16 * 16;
-    as = kp + 8;
-    acc = 4 * C * kACS;
-    a = 2 * kS * as;
-    w1 = 2 * kNC * as;
-    w2 = 2 * 16 * pairs * kHS;
-    stage = w1 + w2;
-    hb = 2 * kWarps * 16 * kHS;
-    xs = 2 * C * xw;
-    const int run = a + kStages * stage + hb;  // the staged x is dead before these
-    total = acc + (run > xs ? run : xs);
+// The prepared buffer's regions in 16-byte units, as narrow_pack lays them
+// out: W1 fragments, W2' fragments, hidden-unit vectors, the fp32 vectors.
+struct Packed {
+  int w1, w2, hv, cv, total;
+  __host__ __device__ Packed(int kP, int steps, int K) {
+    w1 = 0;
+    w2 = steps * 2 * kP * 32;
+    hv = 2 * w2;
+    cv = hv + steps * kStep;
+    total = cv + (K + 4) * 16 * kP / 4;
   }
 };
 
-// kNT >= ceil(C / 8) n8 tiles of pw2 (an even count)
-template <int kNT>
-__global__ void __launch_bounds__(kThreads, kNT <= 6 ? 2 : 1) narrow_bf16_kernel(const Args a) {
-  constexpr int kPairs = kNT / 2;
-  extern __shared__ __align__(16) float smem[];
-  const int C = a.C, T = a.T, C4 = 4 * C, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int t0 = blockIdx.x * kS, nt2 = (C + 7) / 8;
-  const Geometry L(C, a.K, a.dil, kPairs);
-  char* sm = reinterpret_cast<char*>(smem);
-  float* acc = reinterpret_cast<float*>(sm);                 // (C, kACS)
-  bf16* xs = reinterpret_cast<bf16*>(sm + L.acc);            // (C, xw), before the products
-  bf16* sa = reinterpret_cast<bf16*>(sm + L.acc);            // (kS, as)
-  char* ring = sm + L.acc + L.a;
-  bf16* hb = reinterpret_cast<bf16*>(ring + kStages * L.stage) + warp * 16 * kHS;
-  const long long base = static_cast<long long>(blockIdx.y) * C * T;
-  const bf16* xb = a.x + base;
-  const int chunks = (C4 + kNC - 1) / kNC;
+inline int stage_bytes(int C, int rs) { return 2 * 2 * C * rs; }
 
-  // 1. x columns [t0 - pad, t0 + kS + pad), zero outside [0, T)
-  if (a.vec) {
-    for (int e = tid; e < C * (L.xw / 8); e += kThreads) {
-      const int c = e / (L.xw / 8), p = e - c * (L.xw / 8), t = t0 - L.pad + 8 * p;
-      const bool ok = t >= 0 && t < T;
-      ptx::cp_async16(xs + c * L.xw + 8 * p, ok ? xb + static_cast<long long>(c) * T + t : a.x,
-                      ok ? 16 : 0);
-    }
-    ptx::cp_async_commit();
-    ptx::cp_async_wait<0>();
-  } else {
-    for (int e = tid; e < C * L.xw; e += kThreads) {
-      const int c = e / L.xw, i = e - c * L.xw, t = t0 - L.pad + i;
-      xs[c * L.xw + i] = (t >= 0 && t < T) ? xb[static_cast<long long>(c) * T + t]
-                                           : __float2bfloat16_rn(0.0f);
-    }
-  }
-  __syncthreads();
-  // the depthwise conv in fp32, taps in order from the bias
-  for (int e = tid; e < C * kS; e += kThreads) {
-    const int c = e / kS, j = e - c * kS;
-    const bf16* xr = xs + c * L.xw + L.pad - L.halo + j;
-    const float* wr = a.dw + c * a.K;
-    float v = a.dw_b[c];
-    for (int k = 0; k < a.K; ++k) v += __bfloat162float(xr[k * a.dil]) * wr[k];
-    acc[c * kACS + j] = v;
-  }
-  __syncthreads();
-  if (a.norm_w != nullptr) {  // ChannelNorm per column, fp32
-    float* mom = reinterpret_cast<float*>(sm + L.acc + L.xs);  // past the staged x
-    if (tid < kS) {
-      float s = 0.0f;
-      for (int c = 0; c < C; ++c) s += acc[c * kACS + tid];
-      const float u = s / C;
-      float v = 0.0f;
-      for (int c = 0; c < C; ++c) {
-        const float d = acc[c * kACS + tid] - u;
-        v += d * d;
-      }
-      mom[tid] = u;
-      mom[kS + tid] = sqrtf(v / C + kNormEps);
-    }
-    __syncthreads();
-    for (int e = tid; e < C * kS; e += kThreads) {
-      const int c = e / kS, j = e - c * kS;
-      acc[c * kACS + j] = (acc[c * kACS + j] - mom[j]) / mom[kS + j] * a.norm_w[c] + a.norm_b[c];
-    }
-    __syncthreads();
-  }
-  // bf16(acc), transposed: pw1's (kS, kp) K-major A, zero past C
-  for (int e = tid; e < kS * L.kp; e += kThreads) {
-    const int j = e % kS, c = e / kS;
-    sa[j * L.as + c] = __float2bfloat16_rn(c < C ? acc[c * kACS + j] : 0.0f);
-  }
+template <int kP>
+__global__ void __launch_bounds__(kThreads, kP <= 3 ? 2 : 1) narrow_bf16_kernel(const Args a) {
+  constexpr int kCp = 16 * kP;      // channels padded to k16 steps
+  extern __shared__ __align__(16) uint4 smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int C = a.C, T = a.T, K = a.K;
+  const Packed P(kP, a.steps, K);
+  const uint4* w1f = smem + P.w1;
+  const uint4* w2f = smem + P.w2;
+  const float4* hv = reinterpret_cast<const float4*>(smem + P.hv);
+  const float* cv = reinterpret_cast<const float*>(smem + P.cv);  // dw (K, Cp), dw_b, nw, nb, b2
+  bf16* stages = reinterpret_cast<bf16*>(smem + P.total);
+  const int stage_elems = C * a.rs;
+  const long long n_x = static_cast<long long>(a.B) * C * T;
+  const int tiles_per_row = (T + kS - 1) / kS, tiles = a.B * tiles_per_row;
 
-  // W1 rows and W2' columns [32 i, 32 i + 32) into stage i % kStages
-  auto stage_weights = [&](int i) {
-    bf16* w1s = reinterpret_cast<bf16*>(ring + (i % kStages) * L.stage);
-    bf16* w2s = w1s + kNC * L.as;
-    const int n0 = i * kNC;
-    if (a.wvec) {
-      for (int e = tid; e < kNC * (L.kp / 8); e += kThreads) {
-        const int row = e / (L.kp / 8), col = 8 * (e % (L.kp / 8)), n = n0 + row;
-        const bool ok = n < C4 && col < C;
-        ptx::cp_async16(w1s + row * L.as + col,
-                        ok ? a.w1 + static_cast<long long>(n) * C + col : a.w1, ok ? 16 : 0);
-      }
-      for (int e = tid; e < 16 * kPairs * (kNC / 8); e += kThreads) {
-        const int row = e / (kNC / 8), col = 8 * (e % (kNC / 8));
-        const bool ok = row < C && n0 + col < C4;
-        ptx::cp_async16(w2s + row * kHS + col,
-                        ok ? a.w2 + static_cast<long long>(row) * C4 + n0 + col : a.w2,
-                        ok ? 16 : 0);
+  // x columns [t0 - sp, t0 - sp + xw) of every channel into st: row c at
+  // st + c rs + o_c, o_c = its first element's flat index mod 8
+  auto stage_x = [&](int tile, bf16* st) {
+    const int b = tile / tiles_per_row, ws = (tile - b * tiles_per_row) * kS - a.sp;
+    if (a.fast) {
+      const int pieces = a.rs / 8;
+      for (int e = tid; e < C * pieces; e += kThreads) {
+        const int c = e / pieces, k = e - c * pieces;
+        // the aligned piece k of row c: flat elements [f, f + 8), f % 8 == 0
+        const long long f = (((static_cast<long long>(b) * C + c) * T + ws) & ~7LL) + 8 * k;
+        const long long left = n_x - f;
+        const int n = f < 0 || left <= 0 ? 0 : (left < 8 ? static_cast<int>(left) : 8);
+        ptx::cp_async16(st + c * a.rs + 8 * k, n > 0 ? a.x + f : a.x, 2 * n);
       }
     } else {
-      const bf16 zero = __float2bfloat16_rn(0.0f);
-      for (int e = tid; e < kNC * L.kp; e += kThreads) {
-        const int row = e / L.kp, col = e % L.kp, n = n0 + row;
-        w1s[row * L.as + col] =
-            (n < C4 && col < C) ? a.w1[static_cast<long long>(n) * C + col] : zero;
-      }
-      for (int e = tid; e < 16 * kPairs * kNC; e += kThreads) {
-        const int row = e / kNC, col = e % kNC;
-        w2s[row * kHS + col] =
-            (row < C && n0 + col < C4) ? a.w2[static_cast<long long>(row) * C4 + n0 + col] : zero;
+      for (int e = tid; e < C * a.xw; e += kThreads) {
+        const int c = e / a.xw, j = e - c * a.xw, tt = ws + j;
+        const long long f0 = (static_cast<long long>(b) * C + c) * T;
+        const int o = static_cast<int>((f0 + ws) & 7);
+        st[c * a.rs + o + j] = (tt >= 0 && tt < T) ? a.x[f0 + tt] : __float2bfloat16_rn(0.0f);
       }
     }
   };
-  __syncthreads();  // sa is complete; the staged x is dead
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < chunks) stage_weights(s);
+
+  int tile = blockIdx.x;
+  for (int e = tid; e < P.total; e += kThreads) ptx::cp_async16(smem + e, a.pk + e, 16);
+  if (tile < tiles) stage_x(tile, stages);
+  ptx::cp_async_commit();
+
+  const float* dwb = cv + K * kCp;
+  const float* nw = dwb + kCp;
+  const float* nb = nw + kCp;
+  const float* b2 = nb + kCp;
+
+  for (int it = 0; tile < tiles; tile += gridDim.x, ++it) {
+    bf16* st = stages + (it & 1) * stage_elems;
+    const int b = tile / tiles_per_row, t0 = (tile - b * tiles_per_row) * kS, ws = t0 - a.sp;
+    const long long fb = static_cast<long long>(b) * C * T;  // flat index of (b, 0, 0)
+    ptx::cp_async_wait<0>();
+    __syncthreads();  // this tile's stage has landed; the last tile's stores are done
+    if (tile + gridDim.x < tiles) stage_x(tile + gridDim.x, stages + ((it + 1) & 1) * stage_elems);
     ptx::cp_async_commit();
-  }
-
-  // 2. hidden chunks
-  const int q = lane >> 3, r = lane & 7, gq = lane >> 2, tq = lane & 3, r0 = 16 * warp;
-  const bf16* pa = sa + (r0 + (q & 1) * 8 + r) * L.as + (q >> 1) * 8;
-  const int ob1 = ((q >> 1) * 8 + r) * L.as + (q & 1) * 8;
-  const bf16* ph = hb + ((q & 1) * 8 + r) * kHS + (q >> 1) * 8;
-  const int ob2 = ((q >> 1) * 8 + r) * kHS + (q & 1) * 8;
-  float sum2[kNT][4];
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) sum2[nt][i] = 0.0f;
-
-  for (int ci = 0; ci < chunks; ++ci) {
-    ptx::cp_async_wait<kStages - 2>();
-    __syncthreads();
-    if (ci + kStages - 1 < chunks) stage_weights(ci + kStages - 1);
-    ptx::cp_async_commit();
-    const bf16* w1s = reinterpret_cast<const bf16*>(ring + (ci % kStages) * L.stage);
-    const bf16* w2s = w1s + kNC * L.as;
-    const int n0 = ci * kNC;
-
-    // pw1: (16, 32) = bf16(a) . W1[n0:n0+32]^T
-    float s1[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s1[nt][i] = 0.0f;
-    for (int k = 0; k < L.kp; k += 16) {
-      uint32_t af[4];
-      ptx::ldmatrix_x4(af, pa + k);
-#pragma unroll
-      for (int jp = 0; jp < 2; ++jp) {
-        uint32_t b[4];
-        ptx::ldmatrix_x4(b, w1s + ob1 + jp * 16 * L.as + k);
-        const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
-        ptx::mma_bf16(s1[2 * jp], af, b0);
-        ptx::mma_bf16(s1[2 * jp + 1], af, b1);
+    if (a.fast && (ws < 0 || ws + a.xw > T)) {  // zero the staged columns outside [0, T)
+      for (int e = tid; e < C * a.xw; e += kThreads) {
+        const int c = e / a.xw, j = e - c * a.xw, tt = ws + j;
+        if (tt < 0 || tt >= T)
+          st[c * a.rs + static_cast<int>((fb + static_cast<long long>(c) * T + ws) & 7) + j] =
+              __float2bfloat16_rn(0.0f);
       }
+      __syncthreads();
     }
-    // + b1 and the activation in fp32, rounded to bf16 into this warp's
-    // buffer; hidden units past 4C are zero
+
+    // 1. depthwise conv and ChannelNorm of this warp's 16 columns, in pw1's
+    //    A-fragment layout: v[ks][h][e][r] is channel 16 ks + 8 h + 2 t + e,
+    //    row g + 8 r
+    float v[kP][2][2][2];
+    const int j0 = a.sp - a.halo + 16 * warp;  // window column of tap 0, row 0
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int m = n0 + nt * 8 + 2 * tq;
+    for (int ks = 0; ks < kP; ++ks)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        float v[2];
+        const int cb = 16 * ks + 8 * h + 2 * t;
+        const bf16* row[2];
+        bool ok[2];
 #pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const bool ok = m + jj < C4;
-          const float y = s1[nt][2 * h + jj] + (ok ? a.b1[m + jj] : 0.0f);
-          v[jj] = !ok ? 0.0f
-                      : (a.alpha != nullptr ? l3ac::snake(y, a.alpha[m + jj]) : l3ac::gelu(y));
+        for (int e = 0; e < 2; ++e) {
+          const int c = cb + e;
+          ok[e] = c < C;
+          const int cc = ok[e] ? c : 0;
+          row[e] = st + cc * a.rs +
+                   static_cast<int>((fb + static_cast<long long>(cc) * T + ws) & 7) + j0 + g;
+          v[ks][h][e][0] = v[ks][h][e][1] = dwb[cb + e];
         }
-        *reinterpret_cast<uint32_t*>(hb + (gq + 8 * h) * kHS + nt * 8 + 2 * tq) =
-            ptx::bf16x2_rn(v[0], v[1]);
+        for (int k = 0; k < K; ++k) {
+          const int off = k * a.dil;  // window column j0 + off + row
+          const float2 w = *reinterpret_cast<const float2*>(cv + k * kCp + cb);
+          const float wk[2] = {w.x, w.y};
+          if (j0 + off >= 0 && j0 + off + 15 < a.xw) {  // warp-uniform: in the stage
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (ok[e]) {
+                v[ks][h][e][0] = fmaf(__bfloat162float(row[e][off]), wk[e], v[ks][h][e][0]);
+                v[ks][h][e][1] = fmaf(__bfloat162float(row[e][off + 8]), wk[e], v[ks][h][e][1]);
+              }
+          } else {  // a halo wider than the stage: device memory, zero outside [0, T)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (ok[e]) {
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                  const int tt = ws + j0 + off + g + 8 * r;
+                  const float xv = (tt >= 0 && tt < T)
+                      ? __bfloat162float(a.x[fb + static_cast<long long>(cb + e) * T + tt])
+                      : 0.0f;
+                  v[ks][h][e][r] = fmaf(xv, wk[e], v[ks][h][e][r]);
+                }
+              }
+          }
+        }
       }
-    }
-    __syncwarp();
-
-    // pw2: (16, C) += bf16(h) (16, 32) . W2'[:, n0:n0+32]^T
-    uint32_t hf[2][4];
-    ptx::ldmatrix_x4(hf[0], ph);
-    ptx::ldmatrix_x4(hf[1], ph + 16);
+    if (a.norm) {  // moments of rows g and g + 8 over the C channels: quad shuffles
+      float u[2], q[2];
 #pragma unroll
-    for (int p = 0; p < kPairs; ++p) {
-      if (2 * p >= nt2) break;
+      for (int r = 0; r < 2; ++r) {
+        float s = 0.0f;
 #pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        uint32_t b[4];
-        ptx::ldmatrix_x4(b, w2s + ob2 + p * 16 * kHS + ks * 16);
-        const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
-        ptx::mma_bf16(sum2[2 * p], hf[ks], b0);
-        if (2 * p + 1 < nt2) ptx::mma_bf16(sum2[2 * p + 1], hf[ks], b1);
+        for (int ks = 0; ks < kP; ++ks)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) s += v[ks][h][e][r];  // zero past C
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        u[r] = s / C;
+        float d2 = 0.0f;
+#pragma unroll
+        for (int ks = 0; ks < kP; ++ks)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (16 * ks + 8 * h + 2 * t + e < C) {
+                const float dv = v[ks][h][e][r] - u[r];
+                d2 = fmaf(dv, dv, d2);
+              }
+        d2 += __shfl_xor_sync(0xffffffffu, d2, 1);
+        d2 += __shfl_xor_sync(0xffffffffu, d2, 2);
+        q[r] = sqrtf(d2 / C + kNormEps);
       }
+      const float rq[2] = {__frcp_rn(q[0]), __frcp_rn(q[1])};
+#pragma unroll
+      for (int ks = 0; ks < kP; ++ks)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 16 * ks + 8 * h + 2 * t + e;
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              v[ks][h][e][r] =
+                  c < C ? l3ac::quotient(v[ks][h][e][r] - u[r], q[r], rq[r]) * nw[c] + nb[c]
+                        : 0.0f;
+          }
     }
-    __syncwarp();  // hb is rewritten by the next chunk
-  }
+    uint32_t af[kP][4];
+#pragma unroll
+    for (int ks = 0; ks < kP; ++ks)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          af[ks][2 * h + r] = ptx::bf16x2_rn(v[ks][h][0][r], v[ks][h][1][r]);
 
-  // 3. y = sum + b2' into acc (dead since sa was built), then out = bf16(x + y)
-  __syncthreads();
+    // 2. the hidden units, 32 a step: pw1, b1 and the activation, pw2
+    float acc[2 * kP][4];
 #pragma unroll
-  for (int nt = 0; nt < kNT; ++nt)
+    for (int n = 0; n < 2 * kP; ++n)
 #pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const int c = nt * 8 + 2 * tq + jj;
-      if (c >= C) continue;
-      const float bc = a.b2[c];
+      for (int i = 0; i < 4; ++i) acc[n][i] = 0.0f;
+#pragma unroll 1
+    for (int si = 0; si < a.steps; ++si) {
+      float s1[4][4];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) acc[c * kACS + r0 + gq + 8 * h] = sum2[nt][2 * h + jj] + bc;
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s1[n][i] = 0.0f;
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int ks = 0; ks < kP; ++ks) {
+          const uint4 w = w1f[((2 * si + p) * kP + ks) * 32 + lane];
+          const uint32_t b0[2] = {w.x, w.y}, b1[2] = {w.z, w.w};
+          ptx::mma_bf16(s1[2 * p], af[ks], b0);
+          ptx::mma_bf16(s1[2 * p + 1], af[ks], b1);
+        }
+      // s1[n][i]: row g + 8 (i >> 1), hidden unit 32 si + 8 n + 2 t + (i & 1)
+      float y[16];
+      const float4* hs = hv + kStep * si + 2 * t;
+      if (a.snake) {
+        float al[16], dd[16], rc[16];
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float4 hu = hs[8 * n + e];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int i = 4 * n + 2 * r + e;
+              y[i] = s1[n][2 * r + e] + hu.x;
+              al[i] = hu.y;
+              dd[i] = hu.z;
+              rc[i] = hu.w;
+            }
+          }
+        l3ac::snake2_ilp(y, al, dd, rc);
+      } else {
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float bias = hs[8 * n + e].x;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) y[4 * n + 2 * r + e] = l3ac::gelu(s1[n][2 * r + e] + bias);
+          }
+      }
+      // bf16(h) as pw2's A fragments of k16 steps 2 si and 2 si + 1
+      uint32_t hf[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int n = 2 * kk + (i >> 1), r = i & 1;
+          hf[kk][i] = ptx::bf16x2_rn(y[4 * n + 2 * r], y[4 * n + 2 * r + 1]);
+        }
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int p = 0; p < kP; ++p) {
+          const uint4 w = w2f[((2 * si + kk) * kP + p) * 32 + lane];
+          const uint32_t b0[2] = {w.x, w.y}, b1[2] = {w.z, w.w};
+          ptx::mma_bf16(acc[2 * p], hf[kk], b0);
+          ptx::mma_bf16(acc[2 * p + 1], hf[kk], b1);
+        }
     }
-  __syncthreads();
-  bf16* ob = a.out + base;
-  if (a.vec) {
-    for (int e = tid; e < C * (kS / 8); e += kThreads) {
-      const int c = e / (kS / 8), p = e - c * (kS / 8), t = t0 + 8 * p;
-      if (t >= T) continue;
-      const uint4 xv = __ldg(reinterpret_cast<const uint4*>(xb + static_cast<long long>(c) * T + t));
-      const float* y = acc + c * kACS + 8 * p;
-      const uint32_t xw[4] = {xv.x, xv.y, xv.z, xv.w};
-      uint32_t ow[4];
+
+    // 3. out = bf16(x + (sum + b2')) over the staged x, then stored
+    __syncthreads();  // every warp's depthwise reads of this stage are done
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ow[i] = ptx::bf16x2_rn(__uint_as_float(xw[i] << 16) + y[2 * i],
-                               __uint_as_float(xw[i] & 0xffff0000u) + y[2 * i + 1]);
-      *reinterpret_cast<uint4*>(ob + static_cast<long long>(c) * T + t) =
-          make_uint4(ow[0], ow[1], ow[2], ow[3]);
-    }
-  } else {
-    for (int e = tid; e < C * kS; e += kThreads) {
-      const int c = e / kS, j = e - c * kS;
-      if (t0 + j < T) {
-        const long long o = static_cast<long long>(c) * T + t0 + j;
-        l3ac::store_bf16(ob + o, __bfloat162float(xb[o]) + acc[c * kACS + j]);
+    for (int n = 0; n < 2 * kP; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * n + 2 * t + e;
+        if (c >= C) continue;
+        bf16* xr = st + c * a.rs + static_cast<int>((fb + static_cast<long long>(c) * T + ws) & 7) +
+                   a.sp + 16 * warp + g;
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          xr[8 * r] =
+              __float2bfloat16_rn(__bfloat162float(xr[8 * r]) + (acc[n][2 * r + e] + b2[c]));
+      }
+    __syncthreads();
+    const int cols = T - t0 < kS ? T - t0 : kS;
+    if (a.fast) {
+      constexpr int kPieces = kS / 8 + 1;
+      for (int e = tid; e < C * kPieces; e += kThreads) {
+        const int c = e / kPieces, k = e - c * kPieces;
+        const long long f = fb + static_cast<long long>(c) * T + t0;  // flat index of column 0
+        const int o = static_cast<int>(f & 7);
+        const int lo = 8 * k - o, hi = lo + 8;  // this piece's columns relative to t0
+        if (hi <= 0 || lo >= cols) continue;
+        const bf16* src = st + c * a.rs + a.sp + 8 * k;  // the piece's first element, aligned
+        bf16* dst = a.out + (f - o) + 8 * k;
+        if (lo >= 0 && hi <= cols) {
+          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+        } else {
+          for (int i = 0; i < 8; ++i)
+            if (lo + i >= 0 && lo + i < cols) dst[i] = src[i];
+        }
+      }
+    } else {
+      for (int e = tid; e < C * kS; e += kThreads) {
+        const int c = e / kS, j = e - c * kS;
+        if (j >= cols) continue;
+        const long long f = fb + static_cast<long long>(c) * T + t0;
+        a.out[f + j] = st[c * a.rs + static_cast<int>((f - a.sp) & 7) + a.sp + j];
       }
     }
   }
 }
 
-template <int kNT>
-cudaError_t launch_at(const Args& a, int B, cudaStream_t stream) {
-  const Geometry L(a.C, a.K, a.dil, kNT / 2);
-  const size_t smem = static_cast<size_t>(L.total) + 2 * sizeof(float) * kS;  // + the moments
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(narrow_bf16_kernel<kNT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+template <int kP>
+cudaError_t launch_at(Args a, cudaStream_t stream) {
+  const Packed P(kP, a.steps, a.K);
+  const int fixed = 16 * P.total;
+  // the widest staged halo that fits two stages beside the weights
+  int sp = (a.halo + 7) / 8 * 8;
+  while (sp > 0 && fixed + stage_bytes(a.C, kS + 2 * sp + 8) > kSmemMax) sp -= 8;
+  a.sp = sp;
+  a.xw = kS + 2 * sp;
+  a.rs = a.xw + 8;
+  const int smem = fixed + stage_bytes(a.C, a.rs);
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(narrow_bf16_kernel<kP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(l3ac::ceil_div(a.T, kS), B);
-  narrow_bf16_kernel<kNT><<<grid, kThreads, smem, stream>>>(a);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, narrow_bf16_kernel<kP>,
+                                                           kThreads, smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long tiles = static_cast<long long>(a.B) * l3ac::ceil_div(a.T, kS);
+  const int grid = static_cast<int>(tiles < sms * per_sm ? tiles : sms * per_sm);
+  narrow_bf16_kernel<kP><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+int steps_for(int C) { return (4 * C + kStep - 1) / kStep; }
+
 }  // namespace
 
-// x, out: (B, C, T) bf16, 1 <= C <= 96; dw: (C, K), dw_b, norm_w / norm_b
-// (null: no ChannelNorm), b1 (4C), alpha (4C; null: exact GELU), b2 (C) fp32;
-// w1: (4C, C) and w2: (C, 4C) bf16 (pw2 with GRN folded). All contiguous, out
-// not aliasing x. Returns the CUDA error code (invalid value for a shape it
-// does not take).
-extern "C" int l3ac_conv_unit_narrow_bf16(const void* x, void* out, const float* dw,
-                                          const float* dw_b, const float* norm_w,
-                                          const float* norm_b, const void* w1, const float* b1,
-                                          const float* alpha, const void* w2, const float* b2,
-                                          int B, int C, int T, int K, int dil, void* stream) {
-  if (B < 1 || B > 65535 || C < 1 || C > kMaxC || T < 1 || K < 1 || K % 2 == 0 || dil < 1)
+// x, out: (B, C, T) bf16, 1 <= C <= 96, out not aliasing x; pk: narrow_pack's
+// buffer (16-byte aligned; the wrapper checks its size) for this unit, its K
+// taps, with (norm) or without ChannelNorm, snake or (snake 0) exact GELU.
+// Returns the CUDA error code (invalid value for a shape it does not take).
+extern "C" int l3ac_conv_unit_narrow_bf16(const void* x, void* out, const void* pk, int B, int C,
+                                          int T, int K, int dil, int norm, int snake,
+                                          void* stream) {
+  if (B < 1 || C < 1 || C > kMaxC || T < 1 || K < 1 || K % 2 == 0 || dil < 1 ||
+      !aligned16(pk) || static_cast<long long>(B) * C * T >= (1LL << 40))
     return cudaErrorInvalidValue;
-  const Args a{static_cast<const bf16*>(x), static_cast<bf16*>(out), dw, dw_b, norm_w, norm_b,
-               static_cast<const bf16*>(w1), b1, alpha, static_cast<const bf16*>(w2), b2,
-               C, T, K, dil, T % 8 == 0 && aligned16(x) && aligned16(out),
-               C % 8 == 0 && aligned16(w1) && aligned16(w2)};
+  Args a{static_cast<const bf16*>(x), static_cast<bf16*>(out), static_cast<const uint4*>(pk),
+         B, C, T, K, dil, norm, snake, steps_for(C), (K - 1) * dil / 2, 0, 0, 0,
+         aligned16(x) && aligned16(out)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nt = (C + 7) / 8;
-  if (nt <= 2) return launch_at<2>(a, B, s);
-  if (nt <= 4) return launch_at<4>(a, B, s);
-  if (nt <= 6) return launch_at<6>(a, B, s);
-  if (nt <= 8) return launch_at<8>(a, B, s);
-  return launch_at<12>(a, B, s);
+  switch ((C + 15) / 16) {
+    case 1: return launch_at<1>(a, s);
+    case 2: return launch_at<2>(a, s);
+    case 3: return launch_at<3>(a, s);
+    case 4: return launch_at<4>(a, s);
+    case 5: return launch_at<5>(a, s);
+    default: return launch_at<6>(a, s);
+  }
 }

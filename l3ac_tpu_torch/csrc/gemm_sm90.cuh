@@ -168,58 +168,6 @@ __device__ __forceinline__ float finish(float acc, float b) {
   return y;
 }
 
-// The snake epilogue, y + sin(a y)^2 / (a + eps) with y = acc + b, written
-// so that the values of a chunk have no branch between them: the library's
-// sinf and IEEE division each branch to a slow path per value, which
-// serialises the epilogue of a block that has only 8 consumer warps (the
-// exact snake took most of pw1 at C = 512, PERF.md). sin_ilp reduces by
-// pi/2 in three parts (Cody-Waite) and evaluates the sin / cos polynomials
-// of [-pi/4, pi/4]: within 2 ulp of the correctly rounded sine for |x| <=
-// 100, absolute error below 1e-7 up to kSinIlpMax, beyond which the value
-// is sinf's. The quotient is one Newton step on the correctly rounded
-// reciprocal, IEEE division's value for these operands (y + q never meets
-// a denormal divisor: a + eps >= 1e-8).
-constexpr float kSinIlpMax = 8192.0f;
-
-__device__ __forceinline__ float sin_ilp(float x) {
-  const float j = rintf(x * 0.636619772367581343f);
-  float r = fmaf(-j, 1.5703125f, x);
-  r = fmaf(-j, 4.837512969970703125e-4f, r);
-  r = fmaf(-j, 7.54978995489188216e-8f, r);
-  const float z = r * r;
-  const float sn = fmaf(r * z, fmaf(fmaf(-1.9515295891e-4f, z, 8.3321608736e-3f), z,
-                                    -1.6666654611e-1f), r);
-  const float cs = fmaf(z * z, fmaf(fmaf(2.443315711809948e-5f, z, -1.388731625493765e-3f), z,
-                                    4.166664568298827e-2f), fmaf(-0.5f, z, 1.0f));
-  const int q = static_cast<int>(j);
-  const float v = (q & 1) ? cs : sn;
-  return (q & 2) ? -v : v;
-}
-
-// sinf out of line: its slow path (a Payne-Hanek reduction) would otherwise
-// be inlined at every value of the unrolled epilogue, and a kernel that
-// large runs from a thrashed instruction cache.
-static __device__ __noinline__ float sinf_outlined(float x) { return sinf(x); }
-
-// kN values y[u] (acc + bias) of columns with a[u], d[u] = a + eps and
-// rcp[u] = 1 / d (correctly rounded), snaked in place
-template <int kN>
-__device__ __forceinline__ void snake_ilp(float (&y)[kN], const float (&a)[kN],
-                                          const float (&d)[kN], const float (&rcp)[kN]) {
-  float s[kN];
-#pragma unroll
-  for (int u = 0; u < kN; ++u) s[u] = sin_ilp(a[u] * y[u]);
-#pragma unroll
-  for (int u = 0; u < kN; ++u)
-    if (fabsf(a[u] * y[u]) > kSinIlpMax) s[u] = sinf_outlined(a[u] * y[u]);
-#pragma unroll
-  for (int u = 0; u < kN; ++u) {
-    const float s2 = s[u] * s[u];
-    const float q0 = s2 * rcp[u];
-    y[u] = y[u] + fmaf(fmaf(-q0, d[u], s2), rcp[u], q0);
-  }
-}
-
 __device__ __forceinline__ float bf16_bits(const bf16* p, long long i) {
   return __uint_as_float(static_cast<uint32_t>(reinterpret_cast<const unsigned short*>(p)[i]) << 16);
 }

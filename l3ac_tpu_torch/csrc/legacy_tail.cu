@@ -59,19 +59,7 @@
 // is a multiplication by its fp32 reciprocal, prepared with the weights:
 // that adds at most 2^-23 relative error to the sin^2 term (one rounding of
 // the reciprocal, and the product's against the quotient's).
-// bf16 (l3ac_legacy_tail_bf16: x and the audio bf16, the weight buffer the
-// same fp32 layout holding the bf16 weights' values, whose TF32 lo parts are
-// zero and not read): each product one bf16 tensor-core pass, mma.sync
-// m16n8k8 (K = C = 24 is no multiple of 16), its k pairs taken as the fp32
-// path's fragment words t and t + 4 (a permutation of K on both operands).
-// It rounds where legacy_tail.py:_kernel / _kernel_poly do: the snakes in
-// fp32, each rounded to bf16; the k7 conv's fp32 sum + b1 rounded; the 1x1's
-// sum + b2 rounded; the residual x + h rounded to bf16 after every unit, so
-// the stream in registers holds bf16 values; the output conv and tanh in
-// fp32, the audio rounded once. The exact sines stay fp32, so the bound keeps
-// their work and bf16 saves only bytes and two of the three passes.
-#include <type_traits>
-
+// The bf16 tail is legacy_tail_bf16.cu.
 #include "common.cuh"
 #include "ptx.cuh"
 
@@ -119,10 +107,10 @@ struct Layout {
 };
 
 struct Args {
-  const void* x0;    // (B, C, T) interleaved, or the even phase (B, C, T / 2); fp32 or bf16
-  const void* x1;    // null, or the odd phase
+  const float* x0;   // (B, C, T) interleaved, or the even phase (B, C, T / 2)
+  const float* x1;   // null, or the odd phase
   const float* wts;  // the prepared buffer, Layout::weights floats
-  void* out;         // (B, T), x's type
+  float* out;        // (B, T)
   int B, C, T;
   long long xB, xC;  // batch and channel strides of x0 and x1
 };
@@ -130,22 +118,6 @@ struct Args {
 __device__ __forceinline__ float snake_r(float h, float a, float r) {
   const float s = sinf(a * h);
   return h + s * s * r;
-}
-
-using bf16 = __nv_bfloat16;
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
-// v as the bf16 chain stores it (kBf16), else unchanged
-template <bool kBf16>
-__device__ __forceinline__ float keep(float v) { return kBf16 ? l3ac::round_bf16(v) : v; }
-
-// an A fragment of the bf16 m16n8k8 mma from the fp32 one {A[g][t],
-// A[g+8][t], A[g][t+4], A[g+8][t+4]}: row g's pair (t, t+4), row g+8's
-__device__ __forceinline__ void pack_a(uint32_t (&a)[2], const float (&x)[4]) {
-  a[0] = ptx::bf16x2_rn(x[0], x[2]);
-  a[1] = ptx::bf16x2_rn(x[1], x[3]);
 }
 
 template <int N>
@@ -194,12 +166,10 @@ __device__ __forceinline__ void fragments(uint32_t (&b)[4], const float* p, int 
   b[3] = __float_as_uint(__ldg(r1 + 4));
 }
 
-// kBf16: x and out bf16, one bf16 pass per product, the bf16 roundings
-template <int kNT, bool kWide, bool kBf16>
+template <int kNT, bool kWide>
 __global__ void __launch_bounds__(Tiling<kWide>::kThreads, 1) legacy_tail_kernel(const Args a) {
   using L = Layout<kNT>;
   using G = Tiling<kWide>;
-  using TX = std::conditional_t<kBf16, bf16, float>;
   constexpr int kThreads = G::kThreads, kWarps = G::kWarps, kSlabs = G::kSlabs;
   constexpr int kW = G::kW, kS = G::kS;
   // the vectors' offsets in shared memory: after the matrices (narrow), or
@@ -235,8 +205,8 @@ __global__ void __launch_bounds__(Tiling<kWide>::kThreads, 1) legacy_tail_kernel
 
     // x -> A (time-major), zero outside [0, T); channels past C stay zero
     {
-      const TX* xb0 = static_cast<const TX*>(a.x0) + b * a.xB;
-      const TX* xb1 = a.x1 == nullptr ? nullptr : static_cast<const TX*>(a.x1) + b * a.xB;
+      const float* xb0 = a.x0 + b * a.xB;
+      const float* xb1 = a.x1 == nullptr ? nullptr : a.x1 + b * a.xB;
       const int n = C * kW;
       for (int e0 = tid; e0 < n; e0 += kBatch * kThreads) {
         float v[kBatch];
@@ -246,8 +216,7 @@ __global__ void __launch_bounds__(Tiling<kWide>::kThreads, 1) legacy_tail_kernel
           const long long t = g0 + (e - c * kW);
           v[u] = 0.0f;
           if (e < n && t >= 0 && t < T)
-            v[u] = to_float(xb1 == nullptr ? xb0[c * a.xC + t]
-                                           : ((t & 1) ? xb1 : xb0)[c * a.xC + (t >> 1)]);
+            v[u] = xb1 == nullptr ? xb0[c * a.xC + t] : ((t & 1) ? xb1 : xb0)[c * a.xC + (t >> 1)];
         }
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
@@ -294,8 +263,8 @@ __global__ void __launch_bounds__(Tiling<kWide>::kThreads, 1) legacy_tail_kernel
           for (int hf = 0; hf < 2; ++hf) {
             const float v0 = xr[s][nt][2 * hf], v1 = xr[s][nt][2 * hf + 1];
             *reinterpret_cast<float2*>(A + (kPad + row + 8 * hf) * L::AS + c) =
-                make_float2(c < C ? keep<kBf16>(snake_r(v0, al0, rc0)) : 0.0f,
-                            c + 1 < C ? keep<kBf16>(snake_r(v1, al1, rc1)) : 0.0f);
+                make_float2(c < C ? snake_r(v0, al0, rc0) : 0.0f,
+                            c + 1 < C ? snake_r(v1, al1, rc1) : 0.0f);
           }
         }
       }
@@ -340,35 +309,25 @@ __global__ void __launch_bounds__(Tiling<kWide>::kThreads, 1) legacy_tail_kernel
             for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
 #pragma unroll
           for (int c8 = c0; c8 < c0 + kGroup && c8 < kNT; ++c8) {
-            uint32_t raw[4], ah[4], al[4], ab[2];
+            uint32_t raw[4], ah[4], al[4];
             ptx::ldmatrix_x4(raw, pk + c8 * 8);
             float x[4];
 #pragma unroll
             for (int e = 0; e < 4; ++e) x[e] = __uint_as_float(raw[e]);
-            if constexpr (kBf16) pack_a(ab, x);
-            else split(x, ah, al);
+            split(x, ah, al);
 #pragma unroll
             for (int p = 0; p < kPairs; ++p) {
               uint32_t bh[4], bl[4];
               if constexpr (kWide) {
                 fragments(bh, w1h + wk + p * 16 * L::AS + c8 * 8, w1_row, t4, L::AS);
-                if constexpr (!kBf16)
-                  fragments(bl, w1l + wk + p * 16 * L::AS + c8 * 8, w1_row, t4, L::AS);
+                fragments(bl, w1l + wk + p * 16 * L::AS + c8 * 8, w1_row, t4, L::AS);
               } else {
                 ptx::ldmatrix_x4(bh, w1h + wk + p * 16 * L::AS + c8 * 8);
-                if constexpr (!kBf16) ptx::ldmatrix_x4(bl, w1l + wk + p * 16 * L::AS + c8 * 8);
+                ptx::ldmatrix_x4(bl, w1l + wk + p * 16 * L::AS + c8 * 8);
               }
-              if constexpr (kBf16) {
-                ptx::mma_bf16_k8(acc[2 * p], ab, ptx::bf16x2_rn(__uint_as_float(bh[0]),
-                                                                __uint_as_float(bh[1])));
-                if (2 * p + 1 < kNT)
-                  ptx::mma_bf16_k8(acc[(2 * p + 1) % kNT], ab,
-                                   ptx::bf16x2_rn(__uint_as_float(bh[2]), __uint_as_float(bh[3])));
-              } else {
-                mma3(acc[2 * p], ah, al, bh[0], bh[1], bl[0], bl[1]);
-                if (2 * p + 1 < kNT)
-                  mma3(acc[(2 * p + 1) % kNT], ah, al, bh[2], bh[3], bl[2], bl[3]);
-              }
+              mma3(acc[2 * p], ah, al, bh[0], bh[1], bl[0], bl[1]);
+              if (2 * p + 1 < kNT)
+                mma3(acc[(2 * p + 1) % kNT], ah, al, bh[2], bh[3], bl[2], bl[3]);
             }
           }
 #pragma unroll
@@ -385,8 +344,8 @@ __global__ void __launch_bounds__(Tiling<kWide>::kThreads, 1) legacy_tail_kernel
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int c = nt * 8 + t4 + 4 * (e & 1);
-            const float v = keep<kBf16>(conv[nt][e] + b1[c]);
-            y[nt][(e & 1) * 2 + (e >> 1)] = c < C ? keep<kBf16>(snake_r(v, a2[c], r2[c])) : 0.0f;
+            const float v = conv[nt][e] + b1[c];
+            y[nt][(e & 1) * 2 + (e >> 1)] = c < C ? snake_r(v, a2[c], r2[c]) : 0.0f;
           }
         float sum2[kNT][4];
 #pragma unroll
@@ -402,30 +361,21 @@ __global__ void __launch_bounds__(Tiling<kWide>::kThreads, 1) legacy_tail_kernel
           for (int e = 0; e < 4; ++e) acc2[nt][e] = 0.0f;
 #pragma unroll
         for (int k8 = k0; k8 < k0 + kGroup && k8 < kNT; ++k8) {
-          uint32_t yh[4], yl[4], yb[2];
-          if constexpr (kBf16) pack_a(yb, y[k8]);
-          else split(y[k8], yh, yl);
+          uint32_t yh[4], yl[4];
+          split(y[k8], yh, yl);
 #pragma unroll
           for (int p = 0; p < kPairs; ++p) {
             uint32_t bh[4], bl[4];
             if constexpr (kWide) {
               fragments(bh, w2h + p * 16 * L::AS + k8 * 8, g, t4, L::AS);
-              if constexpr (!kBf16) fragments(bl, w2l + p * 16 * L::AS + k8 * 8, g, t4, L::AS);
+              fragments(bl, w2l + p * 16 * L::AS + k8 * 8, g, t4, L::AS);
             } else {
               ptx::ldmatrix_x4(bh, w2h + p * 16 * L::AS + k8 * 8);
-              if constexpr (!kBf16) ptx::ldmatrix_x4(bl, w2l + p * 16 * L::AS + k8 * 8);
+              ptx::ldmatrix_x4(bl, w2l + p * 16 * L::AS + k8 * 8);
             }
-            if constexpr (kBf16) {
-              ptx::mma_bf16_k8(acc2[2 * p], yb, ptx::bf16x2_rn(__uint_as_float(bh[0]),
-                                                               __uint_as_float(bh[1])));
-              if (2 * p + 1 < kNT)
-                ptx::mma_bf16_k8(acc2[(2 * p + 1) % kNT], yb,
-                                 ptx::bf16x2_rn(__uint_as_float(bh[2]), __uint_as_float(bh[3])));
-            } else {
-              mma3(acc2[2 * p], yh, yl, bh[0], bh[1], bl[0], bl[1]);
-              if (2 * p + 1 < kNT)
-                mma3(acc2[(2 * p + 1) % kNT], yh, yl, bh[2], bh[3], bl[2], bl[3]);
-            }
+            mma3(acc2[2 * p], yh, yl, bh[0], bh[1], bl[0], bl[1]);
+            if (2 * p + 1 < kNT)
+              mma3(acc2[(2 * p + 1) % kNT], yh, yl, bh[2], bh[3], bl[2], bl[3]);
           }
         }
 #pragma unroll
@@ -440,9 +390,7 @@ __global__ void __launch_bounds__(Tiling<kWide>::kThreads, 1) legacy_tail_kernel
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const float bb = b2[nt * 8 + 2 * t4 + (e & 1)];
-            xr[s][nt][e] = valid[s][e >> 1]
-                               ? keep<kBf16>(xr[s][nt][e] + keep<kBf16>(sum2[nt][e] + bb))
-                               : 0.0f;
+            xr[s][nt][e] = valid[s][e >> 1] ? xr[s][nt][e] + (sum2[nt][e] + bb) : 0.0f;
           }
       }
       __syncthreads();  // every read of A is done before it is rewritten
@@ -452,7 +400,7 @@ __global__ void __launch_bounds__(Tiling<kWide>::kThreads, 1) legacy_tail_kernel
     write_snake(vec + L::ao, vec + L::ro);
     __syncthreads();
     const float* wo = vec + L::wo;
-    TX* ob = static_cast<TX*>(a.out) + static_cast<long long>(b) * T;
+    float* ob = a.out + static_cast<long long>(b) * T;
     for (int j = tid; j < kS; j += kThreads) {
       const long long t = g0 + kHalo + j;
       if (t >= T) break;
@@ -470,12 +418,12 @@ __global__ void __launch_bounds__(Tiling<kWide>::kThreads, 1) legacy_tail_kernel
           yv += wv.w * av.w;
         }
       }
-      store1(ob + t, tanhf(yv));
+      ob[t] = tanhf(yv);
     }
   }
 }
 
-template <int kNT, bool kBf16>
+template <int kNT>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   using L = Layout<kNT>;
   constexpr bool kWide = kNT > kMaxNarrowNT;
@@ -483,7 +431,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   const size_t smem = sizeof(float) * static_cast<size_t>(
       kWide ? L::weights - L::b1 + (G::kW + 2 * kPad) * L::AS : L::total);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(legacy_tail_kernel<kNT, kWide, kBf16>,
+  cudaError_t err = cudaFuncSetAttribute(legacy_tail_kernel<kNT, kWide>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -492,34 +440,13 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, legacy_tail_kernel<kNT, kWide, kBf16>, G::kThreads, smem)) != cudaSuccess)
+           &per_sm, legacy_tail_kernel<kNT, kWide>, G::kThreads, smem)) != cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long tiles = static_cast<long long>(a.B) * l3ac::ceil_div(a.T, G::kS);
   const int grid = static_cast<int>(tiles < sms * per_sm ? tiles : sms * per_sm);
-  legacy_tail_kernel<kNT, kWide, kBf16><<<grid, G::kThreads, smem, stream>>>(a);
+  legacy_tail_kernel<kNT, kWide><<<grid, G::kThreads, smem, stream>>>(a);
   return cudaGetLastError();
-}
-
-template <bool kBf16>
-int run(const void* x0, const void* x1, const float* wts, void* out, int B, int C, int T,
-        long long xB, long long xC, void* stream) {
-  if (B < 1 || T < 1 || (x1 != nullptr && T % 2 != 0) ||
-      reinterpret_cast<uintptr_t>(wts) % 16 != 0)
-    return cudaErrorInvalidValue;
-  if (C < 4 || C > 8 * kMaxNT || C % 4 != 0) return cudaErrorInvalidValue;
-  const Args a{x0, x1, wts, out, B, C, T, xB, xC};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((C + 7) / 8) {
-    case 1: return launch<1, kBf16>(a, s);
-    case 2: return launch<2, kBf16>(a, s);
-    case 3: return launch<3, kBf16>(a, s);
-    case 4: return launch<4, kBf16>(a, s);
-    case 5: return launch<5, kBf16>(a, s);
-    case 6: return launch<6, kBf16>(a, s);
-    case 7: return launch<7, kBf16>(a, s);
-    default: return launch<8, kBf16>(a, s);
-  }
 }
 
 }  // namespace
@@ -543,17 +470,24 @@ extern "C" int l3ac_legacy_tail_weight_floats(int C) {
 // x0 (and x1): (B, C, T) interleaved with x1 null, or the phase pair
 // (B, C, T / 2) with x[2t + q] = x_q[t]; xB, xC their batch and channel
 // strides (time contiguous). wts: legacy_tail.py:pack, 16-byte aligned.
-// out: (B, T). C a multiple of 4 up to 64. x and out fp32 (l3ac_legacy_tail)
-// or bf16 (l3ac_legacy_tail_bf16, with the pack of the bf16 weights). Returns
-// the CUDA error code.
+// out: (B, T). C a multiple of 4 up to 64. Returns the CUDA error code.
 extern "C" int l3ac_legacy_tail(const float* x0, const float* x1, const float* wts,
                                 float* out, int B, int C, int T, long long xB,
                                 long long xC, void* stream) {
-  return run<false>(x0, x1, wts, out, B, C, T, xB, xC, stream);
-}
-
-extern "C" int l3ac_legacy_tail_bf16(const __nv_bfloat16* x0, const __nv_bfloat16* x1,
-                                     const float* wts, __nv_bfloat16* out, int B, int C, int T,
-                                     long long xB, long long xC, void* stream) {
-  return run<true>(x0, x1, wts, out, B, C, T, xB, xC, stream);
+  if (B < 1 || T < 1 || (x1 != nullptr && T % 2 != 0) ||
+      reinterpret_cast<uintptr_t>(wts) % 16 != 0)
+    return cudaErrorInvalidValue;
+  if (C < 4 || C > 8 * kMaxNT || C % 4 != 0) return cudaErrorInvalidValue;
+  const Args a{x0, x1, wts, out, B, C, T, xB, xC};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((C + 7) / 8) {
+    case 1: return launch<1>(a, s);
+    case 2: return launch<2>(a, s);
+    case 3: return launch<3>(a, s);
+    case 4: return launch<4>(a, s);
+    case 5: return launch<5>(a, s);
+    case 6: return launch<6>(a, s);
+    case 7: return launch<7>(a, s);
+    default: return launch<8>(a, s);
+  }
 }

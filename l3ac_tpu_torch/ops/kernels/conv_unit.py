@@ -26,8 +26,10 @@ route and C <= ``MAX_C`` (512) on the SIMT route; ``conv_unit_ct`` C <=
 for a walk of a model.
 
 bf16 (the encode half of ROADMAP A6): both wrappers take bf16 x with a bf16
-unit. ``conv_unit_ct`` runs ``csrc/conv_unit_narrow_bf16.cu`` (each product
-one bf16 mma.sync pass) and ``conv_unit`` the bf16 path of
+unit. ``conv_unit_ct`` runs ``csrc/conv_unit_narrow_bf16.cu`` (a persistent
+kernel holding the unit's weights in shared memory, each product one bf16
+mma.sync pass, its operands one buffer from :func:`narrow_pack`) and
+``conv_unit`` the bf16 path of
 ``csrc/conv_unit_tc.cu`` (C % 8 == 0, so ``debug``'s 16 too; another C
 raises on the card): a depthwise conv + norm pass that stages its time rows
 and halo in shared memory, then both products on the wgmma core
@@ -73,7 +75,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels as K
-from ..activations import gelu, snake
+from ..activations import EPS, gelu, snake
 from ..norms import channel_norm, grn
 from . import _build, gemm_sm90
 from .tc_gemm import split_tf32
@@ -145,7 +147,8 @@ def fold_grn(w: ConvUnitWeights) -> tuple[torch.Tensor, torch.Tensor]:
 
 class PreparedBf16(NamedTuple):
     """The bf16 kernels' operands: the two products in bf16, every vector in
-    fp32 (the bf16 parameters' values), on the weights' device."""
+    fp32 (the bf16 parameters' values), on the weights' device; at C <=
+    NARROW_MAX_C also the narrow kernel's one buffer (:func:`narrow_pack`)."""
     dw: torch.Tensor              # (C, K) depthwise conv
     dw_b: torch.Tensor            # (C,)
     norm_w: torch.Tensor | None   # (C,) or None
@@ -155,6 +158,7 @@ class PreparedBf16(NamedTuple):
     alpha: torch.Tensor | None    # (4C,) snake, or None for exact GELU
     w2: torch.Tensor              # (C, 4C) bf16, W2' = pw2 with GRN folded (fold_grn), rounded
     b2: torch.Tensor              # (C,) b2', fp32
+    narrow: torch.Tensor | None = None  # uint8, narrow_pack of the fields above
 
 
 def prepare_bf16(w: ConvUnitWeights) -> PreparedBf16:
@@ -162,9 +166,66 @@ def prepare_bf16(w: ConvUnitWeights) -> PreparedBf16:
     f = lambda t: None if t is None else t.detach().float().contiguous()
     with torch.no_grad():
         w2f, b2f = fold_grn(w)
-        return PreparedBf16(f(w.dw_w[:, 0, :]), f(w.dw_b), f(w.norm_w), f(w.norm_b),
-                            w.pw1_w.detach().bfloat16().contiguous(), f(w.pw1_b), f(w.alpha),
-                            w2f.t().contiguous().bfloat16(), b2f)
+        p = PreparedBf16(f(w.dw_w[:, 0, :]), f(w.dw_b), f(w.norm_w), f(w.norm_b),
+                         w.pw1_w.detach().bfloat16().contiguous(), f(w.pw1_b), f(w.alpha),
+                         w2f.t().contiguous().bfloat16(), b2f)
+        return p._replace(narrow=narrow_pack(p)) if p.dw.shape[0] <= NARROW_MAX_C else p
+
+
+NARROW_STEP = 32  # conv_unit_narrow_bf16.cu: hidden units a step (kStep)
+
+
+def narrow_shape(C: int) -> tuple[int, int]:
+    """(kP, steps) of the narrow bf16 kernel at C channels: k16 steps of pw1
+    (n8 pairs of pw2), and hidden steps of NARROW_STEP units."""
+    return -(-C // 16), -(-4 * C // NARROW_STEP)
+
+
+def narrow_packed_bytes(C: int, K: int) -> int:
+    """The bytes of :func:`narrow_pack`'s buffer (the kernel's ``Packed``)."""
+    kP, steps = narrow_shape(C)
+    return 2 * 2 * (steps * NARROW_STEP) * (16 * kP) + 16 * steps * NARROW_STEP + \
+        4 * (K + 4) * 16 * kP
+
+
+def narrow_pack(p: PreparedBf16) -> torch.Tensor:
+    """The narrow bf16 kernel's one buffer (uint8, on p's device), in the
+    order of its shared-memory image (``csrc/conv_unit_narrow_bf16.cu``):
+
+    - W1 (4C, C) zero-filled to (32 steps, 16 kP), bf16 in B-fragment order:
+      for each pair pp of n8 tiles (16 hidden units), k16 step ks and lane
+      4 g + t, the 8 values W1[16 pp + 8 s + g][16 ks + 8 h + 2 t + e] in
+      the order (s, h, e): one 16-byte load gives two n8 tiles' fragments;
+    - W2' (C, 4C) zero-filled to (16 kP, 32 steps) the same way: per k16
+      step kh over the hidden units and pair p of n8 output tiles,
+      W2'[16 p + 8 s + g][16 kh + 8 h + 2 t + e];
+    - per hidden unit (32 steps of them) fp32 b1, alpha, alpha + eps and the
+      correctly rounded 1 / (alpha + eps) (padding: 0, 1, 1 + eps and its
+      reciprocal; the alpha fields are unused under GELU);
+    - fp32 (K + 4, 16 kP): the depthwise taps (K, C) transposed, then dw_b,
+      norm_w, norm_b (zero without norm) and b2', zero past C."""
+    C, K = p.dw.shape
+    kP, steps = narrow_shape(C)
+    Cp, H = 16 * kP, NARROW_STEP * steps
+    w1 = p.w1.new_zeros(H, Cp)
+    w1[:4 * C, :C] = p.w1
+    f1 = w1.view(2 * steps, 2, 8, kP, 2, 4, 2).permute(0, 3, 2, 5, 1, 4, 6)
+    w2 = p.w2.new_zeros(Cp, H)
+    w2[:C, :4 * C] = p.w2
+    f2 = w2.view(kP, 2, 8, 2 * steps, 2, 4, 2).permute(3, 0, 2, 5, 1, 4, 6)
+    alpha = p.b1.new_ones(H)
+    if p.alpha is not None:
+        alpha[:4 * C] = p.alpha
+    d = alpha + EPS
+    hv = torch.stack([F.pad(p.b1, (0, H - 4 * C)), alpha, d, 1.0 / d], 1)
+    cv = p.b1.new_zeros(K + 4, Cp)
+    cv[:K, :C] = p.dw.t()
+    for i, v in enumerate((p.dw_b, p.norm_w, p.norm_b, p.b2)):
+        if v is not None:
+            cv[K + i, :C] = v
+    parts = [f1.contiguous().view(torch.uint8), f2.contiguous().view(torch.uint8),
+             hv.view(torch.uint8), cv.view(torch.uint8)]
+    return torch.cat([t.reshape(-1) for t in parts])
 
 
 def conv_unit_plain_bf16(x: torch.Tensor, w: ConvUnitWeights | PreparedBf16, *,
@@ -363,7 +424,6 @@ def _launch_narrow(x: torch.Tensor, w: ConvUnitWeights, p: PreparedWeights,
     return out
 
 
-_BF16_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _TC_BF16_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
@@ -380,6 +440,18 @@ def _check_bf16(x: torch.Tensor, p: PreparedBf16, C: int, name: str) -> int:
     return ksz
 
 
+_NARROW_BF16_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def call_narrow_bf16(fn: Callable, x: torch.Tensor, out: torch.Tensor, p: PreparedBf16,
+                     dilation: int) -> int:
+    """``fn`` (``l3ac_conv_unit_narrow_bf16`` or a variant of it) on x, out
+    (B, C, T) with p's narrow buffer; returns its CUDA error code."""
+    B, C, T = x.shape
+    return fn(x.data_ptr(), out.data_ptr(), p.narrow.data_ptr(), B, C, T, p.dw.shape[-1],
+              dilation, int(p.norm_w is not None), int(p.alpha is not None), _build.stream_ptr())
+
+
 def _launch_bf16(x: torch.Tensor, p: PreparedBf16, dilation: int, *,
                  channels_last: bool) -> torch.Tensor:
     """The bf16 kernels: ``csrc/conv_unit_narrow_bf16.cu`` on (B, C, T), the
@@ -392,10 +464,10 @@ def _launch_bf16(x: torch.Tensor, p: PreparedBf16, dilation: int, *,
         raise ValueError(why)
     ksz = _check_bf16(x, p, C, name)
     out = torch.empty_like(x)
-    vec = (p.dw.data_ptr(), p.dw_b.data_ptr(), _build.ptr(p.norm_w), _build.ptr(p.norm_b),
-           p.w1.data_ptr(), p.b1.data_ptr(), _build.ptr(p.alpha), p.w2.data_ptr(),
-           p.b2.data_ptr())
     if channels_last:
+        vec = (p.dw.data_ptr(), p.dw_b.data_ptr(), _build.ptr(p.norm_w), _build.ptr(p.norm_b),
+               p.w1.data_ptr(), p.b1.data_ptr(), _build.ptr(p.alpha), p.w2.data_ptr(),
+               p.b2.data_ptr())
         if x.data_ptr() % 16:
             raise ValueError("conv_unit: bf16 x must be 16-byte aligned")
         M = B * T
@@ -418,9 +490,12 @@ def _launch_bf16(x: torch.Tensor, p: PreparedBf16, dilation: int, *,
         gemm_sm90.ROUTES[r2] += 1
         return out
     else:
-        fn = _build.function("l3ac_conv_unit_narrow_bf16", _BF16_ARGTYPES)
-        err = fn(x.data_ptr(), out.data_ptr(), *vec, B, C, T, ksz, dilation,
-                 _build.stream_ptr())
+        if p.narrow is None or p.narrow.shape != (narrow_packed_bytes(C, ksz),):
+            raise ValueError(f"{name}: the prepared narrow buffer does not match C = {C}, "
+                             f"K = {ksz}")
+        K.check_cuda({"narrow": p.narrow}, x.device, dtype=torch.uint8)
+        err = call_narrow_bf16(_build.function("l3ac_conv_unit_narrow_bf16",
+                                               _NARROW_BF16_ARGTYPES), x, out, p, dilation)
     _build.check(err, name)
     return out
 

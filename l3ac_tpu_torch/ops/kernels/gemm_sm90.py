@@ -128,7 +128,7 @@ def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 def sin_ilp(x: torch.Tensor) -> torch.Tensor:
-    """Host twin of ``gemm_sm90.cuh:sin_ilp`` on fp32 x, valid for |x| <=
+    """Host twin of ``common.cuh:sin_ilp`` on fp32 x, valid for |x| <=
     8192 (the kernel calls sinf beyond): j = rint(x 2/pi), r = x - j pi/2 in
     three parts, the sin / cos polynomials of [-pi/4, pi/4] by quadrant."""
     f = torch.float32
@@ -147,10 +147,27 @@ def sin_ilp(x: torch.Tensor) -> torch.Tensor:
     return torch.where((q & 2) == 2, -v, v)
 
 
+def sin2_ilp(x: torch.Tensor) -> torch.Tensor:
+    """Host twin of ``common.cuh:sin2_ilp``: sin^2 x on fp32 x (|x| <= 8192)
+    from sin_ilp's reduction and its sine polynomial alone, 1 - sin^2 r in
+    the odd quadrants."""
+    f = torch.float32
+    c = lambda v: torch.tensor(v, dtype=f)
+    j = torch.round((x * c(0.636619772367581343)).to(f))
+    r = _fma32(-j, c(1.5703125), x)
+    r = _fma32(-j, c(4.837512969970703125e-4), r)
+    r = _fma32(-j, c(7.54978995489188216e-8), r)
+    z = r * r
+    sn = _fma32(r * z, _fma32(_fma32(c(-1.9515295891e-4), z, c(8.3321608736e-3)), z,
+                              c(-1.6666654611e-1)), r)
+    s2 = sn * sn
+    return torch.where((j.to(torch.int64) & 1) == 1, 1.0 - s2, s2)
+
+
 def newton_quotient(n: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     """Host twin of the kernels' n / d without a branch: q0 = n rcp with rcp
     the correctly rounded 1 / d, then one Newton step fma(fma(-q0, d, n),
-    rcp, q0) (``gemm_sm90.cuh:snake_ilp``, ``conv_unit_tc.cu``'s norm)."""
+    rcp, q0) (``common.cuh:quotient``: the bf16 kernels' snakes and norms)."""
     rcp = 1.0 / d
     q0 = n * rcp
     return _fma32(_fma32(-q0, d, n), rcp, q0)

@@ -27,14 +27,14 @@ Widths: C a multiple of 4 up to ``MAX_C`` (64); :func:`admits` is the rule.
 Up to 24 channels the kernel keeps every weight in shared memory; wider, it
 reads the matrices from device memory.
 
-bf16 (x bf16 with bf16 weights): the kernel's bf16 variant, one bf16
-tensor-core pass per product, rounding where
-``l3ac_tpu/ops/pallas/legacy_tail.py`` does (its activations stay in the
-input dtype between steps: each snake in fp32 then rounded, each conv's fp32
-sum + bias rounded, the residual ``x + h`` rounded after every unit; the
-output conv and tanh in fp32, the audio rounded once). Its buffer is
-:func:`pack` of the bf16 weights' values (the TF32 lo parts zero).
-:func:`legacy_tail_plain_bf16` rounds at the same points.
+bf16 (x bf16 with bf16 weights): ``csrc/legacy_tail_bf16.cu``, one bf16
+tensor-core pass per product (m16n8k16, the k7 conv's taps folded into one K),
+rounding where ``l3ac_tpu/ops/pallas/legacy_tail.py`` does (its activations
+stay in the input dtype between steps: each snake in fp32 then rounded, each
+conv's fp32 sum + bias rounded, the residual ``x + h`` rounded after every
+unit; the output conv and tanh in fp32, the audio rounded once). Its buffer
+is :func:`pack_bf16` (``pack`` of bf16 weights). :func:`legacy_tail_plain_bf16`
+rounds at the same points.
 """
 
 from __future__ import annotations
@@ -137,29 +137,80 @@ def _check_shapes(w: TailWeights, C: int, name: str) -> None:
             raise ValueError(f"{name}: {k} {tuple(getattr(w, k).shape)} is not {shape}")
 
 
+def _vectors(w: TailWeights, Cp: int) -> list[torch.Tensor]:
+    """The fp32 vectors of both buffers, zero-filled to Cp: (3, Cp) b1, a1,
+    1 / (a1 + eps), a2, 1 / (a2 + eps), b2; (Cp) ao, 1 / (ao + eps); wo (7,
+    Cp); bo and three zeros. The reciprocals are fp32 quotients of the fp32
+    ``alpha + EPS``."""
+    C = w.ao.shape[0]
+    w = TailWeights(*(t.float() for t in w))
+    vec = lambda t: F.pad(t, (0, Cp - C))
+    recip = lambda a: vec(1.0 / (a + EPS))
+    return [vec(w.b1), vec(w.a1), recip(w.a1), vec(w.a2), recip(w.a2), vec(w.b2), vec(w.ao),
+            recip(w.ao), vec(w.wo[0].t()), F.pad(w.bo, (0, 3))]
+
+
 def pack(w: TailWeights) -> torch.Tensor:
-    """The kernel's one weight buffer, fp32 on the weights' device, in the
-    order of its shared-memory image: w1 (3, 7, Cout, Cin) TF32 hi, then lo;
-    w2 (3, Cout, Cin) hi, then lo, rows of Cp + 4 floats (Cp = C rounded up
-    to 8; the rest zero); then (3, Cp) b1, a1, 1 / (a1 + eps), a2,
-    1 / (a2 + eps), b2; (Cp) ao, 1 / (ao + eps); wo (7, Cp); bo and three
-    zeros. The reciprocals are fp32 quotients of the fp32 ``alpha + EPS``.
-    bf16 weights are packed as their fp32 values, exact in TF32, so their lo
-    parts are zero (the bf16 kernel reads the hi parts only)."""
+    """The kernel's one weight buffer on the weights' device, in the order of
+    its shared-memory image; for bf16 weights :func:`pack_bf16`. fp32: w1
+    (3, 7, Cout, Cin) TF32 hi, then lo; w2 (3, Cout, Cin) hi, then lo, rows of
+    Cp + 4 floats (Cp = C rounded up to 8; the rest zero); then the vectors
+    (:func:`_vectors`)."""
+    if w.w1.dtype == torch.bfloat16:
+        return pack_bf16(w)
     C = w.ao.shape[0]
     _check_shapes(w, C, "legacy_tail pack")
     Cp = padded_channels(C)
     with torch.no_grad():
-        w = TailWeights(*(t.float() for t in w))
         w1 = w.w1.new_zeros(3, 7, Cp, Cp + 4)
         w1[:, :, :C, :C] = w.w1.permute(0, 3, 1, 2)
         w2 = w.w2.new_zeros(3, Cp, Cp + 4)
         w2[:, :C, :C] = w.w2
-        vec = lambda t: F.pad(t, (0, Cp - C))
-        recip = lambda a: vec(1.0 / (a + EPS))
-        parts = [*split_tf32(w1), *split_tf32(w2), vec(w.b1), vec(w.a1), recip(w.a1),
-                 vec(w.a2), recip(w.a2), vec(w.b2), vec(w.ao), recip(w.ao),
-                 vec(w.wo[0].t()), F.pad(w.bo, (0, 3))]
+        parts = [*split_tf32(w1), *split_tf32(w2), *_vectors(w, Cp)]
+        return torch.cat([p.reshape(-1) for p in parts])
+
+
+def bf16_shape(C: int) -> tuple[int, int, int]:
+    """(C8, P, J1) of the bf16 kernel at C channels: n8 tiles of channels,
+    pairs of them (the 1x1's k16 steps), k16 steps of the folded k7 conv."""
+    C8 = -(-C // 8)
+    return C8, -(-C8 // 2), -(-7 * C8 // 2)
+
+
+def packed_bytes_bf16(C: int) -> int:
+    """The bytes of :func:`pack_bf16`'s buffer (``legacy_tail_bf16.cu`` Layout)."""
+    C8, P, J1 = bf16_shape(C)
+    return 3 * (J1 + P) * P * 512 + 4 * (27 * 8 * C8 + 4)
+
+
+def _fragments(m: torch.Tensor) -> torch.Tensor:
+    """(..., 16 P rows n, 16 J columns k) bf16 in B-fragment order (..., J,
+    P, 32 lanes, 8): lane 4 g + t holds m[16 p + 8 s + g][16 j + 8 h + 2 t
+    + e] in the order (s, h, e), two n8 tiles' fragments in 16 bytes."""
+    *lead, N, Kd = m.shape
+    v = m.reshape(*lead, N // 16, 2, 8, Kd // 16, 2, 4, 2)
+    n = len(lead)
+    return v.permute(*range(n), n + 3, n, n + 2, n + 5, n + 1, n + 4, n + 6).contiguous()
+
+
+def pack_bf16(w: TailWeights) -> torch.Tensor:
+    """The bf16 kernel's one buffer (uint8 on the weights' device, 16-byte
+    pieces, ``csrc/legacy_tail_bf16.cu``): the k7 weights folded to (3, Cout,
+    7 x 8 C8) with column 8 C8 tap + c = w1[u, :, c, tap] (zero past C, K
+    zero-filled to steps of 16), then w2 (3, Cout, Cin), both bf16 in
+    B-fragment order (:func:`_fragments`, Cout zero-filled to pairs of n8
+    tiles); then the fp32 vectors of :func:`_vectors` at Cp = 8 C8."""
+    C = w.ao.shape[0]
+    _check_shapes(w, C, "legacy_tail pack_bf16")
+    C8, P, J1 = bf16_shape(C)
+    with torch.no_grad():
+        w1 = torch.zeros(3, 16 * P, 7, 8 * C8, dtype=torch.bfloat16, device=w.w1.device)
+        w1[:, :C, :, :C] = w.w1.bfloat16().permute(0, 1, 3, 2)
+        w1 = F.pad(w1.reshape(3, 16 * P, 7 * 8 * C8), (0, 16 * J1 - 7 * 8 * C8))
+        w2 = torch.zeros(3, 16 * P, 16 * P, dtype=torch.bfloat16, device=w.w1.device)
+        w2[:, :C, :C] = w.w2.bfloat16()
+        parts = [_fragments(w1).view(torch.uint8), _fragments(w2).view(torch.uint8),
+                 *(v.contiguous().view(torch.uint8) for v in _vectors(w, 8 * C8))]
         return torch.cat([p.reshape(-1) for p in parts])
 
 
@@ -186,15 +237,16 @@ def _launch(x0: torch.Tensor, x1: torch.Tensor | None, w: TailWeights | Prepared
     else:
         _check_shapes(w, C, name)
         wp = prepared_tail(w)
-    if wp.shape != (packed_floats(C),):
+    bf16 = x0.dtype == torch.bfloat16
+    if wp.shape != ((packed_bytes_bf16(C),) if bf16 else (packed_floats(C),)):
         raise ValueError(f"{name}: packed weights {tuple(wp.shape)} do not match C = {C}")
     K.check_cuda({"x0": x0, "x1": x1}, x0.device, dtype=x0.dtype)
-    K.check_cuda({"weights": wp}, x0.device)
-    if _build.function("l3ac_legacy_tail_weight_floats", [ctypes.c_int])(C) != wp.numel():
+    K.check_cuda({"weights": wp}, x0.device, dtype=torch.uint8 if bf16 else torch.float32)
+    if not bf16 and \
+            _build.function("l3ac_legacy_tail_weight_floats", [ctypes.c_int])(C) != wp.numel():
         raise RuntimeError(f"{name}: pack's layout differs from the kernel's")
     out = torch.empty((B, T), device=x0.device, dtype=x0.dtype)
-    fn = _build.function("l3ac_legacy_tail_bf16" if x0.dtype == torch.bfloat16
-                         else "l3ac_legacy_tail", _ARGTYPES)
+    fn = _build.function("l3ac_legacy_tail_bf16" if bf16 else "l3ac_legacy_tail", _ARGTYPES)
     err = fn(x0.data_ptr(), _build.ptr(x1), wp.data_ptr(), out.data_ptr(), B, C, T,
              x0.stride(0), x0.stride(1), _build.stream_ptr())
     _build.check(err, name)

@@ -40,9 +40,10 @@ REQUESTS = 3
 # gemm_kernel<false, residual>); its bf16 call is dw_norm_bf16_kernel and two
 # launches of the wgmma core (sm90::gemm_kernel, whose Config ends in the
 # int8 flag). The other bf16 variants carry their dtype in a template
-# argument (the last bool of up_fused_tc_kernel and legacy_tail_kernel, the
-# element type of up_fused_stream_kernel). Each device kernel counts in the
-# first family that names it.
+# argument (the last bool of up_fused_tc_kernel, the element type of
+# up_fused_stream_kernel) or their name (narrow_bf16_kernel,
+# legacy_tail_bf16_kernel, ...). Each device kernel counts in the first
+# family that names it.
 FAMILIES = (
     ("int8_matmul: tc_gemm int8 (3 bf16 passes)", ("gemm_kernel<true",)),
     ("int8_matmul bf16: wgmma core, int8 tiles widened in shared memory",
@@ -52,7 +53,8 @@ FAMILIES = (
     ("up_fused bf16 (B, T, C): tensor cores (1 bf16 pass)", (r"up_fused_tc_kernel<.*, true>",)),
     ("up_fused_ct bf16 (B, C, T): streaming (1 bf16 pass)",
      (r"up_fused_stream_kernel<[^,]*bfloat16",)),
-    ("legacy_tail bf16: tensor cores (1 bf16 pass)", (r"legacy_tail_kernel<\d+, \w+, true>",)),
+    ("legacy_tail bf16: tensor cores (1 bf16 pass, taps folded into K)",
+     ("legacy_tail_bf16_kernel",)),
     ("conv_unit_ct bf16: narrow fused, tensor cores (1 bf16 pass)", ("narrow_bf16_kernel",)),
     ("local_attention bf16: tensor cores (1 bf16 pass)", ("attention_bf16_kernel",)),
     ("first_block bf16: tensor cores (1 bf16 pass)", ("first_block_bf16",)),

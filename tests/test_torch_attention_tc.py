@@ -40,9 +40,13 @@ from l3ac_tpu_torch.models import local_transformer as tlt
 from l3ac_tpu_torch.ops import attention as tattn
 from l3ac_tpu_torch.ops.kernels import local_attention as la
 from l3ac_tpu_torch.ops.kernels.tc_gemm import K_STEP, gemm_emulated
+from _torch_threads import one_thread  # noqa: F401
 
 TOL = 1e-4   # chip_smoke.py: max abs error <= TOL * max(1, max |plain|)
 KEYS = 64    # keys per tile (csrc/local_attention.cu kKeys)
+
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _t(rng, shape, std=1.0):

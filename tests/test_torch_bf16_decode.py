@@ -334,8 +334,8 @@ def test_bf16_tree_round_trips_through_the_port(debug_bf16):
 def test_up_and_tail_buffers_rebuilt_after_a_move_to_bf16():
     """The decoder's prepared buffers are keyed on dtype: after ``.to(bf16)``
     the up path and the tail build new ones, the tensor-core up buffer in
-    bf16, the streaming one and the tail's pack fp32 holding bf16 values (the
-    pack's TF32 lo parts zero)."""
+    bf16, the streaming one fp32 holding bf16 values, the tail's the bf16
+    kernel's own buffer (``pack_bf16``: bf16 fragments, then fp32 vectors)."""
     m = get_model("debug", device="cpu", seed=3)
     dec = m.codec.decoder
     st = dec.stages[-1]
@@ -347,9 +347,10 @@ def test_up_and_tail_buffers_rebuilt_after_a_move_to_bf16():
     w = st.up_weights()
     assert ubf.buffer("stream", w).dtype == torch.float32
     assert uf.prepare_up(w, "tc").dtype == torch.bfloat16
-    assert tbf.weights.w1.dtype == torch.bfloat16 and tbf.packed.dtype == torch.float32
+    assert tbf.weights.w1.dtype == torch.bfloat16 and tbf.packed.dtype == torch.uint8
     C = dec.mc.decoder_dims[-1]
-    Cp = lt.padded_channels(C)
-    w1 = tbf.packed[:2 * 3 * 7 * Cp * (Cp + 4)].view(2, 3, 7, Cp, Cp + 4)
-    assert torch.equal(w1[0, :, :, :C, :C], tbf.weights.w1.float().permute(0, 3, 1, 2))
-    assert not w1[1].any()
+    assert tbf.packed.shape == (lt.packed_bytes_bf16(C),)
+    assert torch.equal(tbf.packed, lt.pack_bf16(tbf.weights))
+    # the first lane's first fragment: W1 (n = 0, k = 0, 1) of unit 0, tap 0
+    first = tbf.packed[:4].view(torch.bfloat16)
+    assert torch.equal(first, tbf.weights.w1[0, 0, :2, 0])

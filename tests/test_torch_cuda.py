@@ -18,7 +18,8 @@ and N, and the two bf16 probe kernels (interleave in both layouts and store
 strategies; conv_unit_stages in all seven modes, at small shapes and at the
 probe's own, bit-equal where the chain has no sum over channels); the bf16
 variants of the four encode kernels against their bf16 plain versions
-(within 2^-6 x max(1, max |plain|)), the widths of ROADMAP C3 against the
+(within 2^-6 x max(1, max |plain|); the narrow one also at C = 96,
+dilation 9, and on x that is not 16-byte aligned), the widths of ROADMAP C3 against the
 fp32 plain versions (head dim 64 and 128, stem Cout up to 256, conv_unit C
 768 and 1024, tail C 4-64, the tensor-core up path at any Co up to 512, the
 streaming one at (B, C, T) Co up to 128), the prepared-weight caches of a
@@ -728,6 +729,27 @@ def test_conv_unit_bf16_kernels(bf16_products, C, T, channels_last, norm, snake)
     fn = cu.conv_unit if channels_last else cu.conv_unit_ct
     cd = 2 if channels_last else 1
     _check_bf16(fn(x, w), cu.conv_unit_plain_bf16(x, w, channel_dim=cd))
+
+
+@pytest.mark.parametrize("C,T,dilation,offset", [(96, 1000, 9, 0), (96, 333, 9, 3),
+                                                 (24, 777, 3, 5), (8, 50, 1, 1)])
+def test_conv_unit_ct_bf16_wide_halo_and_unaligned_x(bf16_products, C, T, dilation, offset):
+    """The narrow bf16 kernel's two side branches. At C = 96 and dilation 9
+    the halo (27 columns) is wider than the 24 that its two x stages leave
+    room for beside the weights, so the outer taps read device memory. x at
+    a storage offset that is no multiple of 8 elements is not 16-byte
+    aligned, so x is staged and out stored element by element."""
+    from l3ac_tpu_torch.ops import kernels as K
+    from l3ac_tpu_torch.ops.kernels import conv_unit as cu
+    dev = bf16_products
+    rng = np.random.default_rng(C + T + offset)
+    w = cu.ConvUnitWeights(*(t.bfloat16() for t in _unit_weights(rng, C, True, True, dev)))
+    x = _t(rng, (offset + 2 * C * T,), 1.0, dev).bfloat16()[offset:].view(2, C, T)
+    assert (x.data_ptr() % 16 == 0) == (offset % 8 == 0)
+    before = K.LAUNCHES["conv_unit_ct"]
+    got = cu.conv_unit_ct(x, w, dilation=dilation)
+    assert K.LAUNCHES["conv_unit_ct"] == before + 1
+    _check_bf16(got, cu.conv_unit_plain_bf16(x, w, channel_dim=1, dilation=dilation))
 
 
 def test_conv_unit_bf16_raises_off_the_tensor_core_widths(bf16_products):

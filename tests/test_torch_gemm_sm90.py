@@ -265,6 +265,22 @@ def test_branch_free_sine_keeps_sinf_accuracy():
     assert (g.sin_ilp(x).double() - torch.sin(x.double())).abs().max().item() <= 1e-7
 
 
+def test_branch_free_sine_square_keeps_sinf_accuracy():
+    """Host twin of the bf16 narrow unit's and tail's sin^2 (sin2_ilp: the
+    sine polynomial alone, 1 - sin^2 r in odd quadrants): within 4 ulp of the
+    correctly rounded sin^2 for |x| <= 100, within 2e-7 absolute up to 8192;
+    it is sin_ilp's square to a few ulp."""
+    rng = _rng(18)
+    x = _t(rng, (200_000,), 40.0).clamp(-100, 100)
+    want = torch.sin(x.double()) ** 2
+    ulp = torch.from_numpy(np.spacing(want.float().numpy()).astype(np.float64))
+    assert ((g.sin2_ilp(x).double() - want).abs() / ulp).max().item() <= 4.0
+    s = g.sin_ilp(x)
+    assert (g.sin2_ilp(x) - s * s).abs().max().item() <= 4e-7
+    x = torch.from_numpy(rng.uniform(-8192, 8192, 200_000).astype(np.float32))
+    assert (g.sin2_ilp(x).double() - torch.sin(x.double()) ** 2).abs().max().item() <= 2e-7
+
+
 def test_newton_quotient_is_ieee_division():
     """Host twin of the kernels' branch-free quotient: equal to fp32 IEEE
     division for the snake's sin^2 / (alpha + eps) and the norm's

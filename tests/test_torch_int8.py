@@ -37,9 +37,13 @@ from l3ac_tpu_torch.ops.kernels import int8_matmul as im
 from l3ac_tpu_torch.ops.kernels.int8_matmul import int8_matmul, int8_matmul_plain
 from l3ac_tpu_torch.ops.quantized import (Int8Linear, dequantize_weight, quantize_params,
                                           quantize_weight)
+from _torch_threads import one_thread  # noqa: F401
 
 RNG = np.random.default_rng(23)
 LENGTHS = (16000, 12345)
+
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _np(shape, std=1.0):

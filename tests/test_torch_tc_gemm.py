@@ -36,6 +36,7 @@ from l3ac_tpu_torch.ops.kernels.int8_matmul import int8_matmul_plain
 from l3ac_tpu_torch.ops.kernels.tc_gemm import (gemm_emulated, split_bf16x3, split_tf32,
                                                 tf32_rna)
 from l3ac_tpu_torch.ops.quantized import quantize_params, quantize_weight
+from _torch_threads import one_thread  # noqa: F401
 
 TOL = 1e-4   # chip_smoke.py: max abs error <= TOL * max(1, max |plain|)
 M = 256      # rows: the codec's M (6000 - 71160) cut
@@ -45,6 +46,9 @@ INT8_SHAPES = [(128, 576), (192, 128), (128, 682), (341, 128), (192, 768), (768,
                (512, 2048), (2048, 512), (256, 1024), (1024, 256)]
 # the wide conv_unit's products (K, N): pw1 (C, 4C) and pw2 (4C, C)
 FP32_SHAPES = [s for C in (192, 256, 512) for s in ((C, 4 * C), (4 * C, C))]
+
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _rng(*key):
