@@ -266,6 +266,29 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map, uint64_t
       : "memory");
 }
 
+// Bulk copy shared -> global (the copy engine, no tensor map): bytes (a
+// multiple of 16) from a 16-byte aligned source to a 16-byte aligned
+// destination; groups committed per thread, waited for until their source
+// has been read (bulk_wait_read) or their writes are done (bulk_wait).
+// Shared memory written by ordinary stores is made visible to the copy by
+// fence_proxy_async in the writing threads, before the barrier.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Named barrier id among `count` threads: bar_sync waits for them, bar_arrive
 // counts this thread in without waiting (ids 1-15; 0 is __syncthreads).
 __device__ __forceinline__ void bar_sync(int id, int count) {
@@ -287,8 +310,10 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 }
 
 // Pins a register after a wgmma_wait: an accumulator read is not moved
-// above the wait that makes it final.
+// above the wait that makes it final; and before a wgmma_fence: a write of
+// an accumulator or of a register A operand is not moved below the fence.
 __device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void fence_operand(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
 
 // The descriptor of a K-major bf16 operand in the 128-byte swizzle (TMA's
 // CU_TENSOR_MAP_SWIZZLE_128B): rows of 64 elements (128 bytes), 16-byte chunk
@@ -371,6 +396,93 @@ __device__ __forceinline__ void wgmma_bf16<256>(float (&d)[128], uint64_t desc_a
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// ---- the bf16 attention (local_attention_bf16.cu) --------------------------
+//
+// d (the warpgroup's 64 x N fp32 tile) = (scale_d ? d : 0) + A (64 x 16) B
+// (16 x N): A bf16 in registers, each warp its 16 rows as the A fragment of
+// mma_bf16 (a = {A[g][2t..], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]}),
+// B bf16 in shared memory through desc_b: K-major (kTransB = 0, B stored N x
+// K, K contiguous) or MN-major (kTransB = 1, B stored K x N, N contiguous).
+// d as for wgmma_tf32.
+template <int N, int kTransB>
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t desc_b, int scale_d) {
+  static_assert(N == 16 || N == 32 || N == 64, "wgmma_bf16_rs: n16, n32, n64");
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
+          "n"(kTransB));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
+          "n"(kTransB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
+          "n"(kTransB));
+  }
+}
+
+// The descriptor of a bf16 operand in one of the swizzled layouts TMA
+// writes (layout 1: 128-byte rows, CU_TENSOR_MAP_SWIZZLE_128B; 2: 64-byte,
+// _64B; 3: 32-byte, _32B): 16-byte chunk j of row r stored at chunk j ^
+// ((r * rowbytes / 128) % (rowbytes / 16)), so that an 8-row group is
+// 8 rowbytes long and the tile aligned to it. lbo and sbo in bytes: for a
+// K-major operand sbo is the distance of 8-row groups along N and lbo is
+// unused; for an MN-major one (rows along K) sbo is the distance of 8-row
+// groups along K and lbo that of row spans along N.
+__device__ __forceinline__ uint64_t wgmma_desc_swz(const void* p, uint32_t lbo, uint32_t sbo,
+                                                   uint32_t layout) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
+}
+
+// 2^x on the special-function unit (one MUFU.EX2, results below 2^-126
+// flushed to zero): within 2 ulp of the exact power
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// TMA: the box at element coordinates (c0 innermost .. c3) of the 4-D tensor
+// map at map into shared memory at dst, completing bytes on bar; elements
+// past the tensor's edges arrive as zeros.
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t* bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
 }
 
 // two fp32 -> a bf16 pair, round to nearest even; lo in the low half

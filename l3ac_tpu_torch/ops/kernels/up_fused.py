@@ -16,7 +16,12 @@ Replaces ``l3ac_tpu/ops/pallas/upsample.py:up_fused_ct`` (body ``_kernel_ct``,
 - ``csrc/up_fused.cu`` (route ``"stream"``): a streaming pass for
   Ci <= 128 and Co <= 128 in either layout (the narrow (B, C, T) stages,
   ``phase_split`` included), bound by its bytes; its conv also runs on the
-  tensor cores, with the output channels as the M axis.
+  tensor cores, with the output channels as the M axis. On bf16 (B, C, T)
+  input the stream route runs ``csrc/up_fused_bf16.cu`` instead (warp
+  tiles on a persistent grid, x staged in bf16 by 16-byte pieces a tile
+  ahead, W resident in mma.sync A-fragment order, z and the norm's
+  statistics in registers); the bf16 instance of ``up_fused.cu`` serves only
+  the (B, T, C) input at stream shapes (:func:`stream_buffer`).
 
 A shape that neither takes raises on a CUDA tensor; the plain version runs
 only for a CPU tensor. The decoder hands them no such shape: its (B, C, T)
@@ -112,6 +117,13 @@ def route_for(Ci: int, Co: int, channels_last: bool) -> str | None:
     return None
 
 
+def stream_buffer(dtype: torch.dtype, channels_last: bool) -> str:
+    """The :class:`UpPrepared` buffer (and so the kernel) of the stream
+    route: ``"stream_bf16"`` (``csrc/up_fused_bf16.cu``) for bf16 (B, C, T)
+    input, else ``"stream"`` (``csrc/up_fused.cu``: fp32, and bf16 (B, T, C))."""
+    return "stream_bf16" if dtype == torch.bfloat16 and not channels_last else "stream"
+
+
 def tc_padded_co(Co: int) -> int:
     """Co as the tensor-core kernel's tile holds it: rounded up to 32, and
     above 256 to 64 (its warps cover 32 columns, in pairs above 256)."""
@@ -135,7 +147,11 @@ def prepare_up(w: UpWeights, route: str) -> torch.Tensor:
     the norm to the same padded Co; in the weights' dtype (fp32, or bf16 for
     the bf16 kernel). ``"stream"``: W zero-padded to (Co rounded up to 16, Ci
     rounded up to 8, plus 4), the A operand's rows as the kernel stages them;
-    fp32 for both kernels (a bf16 weight set's values, exact)."""
+    fp32 for both of ``up_fused.cu``'s instances (a bf16 weight set's values,
+    exact). ``"stream_bf16"`` (``up_fused_bf16.cu``): W zero-padded to (Co,
+    Ci) rounded up to 16 in the A-fragment order of mma.sync m16n8k16
+    (:func:`stream_bf16_fragments`), then b, norm_w and norm_b zero-padded to
+    the same Co; all bf16."""
     with torch.no_grad():
         Co, Ci = w.w.shape
         vec = lambda v: v
@@ -147,10 +163,29 @@ def prepare_up(w: UpWeights, route: str) -> torch.Tensor:
             vec = lambda v: F.pad(v, (0, Cp - Co))
         elif route == "stream":
             wk = F.pad(w.w, (0, -(-Ci // 8) * 8 + 4 - Ci, 0, -(-Co // 16) * 16 - Co))
+        elif route == "stream_bf16":
+            Mp = -(-Co // 16) * 16
+            wk = stream_bf16_fragments(w.w)
+            dtype = torch.bfloat16
+            vec = lambda v: F.pad(v, (0, Mp - Co))
         else:
             raise ValueError(f"prepare_up: unknown route {route!r}")
         parts = [wk] + [vec(v) for v in (w.b, w.norm_w, w.norm_b) if v is not None]
         return torch.cat([t.reshape(-1).to(dtype) for t in parts])
+
+
+def stream_bf16_fragments(w: torch.Tensor) -> torch.Tensor:
+    """W (Co, Ci) zero-padded to multiples of 16 and laid out as
+    ``up_fused_bf16.cu`` reads it: [m16 tile][k16 step][lane][register][pair],
+    register j of lane 4 g + t holding row g + 8 (j % 2) and columns 2t + 8
+    (j // 2) + (0, 1) of the tile (mma.sync m16n8k16's A fragment)."""
+    Co, Ci = w.shape
+    Mp, Kp = -(-Co // 16) * 16, -(-Ci // 16) * 16
+    wp = F.pad(w, (0, Kp - Ci, 0, Mp - Co)).view(Mp // 16, 16, Kp // 16, 16).permute(0, 2, 1, 3)
+    lane, j = torch.arange(32)[:, None, None], torch.arange(4)[None, :, None]
+    rows = (lane // 4 + 8 * (j % 2)).expand(32, 4, 2)
+    cols = 2 * (lane % 4) + 8 * (j // 2) + torch.arange(2)
+    return wp[:, :, rows, cols].contiguous()   # (Mp / 16, Kp / 16, 32, 4, 2)
 
 
 class UpPrepared(dict):
@@ -178,6 +213,7 @@ _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 7
     [ctypes.c_int, ctypes.c_void_p]
 _TC_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _TC_BF16_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_CT_BF16_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 ORDER_TIME, ORDER_CHANNEL, ORDER_PHASE = 0, 1, 2  # fastest axis of the stores
 
 
@@ -201,11 +237,12 @@ def _launch(x: torch.Tensor, w: UpWeights, scale: int, *, channels_last: bool,
             f"({'(B, T, C)' if channels_last else '(B, C, T)'}): the tensor-core kernel "
             f"takes (B, T, C) with Ci <= {TC_WIDE_MAX_CI} and Co <= {TC_WIDE_MAX_CO}, "
             f"the streaming one Ci <= {STREAM_MAX_CI} and Co <= {STREAM_MAX_CO}")
-    buf = (prepared if prepared is not None else prepared_up(w)).buffer(route, w)
     bf16 = x.dtype == torch.bfloat16
+    kind = stream_buffer(x.dtype, channels_last) if route == "stream" else route
+    buf = (prepared if prepared is not None else prepared_up(w)).buffer(kind, w)
     K.check_cuda({"x": x}, x.device, dtype=K.DTYPES)
     K.check_cuda({"prepared": buf}, x.device,
-                 dtype=torch.bfloat16 if bf16 and route == "tc" else torch.float32)
+                 dtype=torch.bfloat16 if bf16 and kind != "stream" else torch.float32)
     if phase_split:
         out = torch.empty((scale, B, Co, T), device=x.device, dtype=x.dtype)
     elif channels_last:
@@ -224,6 +261,10 @@ def _launch(x: torch.Tensor, w: UpWeights, scale: int, *, channels_last: bool,
             fn = _build.function("l3ac_up_fused_tc", _TC_ARGTYPES)
             err = fn(x.data_ptr(), buf.data_ptr(), None, p_b, p_nw, p_nb, out.data_ptr(), B, Ci,
                      Co, T, scale, _build.stream_ptr())
+    elif kind == "stream_bf16":
+        fn = _build.function("l3ac_up_fused_ct_bf16", _CT_BF16_ARGTYPES)
+        err = fn(x.data_ptr(), buf.data_ptr(), out.data_ptr(), int(w.norm_w is not None), B, Ci,
+                 Co, T, scale, int(phase_split), _build.stream_ptr())
     else:
         if phase_split:
             os_, order = (Co * T, T, 1, B * Co * T), ORDER_PHASE

@@ -42,7 +42,7 @@ REQUESTS = 3
 # int8 flag). The other bf16 variants carry their dtype in a template
 # argument (the last bool of up_fused_tc_kernel, the element type of
 # up_fused_stream_kernel) or their name (narrow_bf16_kernel,
-# legacy_tail_bf16_kernel, ...). Each device kernel counts in the first
+# legacy_tail_bf16_kernel, up_bf16_kernel, ...). Each device kernel counts in the first
 # family that names it.
 FAMILIES = (
     ("int8_matmul: tc_gemm int8 (3 bf16 passes)", ("gemm_kernel<true",)),
@@ -51,12 +51,13 @@ FAMILIES = (
     ("conv_unit bf16: wgmma core (pw1, pw2)", ("sm90::gemm_kernel",)),
     ("conv_unit bf16: dw conv + ChannelNorm", ("dw_norm_bf16_kernel",)),
     ("up_fused bf16 (B, T, C): tensor cores (1 bf16 pass)", (r"up_fused_tc_kernel<.*, true>",)),
-    ("up_fused_ct bf16 (B, C, T): streaming (1 bf16 pass)",
+    ("up_fused_ct bf16 (B, C, T): warp tiles, z in registers (1 bf16 pass)", ("up_bf16_kernel",)),
+    ("up_fused bf16 (B, T, C) at stream shapes: streaming (1 bf16 pass)",
      (r"up_fused_stream_kernel<[^,]*bfloat16",)),
     ("legacy_tail bf16: tensor cores (1 bf16 pass, taps folded into K)",
      ("legacy_tail_bf16_kernel",)),
     ("conv_unit_ct bf16: narrow fused, tensor cores (1 bf16 pass)", ("narrow_bf16_kernel",)),
-    ("local_attention bf16: tensor cores (1 bf16 pass)", ("attention_bf16_kernel",)),
+    ("local_attention bf16: TMA + wgmma, ex2 softmax", ("attention_bf16_kernel",)),
     ("first_block bf16: tensor cores (1 bf16 pass)", ("first_block_bf16",)),
     ("conv_unit (C % 64 == 0): tc_gemm fp32 (3xTF32)", ("gemm_kernel<false",)),
     ("conv_unit (C % 64 == 0): dw conv + ChannelNorm", ("dw_norm_kernel",)),

@@ -3,7 +3,12 @@ alternatives and ablations, at the two window shapes of one 1kbps 8 x 10 s
 request, q / k / v as the model's strided head views and the bias as its
 table.
 
-    python3 -m l3ac_tpu_torch.tools.attention_variants
+    python3 -m l3ac_tpu_torch.tools.attention_variants [--bf16]
+
+``--bf16`` times the bf16 kernels instead, on bf16 q / k / v and a bf16
+table, held against the bf16 plain version within 2^-6 x max(1, max
+|plain|): the kernel the port runs with its ablations, and the PR 12 kernel
+(``tools/attention_bf16_mma.cu``, built only here) with its own.
 
 Card only. Each variant is the kernel's source with named text
 substitutions (each must apply exactly once), built with the kernel
@@ -19,6 +24,7 @@ is what the port runs.
 from __future__ import annotations
 
 import argparse
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -33,6 +39,7 @@ B, H, D = 8, 6, 32
 # (n, T, launches per 8 x 10 s request (encode, decode)): chip_smoke.py phase 3
 SHAPES = ((750, 2250, (1, 2)), (250, 750, (2, 3)))
 TOL = 1e-4
+TOL_BF16 = 2.0 ** -6
 ITERS = 20
 
 # (name, substitutions, computes the attention)
@@ -51,14 +58,68 @@ VARIANTS = (
 )
 
 
+# the bf16 kernel the port runs (csrc/local_attention_bf16.cu, the TMA route),
+# its alternatives and ablations
+SOURCE_BF16 = _build.CSRC_DIR / "local_attention_bf16.cu"
+_NO_TILE_BF16 = (("  return (p.n + it.i0 + rows - (it.w == 0 ? p.n : 0) + kKeys - 1) / kKeys;",
+                  "  return 0 * rows;"),)
+VARIANTS_BF16 = (
+    ("TMA + wgmma, 2 consumer warpgroups on 128-row items, 4-stage ring, ex2 softmax", (), True),
+    ("1 consumer warpgroup (64-row items)",
+     (("constexpr int kConsumers = 2;", "constexpr int kConsumers = 1;"),), True),
+    ("2-stage ring", (("kStages = kD16 <= 2 ? 4 : 3;", "kStages = 2;"),), True),
+    ("ablation: no exp (p = x - m)",
+     (("const float p0 = ptx::ex2(sc[4 * j] - mu_a), p1 = ptx::ex2(sc[4 * j + 1] - mu_a);",
+       "const float p0 = sc[4 * j] - mu_a, p1 = sc[4 * j + 1] - mu_a;"),
+      ("const float p2 = ptx::ex2(sc[4 * j + 2] - mu_b), p3 = ptx::ex2(sc[4 * j + 3] - mu_b);",
+       "const float p2 = sc[4 * j + 2] - mu_b, p3 = sc[4 * j + 3] - mu_b;")), False),
+    ("ablation: no mask and no bias",
+     (("const bool diag = j0 + kKeys - 1 > n + i0w;", "const bool diag = false;"),
+      ("sc[4 * j + e] = fmaf(sc[4 * j + e], kLog2e, tv[2 + 2 * j + e]);",
+       "sc[4 * j + e] *= kLog2e;"),
+      ("sc[4 * j + 2 + e] = fmaf(sc[4 * j + 2 + e], kLog2e, tv[2 * j + e]);",
+       "sc[4 * j + 2 + e] *= kLog2e;")), False),
+    ("ablation: P V on one k16 step of four (its other products dropped)",
+     (("for (int kk = 0; kk < 4; ++kk)\n#pragma unroll\n          for (int hf",
+       "for (int kk = 0; kk < 1; ++kk)\n#pragma unroll\n          for (int hf"),), False),
+    ("ablation: K / V loads only (no products, no softmax)",
+     (("if (i0w < n && j0 <= n + r_hi) {", "if (false) {"),), False),
+    ("ablation: no key tile (the prologue and the store alone)", _NO_TILE_BF16, False),
+)
+
+# the PR 12 bf16 kernel (one mma.sync m16n8k16 pass, 2-stage cp.async ring)
+# and the ablations that say where its time went
+SOURCE_PR12 = Path(__file__).with_name("attention_bf16_mma.cu")
+VARIANTS_PR12 = (
+    ("PR 12 kernel: 4 warps x 16 query rows, mma.sync m16n8k16, 2-stage cp.async ring", (), True),
+    ("PR 12, ablation: no exp (p = s - m)",
+     (("const float pe = expf(s[nt][e] - (e < 2 ? mu_a : mu_b));",
+       "const float pe = s[nt][e] - (e < 2 ? mu_a : mu_b);"),), False),
+    ("PR 12, ablation: no mask and no bias",
+     (("const bool ok = i < n && j <= n + i;", "const bool ok = true;"),
+      ("if (kBias == kTableBias) x += ok ? tab[n + i - j] : 0.0f;", "")), False),
+    ("PR 12, ablation: no P V",
+     (("for (int kk = 0; kk < 4; ++kk) {\n      const uint32_t pf[4]",
+       "for (int kk = 0; kk < 0; ++kk) {\n      const uint32_t pf[4]"),), False),
+    ("PR 12, ablation: K / V loads only (no products, no softmax)",
+     (("if (!warp_live || j0 > n + i_last) continue;", "continue;"),), False),
+    ("PR 12, ablation: no key tile (the prologue and the store alone)",
+     (("const int ntiles = (j_end - j_begin + kKeys - 1) / kKeys;", "const int ntiles = 0;"),),
+     False),
+)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.parse_args(argv)
+    ap.add_argument("--bf16", action="store_true", help="the bf16 kernels and their ablations")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("attention_variants: CUDA is not available (it times kernels on the card)")
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain version in fp32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    if args.bf16:
+        return main_bf16(dev)
     libs = build_variants("attention_variants", SOURCE, [subs for _, subs, _ in VARIANTS],
                           "l3ac_local_attention", la._ARGTYPES)
     print(f"[{describe(dev)}] local_attention variants, ms per call (max abs error)", flush=True)
@@ -94,6 +155,64 @@ def main(argv=None) -> int:
         print(line, flush=True)
     print("summed per 8 x 10 s request (encode, decode):")
     for i, (name, _, _) in enumerate(VARIANTS):
+        print(f"  [{i}] {sums[i][0]:.3f} / {sums[i][1]:.3f} ms  {name}")
+    return 0
+
+
+def main_bf16(dev: torch.device) -> int:
+    """The bf16 kernels and their ablations at the same shapes, bf16 inputs."""
+    # (source, variants, C symbol, its argtypes, route code (None: the PR 12
+    # kernel's signature), ptxas entry at D = 32 with the table)
+    groups = [(SOURCE_BF16, VARIANTS_BF16, "l3ac_local_attention_bf16", la._ARGTYPES_BF16,
+               la.ROUTE_CODE["tma"], "attention_bf16_kernelILi2ELi2ELi0E"),
+              (SOURCE_PR12, VARIANTS_PR12, "l3ac_local_attention_bf16", la._ARGTYPES, None,
+               "attention_bf16_kernelILi2ELi2EEE")]
+    names, libs = [], []
+    for source, variants, symbol, argtypes, route, entry in groups:
+        built = build_variants(f"attention_variants_{source.stem}", source,
+                               [subs for _, subs, _ in variants], symbol, argtypes)
+        names += [(name, exact, route) for name, _, exact in variants]
+        libs += [(getattr(lib, symbol), ptxas_usage(log, entry)) for lib, log in built]
+    print(f"[{describe(dev)}] bf16 local_attention variants, ms per call (max abs error)",
+          flush=True)
+    for i, ((name, _, _), (_, usage)) in enumerate(zip(names, libs)):
+        print(f"  [{i}] {name}: {usage}", flush=True)
+    rng = np.random.default_rng(0)
+    bf = torch.bfloat16
+    stream = torch.cuda.current_stream().cuda_stream
+    scale = float(torch.tensor(D ** -0.5, dtype=bf))
+    sums = [[0.0, 0.0] for _ in names]
+    for n, T, per in SHAPES:
+        qkv = torch.from_numpy(rng.standard_normal((B, T, 3 * H * D)).astype(np.float32)).to(dev)
+        q, k, v = (c.view(B, T, H, D).permute(0, 2, 1, 3) for c in qkv.to(bf).chunk(3, dim=-1))
+        table = torch.from_numpy(rng.standard_normal((2 * n, H)).astype(np.float32)).to(dev).to(bf)
+        prepared = la.prepare_table(table)
+        want = la.local_attention_plain(q, k, v, window_size=n, bias_table=table).float()
+        out = torch.empty(B, T, H, D, device=dev, dtype=bf)
+        strides = [s for t in (q, k, v) for s in t.stride()[:3]]
+        line = f"n={n} T={T}:"
+        for i, ((name, exact, route), (fn, _)) in enumerate(zip(names, libs)):
+            extra = () if route is None else (route,)
+            tab = table if route is None else prepared  # the PR 12 kernel reads the bf16 table
+
+            def call(fn=fn, extra=extra, tab=tab):
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, tab.data_ptr(),
+                         out.data_ptr(), B, H, T, n, D, *strides, scale, *extra, stream)
+                if err:
+                    raise RuntimeError(f"attention_variants bf16 [{i}]: CUDA error {err}")
+            call()
+            torch.cuda.synchronize()
+            err = (out.permute(0, 2, 1, 3).float() - want).abs().max().item()
+            if exact and not err <= TOL_BF16 * max(1.0, want.abs().max().item()):
+                raise AssertionError(f"attention_variants bf16 [{i}] n={n}: max abs error {err}")
+            ms = time_ms(call, dev, ITERS)
+            sums[i][0] += per[0] * ms
+            sums[i][1] += per[1] * ms
+            line += f" [{i}] {ms:.4f}" + (f" ({err:.1e})" if exact else "")
+            print(f"  n={n} [{i}] {ms:.4f} ms", flush=True)  # a fault names its variant
+        print(line, flush=True)
+    print("summed per 8 x 10 s request (encode, decode):")
+    for i, (name, _, _) in enumerate(names):
         print(f"  [{i}] {sums[i][0]:.3f} / {sums[i][1]:.3f} ms  {name}")
     return 0
 

@@ -4,7 +4,13 @@ their measured alternatives and ablations, at the four up paths of one
 the tensor-core kernel, (8, 96, 26685) -> 48 s3 and (8, 48, 80055) -> 24 s2
 (phase_split) on the streaming one.
 
-    python3 -m l3ac_tpu_torch.tools.up_variants
+    python3 -m l3ac_tpu_torch.tools.up_variants [--bf16]
+
+``--bf16`` times the bf16 streaming kernels at the two (B, C, T) shapes
+instead, on bf16 x and weights, held against ``up_fused_plain_bf16`` within
+2^-6 x max(1, max |plain|): the kernel the port runs with its ablations, and
+the PR 12 kernel (the bf16 instance of ``csrc/up_fused.cu``) with its own,
+beside the conv alone in bf16 and the bytes bound.
 
 Card only. Each variant is the kernel's source with named text
 substitutions (each must apply exactly once), built with the kernel
@@ -41,6 +47,7 @@ B = 8
 TC_SHAPES = ((1779, 512, 256, 5), (8895, 256, 96, 3))       # (T, Ci, Co, s), (B, T, C)
 STREAM_SHAPES = ((26685, 96, 48, 3, False), (80055, 48, 24, 2, True))  # + phase_split
 TOL = 1e-4
+TOL_BF16 = 2.0 ** -6
 ITERS = 20
 PEAK_BYTES = 3.35e12
 
@@ -133,15 +140,63 @@ STREAM_VARIANTS = (
      (("  __syncthreads();  // W and x are dead", "  return;\n  __syncthreads();  // W"),), False),
 )
 
+# the bf16 (B, C, T) kernel the port runs (csrc/up_fused_bf16.cu) and its ablations
+SOURCE_BF16 = _build.CSRC_DIR / "up_fused_bf16.cu"
+_NO_NORM_BF16 = (("const bool norm = a.norm != 0;", "const bool norm = false;"),)
+STREAM_VARIANTS_BF16 = (
+    ("a block per SM of <= 16 warps x windows of 2 n8 column tiles, x by rows of 16-byte "
+     "pieces a tile ahead, W fragments resident, z in registers, rows out by bulk copy", (), True),
+    ("two blocks per SM of up to 8 warps",
+     (("constexpr int kMaxWarps = 16;", "constexpr int kMaxWarps = 8;"),
+      ("constexpr int kBlocksPerSm = 1;", "constexpr int kBlocksPerSm = 2;")), True),
+    ("windows of 4 n8 column tiles (30 owned columns), up to 8 warps",
+     (("constexpr int kTiles = 2;", "constexpr int kTiles = 4;"),
+      ("constexpr int kMaxWarps = 16;", "constexpr int kMaxWarps = 8;")), True),
+    ("a 3-window x ring (two tiles in flight)",
+     (("constexpr int kStages = 2;", "constexpr int kStages = 3;"),), True),
+    ("IEEE division and square root in the statistics",
+     (("m0[u] = sum8(s0) * inv_co;", "m0[u] = sum8(s0) / Co;"),
+      ("m1[u] = sum8(s1) * inv_co;", "m1[u] = sum8(s1) / Co;"),
+      ("rsd = rsqrtf(fmaf(fmaxf(qs, 0.0f), inv_co, kNormEps));",
+       "rsd = 1.0f / sqrtf(fmaxf(qs, 0.0f) / Co + kNormEps);")), True),
+    ("ablation: the conv only (x in, z summed, nothing stored)",
+     (("    // z[u][mt][e]: channel 16 mt + g + 8 (e >> 1)",
+       "    {\n      float sink = 0.0f;\n      for (int u = 0; u < R; ++u)\n"
+       "        for (int mt = 0; mt < kMT; ++mt)\n          for (int e = 0; e < 4; ++e) "
+       "sink += z[u][mt][e];\n      if (sink == -1234.5f) a.out[lane] = __float2bfloat16_rn(sink);\n"
+       "      continue;\n    }\n    // z[u][mt][e]: channel 16 mt + g + 8 (e >> 1)"),), False),
+    ("ablation: no norm (no statistics)", _NO_NORM_BF16, False),
+    ("ablation: x in and out only (no conv, no blend, no norm)",
+     _NO_NORM_BF16 + (("for (int ks = 0; ks < KS; ++ks) {", "for (int ks = 0; ks < 0; ++ks) {"),
+                      ("for (int p = 0; p < (kS > 0 ? kS : s); ++p) {",
+                       "for (int p = 0; p < 0; ++p) {")), False),
+)
+_NO_CONV_PR12 = (("  {\n    constexpr int kTilesPerPass", "  if (false) {\n    constexpr int kTilesPerPass"),)
+_NO_NORM_PR12 = (("const bool norm = a.norm != 0;", "const bool norm = false;"),)
+# the PR 12 bf16 stream kernel (up_fused.cu's bf16 instance) and its ablations
+STREAM_VARIANTS_PR12 = (
+    ("PR 12 kernel: x staged as fp32, W fp32 rounded per fragment, m16n8k8, 5 phases", (), True),
+    ("PR 12, ablation: the conv only (x in, z into shared memory)",
+     (("  __syncthreads();  // W and x are dead", "  return;\n  __syncthreads();  // W"),), False),
+    ("PR 12, ablation: no norm", _NO_NORM_PR12, False),
+    ("PR 12, ablation: x in and out only (no conv, no norm, no blend)",
+     _NO_CONV_PR12 + _NO_NORM_PR12 +
+     (("    if (jt < cols) {\n      for (int p = 0; p < s; ++p) {",
+       "    if (jt < 0) {\n      for (int p = 0; p < s; ++p) {"),), False),
+)
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.parse_args(argv)
+    ap.add_argument("--bf16", action="store_true", help="the bf16 stream kernels and their ablations")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("up_variants: CUDA is not available (it times kernels on the card)")
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain version and the yardstick in fp32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    if args.bf16:
+        return main_bf16(dev)
     tc_libs = build_variants("up_variants_tc", TC_SOURCE, [s for _, s, _ in TC_VARIANTS],
                              "l3ac_up_fused_tc", uf._TC_ARGTYPES)
     wg_libs = build_variants("up_variants_wgmma", WGMMA_SOURCE,
@@ -230,6 +285,72 @@ def main(argv=None) -> int:
         cases.append((f"(B, Ci, T) = ({B}, {Ci}, {T}) -> Co {Co}, s {s}"
                       f"{', phase_split' if split else ''}", call, want, conv, bound))
     report("stream", STREAM_VARIANTS, st_libs, "up_fused_stream_kernelILi3E", cases)
+    return 0
+
+
+def main_bf16(dev: torch.device) -> int:
+    """The bf16 stream kernels at the two (B, C, T) shapes of a decode."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    # (source, variants, C symbol, its argtypes, prepared buffer, ptxas entry at Co = 48)
+    groups = [(SOURCE_BF16, STREAM_VARIANTS_BF16, "l3ac_up_fused_ct_bf16", uf._CT_BF16_ARGTYPES,
+               "stream_bf16", "up_bf16_kernelILi3ELi3E"),
+              (STREAM_SOURCE, STREAM_VARIANTS_PR12, "l3ac_up_fused_bf16", uf._ARGTYPES, "stream",
+               "bfloat16Li3E")]
+    names, fns = [], []
+    for source, variants, symbol, argtypes, kind, entry in groups:
+        built = build_variants(f"up_variants_{source.stem}_bf16", source,
+                               [subs for _, subs, _ in variants], symbol, argtypes)
+        names += [(name, exact, kind) for name, _, exact in variants]
+        fns += [(getattr(lib, symbol), ptxas_usage(log, entry)) for lib, log in built]
+    print(f"[{describe(dev)}] bf16 up_fused_ct stream variants, ms per call", flush=True)
+    for i, ((name, _, _), (_, usage)) in enumerate(zip(names, fns)):
+        print(f"  [{i}] {name}: {usage}", flush=True)
+    rng = np.random.default_rng(0)
+    bf = torch.bfloat16
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def t(*shape, std=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * std).astype(np.float32)).to(dev).to(bf)
+
+    totals = [0.0] * len(names)
+    for T, Ci, Co, s, split in STREAM_SHAPES:
+        w = uf.UpWeights(t(Co, Ci, std=Ci ** -0.5), t(Co, std=0.3), 1.0 + t(Co, std=0.2),
+                         t(Co, std=0.2))
+        x = t(B, Ci, T)
+        bufs = {kind: uf.prepare_up(w, kind) for kind in {k for _, _, k in names}}
+        out = torch.empty((s, B, Co, T) if split else (B, Co, T * s), device=dev, dtype=bf)
+        if split:
+            os_, order = (Co * T, T, 1, B * Co * T), uf.ORDER_PHASE
+        else:
+            os_, order = (Co * T * s, T * s, s, 1), uf.ORDER_TIME
+        want16 = uf.up_fused_plain_bf16(x, w, scale=s, channel_dim=1, phase_split=split)
+        want16 = torch.stack(want16) if split else want16
+        want = want16.float()
+        conv = time_ms(lambda: torch.einsum("oc,bct->bot", w.w, x) + w.b[:, None], dev, ITERS)
+        bound = 2 * B * T * (Ci + s * Co) / PEAK_BYTES * 1e3
+        print(f"  (B, Ci, T) = ({B}, {Ci}, {T}) -> Co {Co}, s {s}{', phase_split' if split else ''}: "
+              f"conv alone (einsum bf16) {conv:.4f} ms, bytes bound {bound:.4f} ms", flush=True)
+        for i, ((name, exact, kind), (fn, _)) in enumerate(zip(names, fns)):
+            def call(fn=fn, kind=kind):
+                if kind == "stream_bf16":
+                    err = fn(x.data_ptr(), bufs[kind].data_ptr(), out.data_ptr(), 1, B, Ci, Co, T,
+                             s, int(split), stream)
+                else:
+                    err = fn(x.data_ptr(), bufs[kind].data_ptr(), out.data_ptr(), 1, B, Ci, Co, T,
+                             s, x.stride(0), T, 1, *os_, order, stream)
+                if err:
+                    raise RuntimeError(f"up_variants bf16 [{i}]: CUDA error {err}")
+            call()
+            torch.cuda.synchronize()
+            err = (out.float() - want).abs().max().item()
+            equal = (out.view(torch.int16) == want16.view(torch.int16)).float().mean().item()
+            if exact and not err <= TOL_BF16 * max(1.0, want.abs().max().item()):
+                raise AssertionError(f"up_variants bf16 [{i}]: max abs error {err}")
+            ms = time_ms(call, dev, ITERS)
+            totals[i] += ms
+            print(f"    [{i}] {ms:.4f} ms" + (f" (max abs error {err:.1e}, bit-equal {equal:.6f})"
+                                              if exact else "") + f": {name}", flush=True)
+    print("  per decode: " + ", ".join(f"[{i}] {v:.4f}" for i, v in enumerate(totals)), flush=True)
     return 0
 
 

@@ -27,7 +27,12 @@ model moved to bf16; the bf16 variants of the decode kernels (both up
 paths, the tail in both input modes, int8_matmul) against their bf16 plain
 versions at the released and at ragged shapes, each launching its bf16
 kernel on bf16 input (launch counts and output dtype), and a bf16 debug
-decode and bf16 int8 roundtrip against the CPU. Needs a
+decode and bf16 int8 roundtrip against the CPU; the bf16 attention
+(``local_attention_bf16.cu``) at n = 16, 64, 100, 250, 750, one and three
+windows, D = 8-128, the table, the full bias and none, on its TMA and its
+cp.async route (the route counted), and the bf16 (B, C, T) up path
+(``up_fused_bf16.cu``) at the 1kbps widths on either side of its warp tile
+and on x at a storage offset that is no multiple of 8. Needs a
 CUDA device; skips without one. This file imports no JAX, so it runs on a
 machine without it:
 
@@ -781,6 +786,46 @@ def test_local_attention_bf16_kernel(bf16_products, D, n, bias):
                 la.local_attention_plain(q, k, v, window_size=n, **kw))
 
 
+@pytest.mark.parametrize("n,W,D,bias,view", [
+    (16, 3, 32, "table", "proj"), (64, 1, 32, "full", "proj"), (250, 3, 32, "table", "proj"),
+    (750, 1, 32, "table", "proj"), (750, 3, 32, "none", "proj"), (100, 3, 32, "none", "proj"),
+    (16, 1, 8, "full", "proj"), (64, 3, 20, "table", "proj"), (100, 1, 64, "full", "proj"),
+    (250, 3, 128, "table", "proj"), (16, 3, 128, "none", "contig"), (100, 3, 32, "table", "proj+4"),
+    (64, 1, 8, "full", "proj+4"), (250, 3, 64, "none", "proj+4"), (750, 1, 20, "table", "contig"),
+    (64, 3, 16, "table", "proj"), (100, 2, 64, "table", "contig")])
+def test_local_attention_bf16_routes(bf16_products, n, W, D, bias, view):
+    """The bf16 kernel at n = 16, 64, 250, 750 and 100 (no multiple of 64),
+    one to three windows, D = 8, 16, 20, 32, 64, 128, the table, the full bias
+    and none, on the model's head views of one (B, T, 3 H D) projection, on
+    that projection at a storage offset of 4 elements (8-byte aligned: the
+    cp.async route) and on contiguous operands; the route counted where the
+    strides and addresses put it."""
+    from l3ac_tpu_torch.ops import kernels as K
+    from l3ac_tpu_torch.ops.attention import expand_position_table
+    from l3ac_tpu_torch.ops.kernels import local_attention as la
+    dev = bf16_products
+    rng = np.random.default_rng([n, W, D])
+    B, H, T = 2, 3, n * W
+    if view == "contig":
+        q, k, v = (_t(rng, (B, H, T, D), 1.0, dev).bfloat16() for _ in range(3))
+    else:
+        off = 4 if view == "proj+4" else 0
+        buf = _t(rng, (off + B * T * 3 * H * D,), 1.0, dev).bfloat16()
+        qkv = buf[off:].view(B, T, 3 * H * D)
+        q, k, v = (c.view(B, T, H, D).permute(0, 2, 1, 3) for c in qkv.chunk(3, dim=-1))
+    table = _t(rng, (2 * n, H), 1.0, dev).bfloat16()
+    kw = {"table": {"bias_table": table}, "full": {"bias": expand_position_table(table)},
+          "none": {}}[bias]
+    expected = "tma" if view != "proj+4" and D % 8 == 0 else "cp_async"
+    before, K.LAUNCHES["local_attention"] = dict(la.ROUTES), 0
+    got = la.local_attention(q, k, v, window_size=n, **kw)
+    assert K.LAUNCHES["local_attention"] == 1
+    assert {r: la.ROUTES[r] - before[r] for r in la.ROUTES} == \
+        {r: int(r == expected) for r in la.ROUTES}
+    assert got.shape == (B, H, T, D) and got.permute(0, 2, 1, 3).is_contiguous()
+    _check_bf16(got, la.local_attention_plain(q, k, v, window_size=n, **kw))
+
+
 @pytest.mark.parametrize("D", [40, 64, 100, 128])
 def test_local_attention_kernel_at_wide_heads(dev, D):
     from l3ac_tpu_torch.ops.kernels import local_attention as la
@@ -938,6 +983,44 @@ def test_up_fused_bf16_kernels(bf16_products, Ci, Co, T, scale, cl, split, norm)
     _check_bf16(got, want)
     _check_bf16(torch.cat([got[..., :8], got[..., -8:]], -1),
                 torch.cat([want[..., :8], want[..., -8:]], -1))
+
+
+@pytest.mark.parametrize("T", [1, 63, 65, 1001])
+@pytest.mark.parametrize("Ci,Co,scale,split", [(96, 48, 3, False), (48, 24, 2, True)])
+def test_up_fused_ct_bf16_kernel_at_the_real_widths(bf16_products, Ci, Co, scale, split, T):
+    """csrc/up_fused_bf16.cu at the 1kbps (B, C, T) widths: T = 1, below and
+    above its 30-column warp tile (63, 65) and 1001; the stream route
+    counted, the edge columns held on their own."""
+    from l3ac_tpu_torch.ops.kernels import up_fused as uf
+    w, x = _bf16_up(*_up_case(bf16_products, Ci, Co, T, False))
+    before = uf.ROUTES["stream"]
+    got = uf.up_fused_ct(x, w, scale=scale, phase_split=split)
+    want = uf.up_fused_plain_bf16(x, w, scale=scale, channel_dim=1, phase_split=split)
+    assert uf.ROUTES["stream"] == before + 1
+    if split:
+        got, want = torch.stack(got), torch.stack(want)
+    _check_bf16(got, want)
+    _check_bf16(torch.cat([got[..., :8], got[..., -8:]], -1),
+                torch.cat([want[..., :8], want[..., -8:]], -1))
+
+
+@pytest.mark.parametrize("offset,Ci,Co,scale,split,T", [(3, 96, 48, 3, False, 1001),
+                                                        (5, 48, 24, 2, True, 777),
+                                                        (1, 37, 113, 3, False, 65)])
+def test_up_fused_ct_bf16_kernel_on_unaligned_x(bf16_products, offset, Ci, Co, scale, split, T):
+    """x at a storage offset that is no multiple of 8 elements: its rows'
+    16-byte pieces start before the tensor."""
+    from l3ac_tpu_torch.ops.kernels import up_fused as uf
+    dev = bf16_products
+    w, _ = _bf16_up(*_up_case(dev, Ci, Co, T, False))
+    rng = np.random.default_rng(offset)
+    x = _t(rng, (offset + 2 * Ci * T,), 1.0, dev).bfloat16()[offset:].view(2, Ci, T)
+    assert x.data_ptr() % 16 != 0
+    got = uf.up_fused_ct(x, w, scale=scale, phase_split=split)
+    want = uf.up_fused_plain_bf16(x, w, scale=scale, channel_dim=1, phase_split=split)
+    if split:
+        got, want = torch.stack(got), torch.stack(want)
+    _check_bf16(got, want)
 
 
 def _bf16_tail(dev, C, T, std):

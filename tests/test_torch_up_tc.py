@@ -289,6 +289,51 @@ def test_prepare_up_lays_the_weights_out_as_the_kernels_read_them():
     assert torch.equal(uf.prepare_up(w, "tc"), torch.cat([w.w.reshape(-1), w.b]))
 
 
+@pytest.mark.parametrize("Ci,Co", [(96, 48), (48, 24), (37, 113), (128, 128)])
+def test_stream_bf16_buffer_unpacks_to_the_padded_weight(Ci, Co):
+    """``prepare_up(w, "stream_bf16")`` read as a lane of up_fused_bf16.cu
+    reads its A fragments (m16n8k16: register j of lane 4 g + t holds row
+    g + 8 (j % 2), columns 2t + 8 (j // 2) and the next) gives W zero-padded
+    to multiples of 16, then b, norm_w, norm_b zero-padded; all bf16."""
+    rng = np.random.default_rng([Ci, Co])
+    w = uf.UpWeights(*(t.bfloat16() for t in _weights(rng, Ci, Co)))
+    buf = uf.prepare_up(w, "stream_bf16")
+    Mp, Kp = -(-Co // 16) * 16, -(-Ci // 16) * 16
+    assert buf.dtype == torch.bfloat16 and buf.numel() == Mp * Kp + 3 * Mp
+    frag = buf[:Mp * Kp].view(Mp // 16, Kp // 16, 32, 4, 2)
+    back = torch.zeros(Mp, Kp, dtype=torch.bfloat16)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for j in range(4):
+            for e in range(2):
+                back.view(Mp // 16, 16, Kp // 16, 16)[:, g + 8 * (j % 2), :, 2 * t + 8 * (j // 2) + e] = \
+                    frag[:, :, lane, j, e]
+    assert torch.equal(back, F.pad(w.w, (0, Kp - Ci, 0, Mp - Co)))
+    vec = buf[Mp * Kp:].view(3, Mp)
+    for got, want in zip(vec, (w.b, w.norm_w, w.norm_b)):
+        assert torch.equal(got, F.pad(want, (0, Mp - Co)))
+
+
+def test_stream_buffer_is_a_rule_of_dtype_and_layout():
+    assert uf.stream_buffer(torch.bfloat16, False) == "stream_bf16"
+    assert uf.stream_buffer(torch.bfloat16, True) == "stream"
+    assert uf.stream_buffer(torch.float32, False) == "stream"
+    assert uf.route_for(96, 48, False) == uf.route_for(20, 36, True) == "stream"
+
+
+def test_up_variants_bf16_substitutions_apply_once_and_need_the_card():
+    from l3ac_tpu_torch.tools import up_variants as tool
+    from l3ac_tpu_torch.tools import variant_source
+    for source, variants in ((tool.SOURCE_BF16, tool.STREAM_VARIANTS_BF16),
+                             (tool.STREAM_SOURCE, tool.STREAM_VARIANTS_PR12)):
+        sources = {variant_source(source, subs, "up_variants") for _, subs, _ in variants}
+        assert len(sources) == len(variants)
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    with pytest.raises(SystemExit, match="CUDA is not available"):
+        tool.main(["--bf16"])
+
+
 def _decoder(seed=0):
     return get_model("debug", device="cpu", seed=seed).codec.decoder
 
