@@ -57,16 +57,8 @@
 // each block staging only its tile's W2 fragments (the rest of the work, the
 // pools and product 1, is redone per tile), up to Cout = 256.
 //
-// bf16 (first_block_bf16_kernel, the same tiling and pools): bf16 audio in,
-// the pools and branch convs in fp32 on its values; each product one
-// mma.sync m16n8k16 bf16 pass with fp32 sums from first_block.py:pack's bf16
-// fragments. Product 1's K (20 branch outputs, rounded to bf16) is ordered
-// so that a lane's own branch convs fill its A fragment (step 0: channel t of
-// branches 0-3, step 1: of branch 4, then zeros); the accumulator pairs of
-// product 1's hidden tiles 2s and 2s + 1, after b1 and the GELU in fp32 and
-// one rounding to bf16, are exactly product 2's A fragment of k16 step s, so
-// W2 keeps its natural order. The raw sample's column and b2 are added in
-// fp32 and the output is rounded to bf16.
+// bf16 stems run csrc/first_block_bf16.cu; this file's former bf16 kernel
+// is tools/first_block_bf16_mma.cu.
 // Measured on the card against its alternatives with
 // l3ac_tpu_torch/tools/first_block_variants.py (PERF.md): the output tile
 // staged in shared memory and copied out in 16-byte stores, persistent
@@ -106,16 +98,14 @@ constexpr int kMaxCout = 256;
 
 // The shared-memory image, in 32-bit words. The weights are
 // first_block.py:pack's buffer (first_block.py:sections) for this block's
-// output tile, copied once per block; then the tile's buffers. kBf16: the
-// bf16 kernel's fragments (bf16 pairs).
-template <int kNT, bool kBf16 = false>
+// output tile, copied once per block; then the tile's buffers.
+template <int kNT>
 struct Layout {
   // W2's fragments: kW2Steps k steps of kNT tiles of kW2Tile words each
-  static constexpr int kW2Steps = kBf16 ? kMid / 16 : kMidTiles;
-  static constexpr int kW2Tile = kBf16 ? 64 : 128;
-  static constexpr int w1 = 0;                                // fp32 [10][3][32] (hi0, hi1, lo0, lo1)
-                                                              // bf16 [10][2][32] (b0, b1)
-  static constexpr int w2 = w1 + (kBf16 ? kMidTiles * 2 * 64 : kMidTiles * kSteps1 * 128);
+  static constexpr int kW2Steps = kMidTiles;
+  static constexpr int kW2Tile = 128;
+  static constexpr int w1 = 0;                                // [10][3][32] (hi0, hi1, lo0, lo1)
+  static constexpr int w2 = w1 + kMidTiles * kSteps1 * 128;
   static constexpr int b1 = w2 + kW2Steps * kNT * kW2Tile;    // (80)
   static constexpr int b2 = b1 + kMid;                        // (8 kNT)
   static constexpr int wx = b2 + 8 * kNT;                     // (8 kNT): w2[:, 80]
@@ -133,9 +123,9 @@ struct Layout {
 };
 
 struct Args {
-  const void* x;     // (B, T), fp32 or bf16
+  const void* x;     // (B, T) fp32
   const float* w;    // first_block.py:pack
-  void* out;         // (B, Cout, T), as x
+  void* out;         // (B, Cout, T) fp32
   int B, T, Cout;
   int NT;            // n8 tiles of the packed W2, b2 and wx: padded Cout / 8
 };
@@ -404,125 +394,12 @@ __global__ void __launch_bounds__(kThreads, kNT <= kCapNT ? kMinBlocks : 1)
   }
 }
 
-// bf16 pair of a fragment held as one 32-bit word in the packed weights
-__device__ __forceinline__ void fragment_bf16(const float* p, uint32_t (&b)[2]) {
-  const float2 f = *reinterpret_cast<const float2*>(p);
-  b[0] = __float_as_uint(f.x), b[1] = __float_as_uint(f.y);
-}
-
 template <int kNT>
-__global__ void __launch_bounds__(kThreads) first_block_bf16_kernel(const Args a) {
-  using L = Layout<kNT, true>;
-  extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int T = a.T;
-  const int nt0 = kNT == kMaxNT ? blockIdx.z * kNT : 0;  // one tile below 64 channels
-  stage_weights<L, kNT>(smem, a, nt0);
-  const float* w1f = smem + L::w1;
-  const float* w2f = smem + L::w2;
-  const float* b1 = smem + L::b1;
-  const float* b2 = smem + L::b2;
-  const float* wx = smem + L::wx;
-  const float* wb = smem + L::wb;
-  const float* bb = smem + L::bb;
-  float* xs = smem + L::xs;
-  const float* as = smem + L::as;
-
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * kTile;
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(a.x) + static_cast<long long>(b) * T;
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
-
-  for (int i = tid; i < kXLen; i += kThreads) {
-    const int u = t0 - kHalo + i;
-    xs[i] = (u >= 0 && u < T) ? __bfloat162float(xb[u]) : 0.0f;
-  }
-  __syncthreads();
-  pools<L>(smem, t0, T);
-
-  for (int m0 = warp * 16; m0 < kTile; m0 += kWarps * 16) {
-    // the branch convs of lane (g, t): rows g and g + 8, channel t of each branch
-    float hb[kBranches][2];
-#pragma unroll
-    for (int br = 0; br < kBranches; ++br) {
-      const float* ap = (br == 0 ? xs + (kHalo - 3) : as + (br - 1) * kALen) + m0 + g;
-      const float* w = wb + (br * 4 + t) * 7;
-      hb[br][0] = hb[br][1] = bb[br * 4 + t];
-#pragma unroll
-      for (int k = 0; k < 7; ++k) {
-        const float wk = w[k];
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) hb[br][hf] = fmaf(wk, ap[8 * hf + k], hb[br][hf]);
-      }
-    }
-    // product 1's A fragments: k16 step 0 = channel t of branches 0-3, step 1
-    // = of branch 4 and zeros (pack's k order)
-    const uint32_t a1[2][4] = {
-        {ptx::bf16x2_rn(hb[0][0], hb[1][0]), ptx::bf16x2_rn(hb[0][1], hb[1][1]),
-         ptx::bf16x2_rn(hb[2][0], hb[3][0]), ptx::bf16x2_rn(hb[2][1], hb[3][1])},
-        {ptx::bf16x2_rn(hb[4][0], 0.0f), ptx::bf16x2_rn(hb[4][1], 0.0f), 0u, 0u}};
-
-    float acc[kNT][4];
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
-
-#pragma unroll 1
-    for (int s = 0; s < kMid / 16; ++s) {
-      // product 1, hidden tiles 2s and 2s + 1
-      float z[2][4];
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) z[jj][e] = 0.0f;
-#pragma unroll
-        for (int ks = 0; ks < 2; ++ks) {
-          uint32_t bw[2];
-          fragment_bf16(w1f + (((2 * s + jj) * 2 + ks) * 32 + lane) * 2, bw);
-          ptx::mma_bf16(z[jj], a1[ks], bw);
-        }
-      }
-      // + b1, exact GELU in fp32, rounded: product 2's A fragment of step s
-      float y[2][4];
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const float2 bias = *reinterpret_cast<const float2*>(b1 + 8 * (2 * s + jj) + 2 * t);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) y[jj][e] = l3ac::gelu(z[jj][e] + ((e & 1) ? bias.y : bias.x));
-      }
-      const uint32_t a2[4] = {ptx::bf16x2_rn(y[0][0], y[0][1]), ptx::bf16x2_rn(y[0][2], y[0][3]),
-                              ptx::bf16x2_rn(y[1][0], y[1][1]), ptx::bf16x2_rn(y[1][2], y[1][3])};
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        uint32_t bw[2];
-        fragment_bf16(w2f + ((s * kNT + nt) * 32 + lane) * 2, bw);
-        ptx::mma_bf16(acc[nt], a2, bw);
-      }
-    }
-
-    // y = acc + b2 + w2[:, 80] x[t] in fp32, rounded to bf16
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * nt + 2 * t + (e & 1);
-        const int r = m0 + g + 8 * (e >> 1);
-        const float v = fmaf(wx[c], xs[r + kHalo], acc[nt][e] + b2[c]);
-        const int co = 8 * nt0 + c;
-        if (co < a.Cout && t0 + r < T)
-          out[(static_cast<long long>(b) * a.Cout + co) * T + t0 + r] = __float2bfloat16_rn(v);
-      }
-  }
-}
-
-template <int kNT, bool kBf16>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  using L = Layout<kNT, kBf16>;
+  using L = Layout<kNT>;
   const size_t smem = sizeof(float) * static_cast<size_t>(L::total);
   static_assert(sizeof(float) * L::total <= 227 * 1024, "shared memory");
-  auto kernel = kBf16 ? first_block_bf16_kernel<kNT> : first_block_kernel<kNT>;
+  auto kernel = first_block_kernel<kNT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -531,7 +408,6 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool kBf16>
 int launch_cout(const void* x, const float* w, void* out, int B, int T, int Cout,
                 void* stream) {
   if (Cout < 1 || Cout > kMaxCout || B < 1 || B > 65535 || T < 1 ||
@@ -541,14 +417,14 @@ int launch_cout(const void* x, const float* w, void* out, int B, int T, int Cout
   const Args a{x, w, out, B, T, Cout, nt <= kMaxNT ? nt : (nt + kMaxNT - 1) / kMaxNT * kMaxNT};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (nt <= kMaxNT ? nt : kMaxNT) {
-    case 1: return launch<1, kBf16>(a, s);
-    case 2: return launch<2, kBf16>(a, s);
-    case 3: return launch<3, kBf16>(a, s);
-    case 4: return launch<4, kBf16>(a, s);
-    case 5: return launch<5, kBf16>(a, s);
-    case 6: return launch<6, kBf16>(a, s);
-    case 7: return launch<7, kBf16>(a, s);
-    default: return launch<8, kBf16>(a, s);
+    case 1: return launch<1>(a, s);
+    case 2: return launch<2>(a, s);
+    case 3: return launch<3>(a, s);
+    case 4: return launch<4>(a, s);
+    case 5: return launch<5>(a, s);
+    case 6: return launch<6>(a, s);
+    case 7: return launch<7>(a, s);
+    default: return launch<8>(a, s);
   }
 }
 
@@ -559,12 +435,6 @@ int launch_cout(const void* x, const float* w, void* out, int B, int T, int Cout
 // Returns the CUDA error code.
 extern "C" int l3ac_first_block(const float* x, const float* w, float* out, int B, int T,
                                 int Cout, void* stream) {
-  return launch_cout<false>(x, w, out, B, T, Cout, stream);
+  return launch_cout(x, w, out, B, T, Cout, stream);
 }
 
-// The same with bf16 audio in and bf16 features out; w: pack's buffer of a
-// bf16 stem.
-extern "C" int l3ac_first_block_bf16(const void* x, const float* w, void* out, int B, int T,
-                                     int Cout, void* stream) {
-  return launch_cout<true>(x, w, out, B, T, Cout, stream);
-}

@@ -107,7 +107,13 @@ struct Geo {
   static constexpr int kHalfQ = kQRows * kRow;
   static constexpr int kQ = kHalves * kHalfQ;
   static constexpr int kStages = kD16 <= 2 ? 4 : 3;
-  static_assert(kD16 == 1 || kD16 == 2 || kD16 == 8, "D padded to 16, 32 or 128");
+  // Q's fragments loaded per key tile, not once per item: at 64 columns
+  // (kD16 = 4, one half of 128-byte rows) ptxas gave P's A fragments the
+  // registers of Q's, so the unmasked branch's table loads and P's packs
+  // overwrote Q before the next key tile's S product read it (ROADMAP C4;
+  // the other instantiations keep Q in registers across the item)
+  static constexpr bool kQPerTile = kD16 == 4;
+  static_assert(kD16 == 1 || kD16 == 2 || kD16 == 4 || kD16 == 8, "D padded to 16, 32, 64 or 128");
 };
 
 // byte offset of 16-byte chunk c of row r in a swizzled tile of kRow-byte
@@ -301,19 +307,25 @@ __global__ void __launch_bounds__(kThreads, kD16 <= 2 ? 2 : 1)
       for (int e = ct; e < 2 * n; e += 128) tab[e] = __ldg(src + e);
       ptx::bar_sync(1 + cw, 128);
     }
-    // Q's A fragments, scaled as they load
+    // Q's A fragments, scaled as they load: once per item, or per key tile
+    // (kQPerTile), the Q buffer then held until the item's last tile
     ptx::mbar_wait(q_full, qf_par);
     qf_par ^= 1;
     uint32_t qf[kD16][4];
+    auto load_q = [&] {
 #pragma unroll
-    for (int kk = 0; kk < kD16; ++kk) {
-      const int chunk = 2 * kk + (q8 >> 1), hf = chunk / (G::kSpan / 8);
-      const int r = 64 * cw + 16 * warp + (q8 & 1) * 8 + r8;
-      ptx::ldmatrix_x4(qf[kk], qbuf + hf * G::kHalfQ + swz<G::kRow>(r, chunk % (G::kSpan / 8)));
+      for (int kk = 0; kk < kD16; ++kk) {
+        const int chunk = 2 * kk + (q8 >> 1), hf = chunk / (G::kSpan / 8);
+        const int r = 64 * cw + 16 * warp + (q8 & 1) * 8 + r8;
+        ptx::ldmatrix_x4(qf[kk], qbuf + hf * G::kHalfQ + swz<G::kRow>(r, chunk % (G::kSpan / 8)));
 #pragma unroll
-      for (int e = 0; e < 4; ++e) qf[kk][e] = scale_pair(qf[kk][e], p.scale);
+        for (int e = 0; e < 4; ++e) qf[kk][e] = scale_pair(qf[kk][e], p.scale);
+      }
+    };
+    if constexpr (!G::kQPerTile) {
+      load_q();
+      ptx::mbar_arrive(q_empty);
     }
-    ptx::mbar_arrive(q_empty);
 
     float o[G::kHalves][kO];
 #pragma unroll
@@ -330,6 +342,7 @@ __global__ void __launch_bounds__(kThreads, kD16 <= 2 ? 2 : 1)
         const unsigned char* kt = ring + s * 2 * G::kTile;
         const unsigned char* vt = kt + G::kTile;
         // S = (q scale) K^T: kD16 k16 steps, K K-major in its swizzle
+        if constexpr (G::kQPerTile) load_q();
         float sc[32];
 #pragma unroll
         for (int kk = 0; kk < kD16; ++kk)
@@ -467,6 +480,7 @@ __global__ void __launch_bounds__(kThreads, kD16 <= 2 ? 2 : 1)
       // its own part of the warpgroup's products, not its siblings' reads
       ptx::mbar_arrive(&empty[s]);
     }
+    if constexpr (G::kQPerTile) ptx::mbar_arrive(q_empty);
 
     // out[b, t, h, :] = O / sum: o[hf][4 j + e] is row ia + 8 (e >> 1), column
     // 64 hf + 8 j + 2 t4 + (e & 1)
@@ -614,10 +628,9 @@ extern "C" int l3ac_local_attention_bf16(const void* q, const void* k, const voi
                  H, T, n, D, scale, static_cast<int>(nq), static_cast<int>(W),
                  static_cast<int>(BH), static_cast<int>(nq * W * BH)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // k16 steps: 1, 2, else 8 (zero-filled). D = 48-64 runs on the 128-column
-  // instantiation: the 64-column one gave wrong rows on every key tile that
-  // took the unmasked branch (PERF.md §7), the 128-column one none.
+  // k16 steps: 1, 2, 4 or 8, D zero-padded to them
+  // (ops/kernels/local_attention.py:instance_for is the host twin)
   const int d16 = (D + 15) / 16;
   if (d16 <= 2) return d16 == 1 ? launch_route<1>(p, B, route, s) : launch_route<2>(p, B, route, s);
-  return launch_route<8>(p, B, route, s);
+  return d16 <= 4 ? launch_route<4>(p, B, route, s) : launch_route<8>(p, B, route, s);
 }

@@ -28,16 +28,21 @@ Widths: 1 <= Cout <= ``MAX_COUT`` (256). Above 64 the output channels are
 padded to a multiple of 64 and each block computes one 64-channel tile of
 them (the grid's third axis), redoing the pools and product 1 per tile.
 
-bf16 (the encode half of ROADMAP A6): bf16 audio with a bf16 stem runs the
-bf16 kernel of the same file, rounding where
+bf16 (the encode half of ROADMAP A6): bf16 audio with a bf16 stem runs
+``csrc/first_block_bf16.cu``, rounding where
 ``l3ac_tpu/ops/pallas/first_block.py`` does (:81, :108-124): pools and
 branch convs in fp32 from the bf16 samples, the 20 branch outputs rounded to
 bf16, product 1 on bf16 operands with fp32 sums (one m16n8k16 pass), b1 and
 the exact GELU in fp32, the 80 activations rounded to bf16 and product 2
 likewise, the raw sample's column (bf16 times bf16, exact) added in fp32,
 and the output rounded to bf16. :func:`pack` lays a bf16 stem's products
-out as bf16 pairs in the mma's fragment order; :func:`first_block_plain`
-rounds at the same points on bf16 input.
+out as bf16 pairs in the mma's fragment order (product 1's K in the order
+of :func:`k_slot`); :func:`first_block_plain` rounds at the same points on
+bf16 input. That kernel keeps the per-warp structure of the bf16 kernel
+it replaced (128-column tiles, :data:`TILE_BF16`) and takes erff's
+small-range polynomial alone (``csrc/common.cuh`` gelu_small) where a warp
+vote finds a whole hidden-tile pair in that range, else the library erff;
+its note says what was measured.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ POOLS = (1, 5, 11, 21, 45)
 MAX_COUT = 256
 COUT_TILE = 64   # output channels per block (csrc/first_block.cu kMaxNT n8 tiles)
 TILE = 128        # output columns per tile (csrc/first_block.cu kTile)
+TILE_BF16 = 128   # ... of csrc/first_block_bf16.cu
 HALO = 47         # staged audio on each side of a tile: 2 * (45 // 2) + 3
 HID, HID_PAD, MID = 20, 24, 80
 
@@ -101,16 +107,24 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
     return t.bfloat16().float()
 
 
+def first_block_hidden_bf16(x: torch.Tensor, w: FirstBlockWeights) -> torch.Tensor:
+    """bf16 x (B, T) -> the 80 pre-activations (B, 80, T) in fp32, as
+    :func:`first_block_plain_bf16` forms them: fp32 pools and branch convs,
+    bf16 operands of product 1 with fp32 sums, b1 in fp32."""
+    wf = FirstBlockWeights(*(t.float() for t in w))
+    xc = x.float()[:, None, :]
+    h = torch.cat([F.conv1d(trend_pool(xc, k), wf.branch_w[i][:, None, :], wf.branch_b[i],
+                            padding=3) for i, k in enumerate(POOLS)], dim=1)
+    return torch.einsum("oc,bct->bot", _bf16(wf.w1), _bf16(h)) + wf.b1[:, None]
+
+
 def first_block_plain_bf16(x: torch.Tensor, w: FirstBlockWeights) -> torch.Tensor:
     """bf16 x (B, T) -> bf16 (B, Cout, T), rounding where the bf16 kernel
     does: fp32 pools and branch convs, bf16 operands of both products with
     fp32 sums, fp32 b1 and GELU, the raw sample's term in fp32."""
     wf = FirstBlockWeights(*(t.float() for t in w))
     xc = x.float()[:, None, :]
-    h = torch.cat([F.conv1d(trend_pool(xc, k), wf.branch_w[i][:, None, :], wf.branch_b[i],
-                            padding=3) for i, k in enumerate(POOLS)], dim=1)
-    z = torch.einsum("oc,bct->bot", _bf16(wf.w1), _bf16(h)) + wf.b1[:, None]
-    g = _bf16(gelu(z))
+    g = _bf16(gelu(first_block_hidden_bf16(x, w)))
     y = torch.einsum("oc,bct->bot", wf.w2[:, :MID], g) + wf.b2[:, None]
     return (y + wf.w2[:, MID, None] * xc).to(x.dtype)
 
@@ -175,6 +189,15 @@ def _pack_bf16(w: FirstBlockWeights, Cout: int, Cp: int) -> dict[str, torch.Tens
     f2 = torch.stack([_pairs(w2[rows, k0], w2[rows, k0 + 1]),
                       _pairs(w2[rows, k0 + 8], w2[rows, k0 + 9])], -1)
     return {"w1": f1, "w2": f2}
+
+
+def k_slot(br: int, c: int) -> int:
+    """Where branch ``br``'s channel ``c`` (hidden input 4 br + c) sits in the
+    bf16 kernel's product-1 K of 32 (:func:`_pack_bf16`'s order; the other
+    slots are zero): 2c, 2c + 1 for branches 0, 1; 8 + 2c, 9 + 2c for 2, 3;
+    16 + 2c for 4 (the A fragments each lane of ``csrc/first_block_bf16.cu``
+    packs from its branch convs)."""
+    return (0 if br < 2 else 8 if br < 4 else 16) + 2 * c + (br & 1 if br < 4 else 0)
 
 
 def admits(Cout: int) -> str | None:
@@ -249,7 +272,7 @@ _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def _launch(x: torch.Tensor, w: FirstBlockWeights | PreparedStem) -> torch.Tensor:
-    """``csrc/first_block.cu`` on x (B, T): its fp32 or its bf16 kernel."""
+    """``csrc/first_block.cu`` on fp32 x (B, T), ``csrc/first_block_bf16.cu`` on bf16."""
     B, T = x.shape
     prepared = isinstance(w, PreparedStem)
     weights = w.weights if prepared else w

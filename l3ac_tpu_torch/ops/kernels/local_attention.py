@@ -75,8 +75,10 @@ TMA_ALIGN = 8       # elements: the bf16 kernel's TMA route reads 16-byte aligne
 Q_ROWS = 128        # csrc/local_attention_bf16.cu: query rows of a work item
 LOG2E = 1.4426950408889634
 ROUTE_CODE = {"tma": 0, "cp_async": 1}
-# launches of the bf16 kernel per route
+# launches of the bf16 kernel per route, and per instantiation (the columns
+# of the padded head dim it runs, :func:`instance_for`)
 ROUTES: dict[str, int] = dict.fromkeys(ROUTE_CODE, 0)
+INSTANCES: dict[int, int] = dict.fromkeys((16, 32, 64, 128), 0)
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9 +
              [ctypes.c_float, ctypes.c_void_p])
@@ -128,6 +130,13 @@ def route_for(strides: list[int], ptrs: list[int]) -> str:
         if p % 16:
             return "cp_async"
     return "tma"
+
+
+def instance_for(D: int) -> int:
+    """The columns of the bf16 kernel's instantiation that runs head dim D
+    (``local_attention_bf16.cu``'s dispatch): D zero-padded to 16, 32, 64
+    or 128."""
+    return 16 if D <= 16 else 32 if D <= 32 else 64 if D <= 64 else 128
 
 
 def prepare_table(table: torch.Tensor) -> torch.Tensor:
@@ -208,6 +217,7 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  *strides, _bf16_scale(D), ROUTE_CODE[route], _build.stream_ptr())
         _build.check(err, "local_attention")
         ROUTES[route] += 1
+        INSTANCES[instance_for(D)] += 1
     else:
         fn = _build.function("l3ac_local_attention", _ARGTYPES)
         err = fn(*ptrs, _build.ptr(bias), _build.ptr(bias_table), out.data_ptr(), B, H, T, n,

@@ -3,12 +3,22 @@ repeated at both edges), ChannelNorm over Co (eps 1e-8 inside the sqrt).
 
 Replaces ``l3ac_tpu/ops/pallas/upsample.py:up_fused_ct`` (body ``_kernel_ct``,
 (B, C, T), with ``phase_split``) and ``:up_fused`` (body ``_kernel``,
-(B, T, C)). Two kernels, chosen by shape (:func:`route_for`), never by failure:
+(B, T, C)). Three kernels, chosen by shape (:func:`route_for`), never by
+failure:
 
-- ``csrc/up_fused_tc.cu`` (route ``"tc"``): (B, T, C) with Ci a multiple of 4
-  and Co a multiple of 32 up to 256, the wide stages of every released
-  config, and every other (B, T, C) shape with Ci <= 1024 and Co <= 512
-  that the streaming kernel does not take (Co zero-padded in the weight buffer,
+- ``csrc/up_fused_tc_bf16.cu`` (route ``"wgmma"``): bf16 (B, T, C) with
+  Ci % 8 == 0 up to 1024 and Co a multiple of 32 up to 256, the bf16 wide
+  stages of every released config. A persistent grid of 64-row tiles (62
+  owned), x and W by TMA from a producer warp into a ring, the conv on
+  wgmma (two warpgroups, Co / 2 columns each), the norm's statistics and
+  the interleaved stores in the epilogue while the next tile loads. It reads
+  the ``"tc"`` buffer (at these shapes W as it is, unpadded).
+
+- ``csrc/up_fused_tc.cu`` (route ``"tc"``): fp32 (B, T, C) with Ci a
+  multiple of 4 and Co a multiple of 32 up to 256, the wide stages of every
+  released config, and every other (B, T, C) shape with Ci <= 1024 and Co
+  <= 512 that the other kernels do not take (its bf16 instance: bf16 shapes
+  the wgmma kernel does not take) (Co zero-padded in the weight buffer,
   :func:`tc_padded_co`). The conv runs on the tensor cores (3xTF32
   mma.sync, time as the M axis); a block owns all Co columns of
   62 rows (30 above Co = 256) and its two halo rows, and its epilogue
@@ -69,7 +79,7 @@ TC_MAX_CO = 256                        # up_fused_tc.cu at Co % 32 == 0, Ci % 4 
 TC_WIDE_MAX_CI, TC_WIDE_MAX_CO = 1024, 512  # ... and at any other Ci, Co up to these
 STREAM_MAX_CI, STREAM_MAX_CO = 128, 128  # up_fused.cu
 TC_OWN_ROWS = 62                        # up_fused_tc.cu: rows a block stores (64 z rows)
-ROUTES: dict[str, int] = {"tc": 0, "stream": 0}  # launches by kernel
+ROUTES: dict[str, int] = {"wgmma": 0, "tc": 0, "stream": 0}  # launches by kernel
 
 
 class UpWeights(NamedTuple):
@@ -106,8 +116,15 @@ def up_fused_plain_bf16(x: torch.Tensor, w: UpWeights, *, scale: int, channel_di
     return tuple(p.to(x.dtype) for p in out) if phase_split else out.to(x.dtype)
 
 
-def route_for(Ci: int, Co: int, channels_last: bool) -> str | None:
-    """The kernel that takes this shape: ``"tc"``, ``"stream"``, or None."""
+def route_for(Ci: int, Co: int, channels_last: bool, bf16: bool = False,
+              x_ptr: int = 0) -> str | None:
+    """The kernel that takes this shape (and dtype: ``bf16``; and x's data
+    address ``x_ptr``: the TMA of ``"wgmma"`` reads x from a 16-byte aligned
+    base, an unaligned x takes ``"tc"``, whose copies of x go element by
+    element there): ``"wgmma"``, ``"tc"``, ``"stream"``, or None."""
+    if bf16 and channels_last and Ci % 8 == 0 and 8 <= Ci <= TC_WIDE_MAX_CI and \
+            Co % 32 == 0 and 32 <= Co <= TC_MAX_CO and x_ptr % 16 == 0:
+        return "wgmma"
     if channels_last and Ci % 4 == 0 and Co % 32 == 0 and 32 <= Co <= TC_MAX_CO:
         return "tc"
     if 1 <= Ci <= STREAM_MAX_CI and 1 <= Co <= STREAM_MAX_CO:
@@ -213,6 +230,7 @@ _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 7
     [ctypes.c_int, ctypes.c_void_p]
 _TC_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _TC_BF16_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_WGMMA_ARGTYPES = _TC_BF16_ARGTYPES
 _CT_BF16_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 ORDER_TIME, ORDER_CHANNEL, ORDER_PHASE = 0, 1, 2  # fastest axis of the stores
 
@@ -230,15 +248,15 @@ def _launch(x: torch.Tensor, w: UpWeights, scale: int, *, channels_last: bool,
         raise ValueError(f"{name}: norm weight and bias go together")
     if w.w.dtype != x.dtype:
         raise TypeError(f"{name}: x is {x.dtype} but the weights are {w.w.dtype}")
-    route = route_for(Ci, Co, channels_last)
+    bf16 = x.dtype == torch.bfloat16
+    route = route_for(Ci, Co, channels_last, bf16, x.data_ptr())
     if route is None:
         raise ValueError(
             f"{name}: no kernel takes Ci = {Ci}, Co = {Co} "
             f"({'(B, T, C)' if channels_last else '(B, C, T)'}): the tensor-core kernel "
             f"takes (B, T, C) with Ci <= {TC_WIDE_MAX_CI} and Co <= {TC_WIDE_MAX_CO}, "
             f"the streaming one Ci <= {STREAM_MAX_CI} and Co <= {STREAM_MAX_CO}")
-    bf16 = x.dtype == torch.bfloat16
-    kind = stream_buffer(x.dtype, channels_last) if route == "stream" else route
+    kind = stream_buffer(x.dtype, channels_last) if route == "stream" else "tc"
     buf = (prepared if prepared is not None else prepared_up(w)).buffer(kind, w)
     K.check_cuda({"x": x}, x.device, dtype=K.DTYPES)
     K.check_cuda({"prepared": buf}, x.device,
@@ -249,11 +267,15 @@ def _launch(x: torch.Tensor, w: UpWeights, scale: int, *, channels_last: bool,
         out = torch.empty((B, T * scale, Co), device=x.device, dtype=x.dtype)
     else:
         out = torch.empty((B, Co, T * scale), device=x.device, dtype=x.dtype)
-    if route == "tc":
+    if route in ("tc", "wgmma"):
         Cp, es = tc_padded_co(Co), buf.element_size()
         p_b = buf.data_ptr() + es * Cp * tc_row_elems(Ci, buf.dtype)
         p_nw, p_nb = (None, None) if w.norm_w is None else (p_b + es * Cp, p_b + 2 * es * Cp)
-        if bf16:
+        if route == "wgmma":
+            fn = _build.function("l3ac_up_fused_wgmma_bf16", _WGMMA_ARGTYPES)
+            err = fn(x.data_ptr(), buf.data_ptr(), p_b, p_nw, p_nb, out.data_ptr(), B, Ci, Co, T,
+                     scale, _build.stream_ptr())
+        elif bf16:
             fn = _build.function("l3ac_up_fused_tc_bf16", _TC_BF16_ARGTYPES)
             err = fn(x.data_ptr(), buf.data_ptr(), p_b, p_nw, p_nb, out.data_ptr(), B, Ci, Co, T,
                      scale, _build.stream_ptr())

@@ -50,7 +50,10 @@ FAMILIES = (
      (r"sm90::gemm_kernel<l3ac::sm90::Config<\d+, \d+, \w+, true[,>]",)),
     ("conv_unit bf16: wgmma core (pw1, pw2)", ("sm90::gemm_kernel",)),
     ("conv_unit bf16: dw conv + ChannelNorm", ("dw_norm_bf16_kernel",)),
-    ("up_fused bf16 (B, T, C): tensor cores (1 bf16 pass)", (r"up_fused_tc_kernel<.*, true>",)),
+    ("up_fused bf16 (B, T, C): TMA + wgmma, persistent, statistics from the accumulators",
+     ("up_fused_tc_bf16_kernel",)),
+    ("up_fused bf16 (B, T, C) off the wgmma shapes: tensor cores (1 bf16 pass)",
+     (r"up_fused_tc_kernel<.*, true>",)),
     ("up_fused_ct bf16 (B, C, T): warp tiles, z in registers (1 bf16 pass)", ("up_bf16_kernel",)),
     ("up_fused bf16 (B, T, C) at stream shapes: streaming (1 bf16 pass)",
      (r"up_fused_stream_kernel<[^,]*bfloat16",)),
@@ -58,7 +61,8 @@ FAMILIES = (
      ("legacy_tail_bf16_kernel",)),
     ("conv_unit_ct bf16: narrow fused, tensor cores (1 bf16 pass)", ("narrow_bf16_kernel",)),
     ("local_attention bf16: TMA + wgmma, ex2 softmax", ("attention_bf16_kernel",)),
-    ("first_block bf16: tensor cores (1 bf16 pass)", ("first_block_bf16",)),
+    ("first_block bf16: a block per tile, GELU behind a warp vote (1 bf16 pass)",
+     ("first_block_bf16",)),
     ("conv_unit (C % 64 == 0): tc_gemm fp32 (3xTF32)", ("gemm_kernel<false",)),
     ("conv_unit (C % 64 == 0): dw conv + ChannelNorm", ("dw_norm_kernel",)),
     ("conv_unit_ct: narrow fused, tensor cores (3xTF32)", ("narrow_kernel",)),

@@ -4,13 +4,18 @@ their measured alternatives and ablations, at the four up paths of one
 the tensor-core kernel, (8, 96, 26685) -> 48 s3 and (8, 48, 80055) -> 24 s2
 (phase_split) on the streaming one.
 
-    python3 -m l3ac_tpu_torch.tools.up_variants [--bf16]
+    python3 -m l3ac_tpu_torch.tools.up_variants [--bf16 [--channels-last]]
 
-``--bf16`` times the bf16 streaming kernels at the two (B, C, T) shapes
-instead, on bf16 x and weights, held against ``up_fused_plain_bf16`` within
-2^-6 x max(1, max |plain|): the kernel the port runs with its ablations, and
-the PR 12 kernel (the bf16 instance of ``csrc/up_fused.cu``) with its own,
-beside the conv alone in bf16 and the bytes bound.
+``--bf16`` times the bf16 kernels instead, on bf16 x and weights, held
+against ``up_fused_plain_bf16`` within 2^-6 x max(1, max |plain|) with their
+bit-equal share: at the two (B, C, T) shapes the streaming kernel the port
+runs with its ablations and the former kernel (the bf16 instance of
+``csrc/up_fused.cu``) with its own; at the two (B, T, C) shapes the kernel
+the port runs (``csrc/up_fused_tc_bf16.cu``) with its alternatives and
+ablations, and the former tensor-core kernel (the bf16 instance of
+``csrc/up_fused_tc.cu``) with its own; each beside the conv alone in bf16
+and the bytes bound.
+``--channels-last`` runs the (B, T, C) part alone.
 
 Card only. Each variant is the kernel's source with named text
 substitutions (each must apply exactly once), built with the kernel
@@ -186,9 +191,56 @@ STREAM_VARIANTS_PR12 = (
 )
 
 
+# the bf16 (B, T, C) kernel the port runs (csrc/up_fused_tc_bf16.cu, route
+# "wgmma"), its alternatives and ablations
+SOURCE_WGMMA = _build.CSRC_DIR / "up_fused_tc_bf16.cu"
+_NO_NORM_WG = (("  const bool norm = a.norm_w != nullptr;", "  const bool norm = false;"),)
+_MMA_LINE = "        mma_half<G::kHalf>(acc, ptx::wgmma_desc_sw128(xt) + 2 * kk, wt + 32 * kk, 1);"
+TC_VARIANTS_WGMMA = (
+    ("persistent 64-row tiles, x and W by TMA from a producer warp, wgmma in two warpgroups "
+     "(Co / 2 each), the row statistics from the accumulators, a warp per output row; three "
+     "blocks per SM at Co <= 128, two above", (), True),
+    ("two blocks per SM at Co <= 128 (rings of three stages or more)",
+     (("constexpr int kSmallBlocks = 3;", "constexpr int kSmallBlocks = 2;"),), True),
+    ("a ring of at most 4 stages",
+     (("constexpr int kMaxStages = 8;", "constexpr int kMaxStages = 4;"),), True),
+    ("ablation: the conv only (z into shared memory, no epilogue)",
+     (("    epilogue<kCo>(acc, zs, stats, prm, taps, a, b, t0, ct);", ""),), False),
+    ("ablation: no norm (no statistics)", _NO_NORM_WG, False),
+    ("ablation: no blend (each phase the row itself, normalized)",
+     (("float4 v = make_float4(fmaf(zc[k].x, ca, fmaf(zo.x, cb, cc)),\n"
+       "                               fmaf(zc[k].y, ca, fmaf(zo.y, cb, cc)),\n"
+       "                               fmaf(zc[k].z, ca, fmaf(zo.z, cb, cc)),\n"
+       "                               fmaf(zc[k].w, ca, fmaf(zo.w, cb, cc)));",
+       "float4 v = make_float4(fmaf(zc[k].x, ca, cc), fmaf(zc[k].y, ca, cc), "
+       "fmaf(zc[k].z, ca, cc), fmaf(zc[k].w, ca, cc));"),), False),
+    ("ablation: x in and out only (no conv, no norm, no blend)",
+     _NO_NORM_WG + ((_MMA_LINE, ""),), False),
+)
+
+# the former bf16 (B, T, C) kernel (up_fused_tc.cu's bf16 instance) and the
+# ablations that say where its time goes
+_NO_NORM_TC = (("  const bool norm = a.norm_w != nullptr;", "  const bool norm = false;"),)
+TC_VARIANTS_PREV = (
+    ("former kernel: 64-row tiles (62 owned), one m16n8k16 pass, W streamed through a 3-stage "
+     "cp.async ring, z to shared memory, a warp per output row", (), True),
+    ("former, ablation: the conv only (z into shared memory, no epilogue)", _CONV_ONLY, False),
+    ("former, ablation: no norm (no statistics)", _NO_NORM_TC, False),
+    ("former, ablation: no blend (each phase the row itself)",
+     (("float4 v = make_float4(fmaf(zc[k].x, wc, zo.x * wo), fmaf(zc[k].y, wc, zo.y * wo),\n"
+       "                               fmaf(zc[k].z, wc, zo.z * wo), fmaf(zc[k].w, wc, zo.w * wo));",
+       "float4 v = zc[k];"),), False),
+    ("former, ablation: x in and out only (no conv, no norm, no blend)",
+     _NO_NORM_TC + (("      for (int ks = 0; ks < kBK / 16; ++ks) {",
+                     "      for (int ks = 0; ks < 0; ++ks) {"),), False),
+)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--bf16", action="store_true", help="the bf16 stream kernels and their ablations")
+    ap.add_argument("--bf16", action="store_true", help="the bf16 kernels and their ablations")
+    ap.add_argument("--channels-last", action="store_true",
+                    help="with --bf16: the (B, T, C) kernels alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("up_variants: CUDA is not available (it times kernels on the card)")
@@ -196,7 +248,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     if args.bf16:
-        return main_bf16(dev)
+        if not args.channels_last:
+            main_bf16(dev)
+        return main_bf16_tc(dev)
     tc_libs = build_variants("up_variants_tc", TC_SOURCE, [s for _, s, _ in TC_VARIANTS],
                              "l3ac_up_fused_tc", uf._TC_ARGTYPES)
     wg_libs = build_variants("up_variants_wgmma", WGMMA_SOURCE,
@@ -353,6 +407,69 @@ def main_bf16(dev: torch.device) -> int:
     print("  per decode: " + ", ".join(f"[{i}] {v:.4f}" for i, v in enumerate(totals)), flush=True)
     return 0
 
+
+def main_bf16_tc(dev: torch.device) -> int:
+    """The bf16 (B, T, C) kernels at the two channels-last shapes of a
+    decode: the former kernel's group, then the port's (each built, then timed
+    at both shapes)."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    rng = np.random.default_rng(0)
+    bf = torch.bfloat16
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def t(*shape, std=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * std).astype(np.float32)).to(dev).to(bf)
+
+    cases = []
+    print(f"[{describe(dev)}] bf16 up_fused (B, T, C) variants, ms per call", flush=True)
+    for T, Ci, Co, s in TC_SHAPES:
+        w = uf.UpWeights(t(Co, Ci, std=Ci ** -0.5), t(Co, std=0.3), 1.0 + t(Co, std=0.2),
+                         t(Co, std=0.2))
+        x = t(B, T, Ci)
+        buf = uf.prepare_up(w, "tc")
+        Cp, es = uf.tc_padded_co(Co), buf.element_size()
+        p_b = buf.data_ptr() + es * Cp * uf.tc_row_elems(Ci, bf)
+        out = torch.empty(B, T * s, Co, device=dev, dtype=bf)
+        want16 = uf.up_fused_plain_bf16(x, w, scale=s, channel_dim=2)
+        conv = time_ms(lambda: F.linear(x, w.w, w.b), dev, ITERS)
+        bound = 2 * B * T * (Ci + s * Co) / PEAK_BYTES * 1e3
+        print(f"  (B, T, Ci) = ({B}, {T}, {Ci}) -> Co {Co}, s {s}: conv alone (F.linear bf16) "
+              f"{conv:.4f} ms, bytes bound {bound:.4f} ms", flush=True)
+        cases.append((T, Ci, Co, s, x, buf, p_b, Cp, es, out, want16))
+    # (source, variants, C symbol, ptxas entry at Co = 256)
+    groups = [(TC_SOURCE, TC_VARIANTS_PREV, "l3ac_up_fused_tc_bf16",
+               "up_fused_tc_kernelILi2ELi8ELb1ELb1E"),
+              (SOURCE_WGMMA, TC_VARIANTS_WGMMA, "l3ac_up_fused_wgmma_bf16",
+               "up_fused_tc_bf16_kernelILi256E")]
+    i = 0
+    for source, variants, symbol, entry in groups:
+        built = build_variants(f"up_variants_{source.stem}_bf16", source,
+                               [subs for _, subs, _ in variants], symbol, uf._TC_BF16_ARGTYPES)
+        for (name, _, exact), (lib, log) in zip(variants, built):
+            fn, total, line = getattr(lib, symbol), 0.0, ""
+            for T, Ci, Co, s, x, buf, p_b, Cp, es, out, want16 in cases:
+                def call(fn=fn, T=T, Ci=Ci, Co=Co, s=s, x=x, buf=buf, p_b=p_b, Cp=Cp, es=es,
+                         out=out, i=i):
+                    err = fn(x.data_ptr(), buf.data_ptr(), p_b, p_b + es * Cp, p_b + 2 * es * Cp,
+                             out.data_ptr(), B, Ci, Co, T, s, stream)
+                    if err:
+                        raise RuntimeError(f"up_variants bf16 tc [{i}]: CUDA error {err}")
+                out.fill_(float("nan"))
+                call()
+                torch.cuda.synchronize()
+                want = want16.float()
+                err = (out.float() - want).abs().max().item()
+                equal = (out.view(torch.int16) == want16.view(torch.int16)).float().mean().item()
+                if exact and not err <= TOL_BF16 * max(1.0, want.abs().max().item()):
+                    raise AssertionError(f"up_variants bf16 tc [{i}] Co {Co}: max abs error {err}")
+                ms = time_ms(call, dev, ITERS)
+                total += ms
+                line += f" Co {Co}: {ms:.4f}" + (f" ({err:.1e}, bit-equal {equal:.6f})"
+                                                  if exact else "")
+            print(f"  [{i}] per decode {total:.4f} ms;{line}; {ptxas_usage(log, entry)}: {name}",
+                  flush=True)
+            i += 1
+    return 0
 
 if __name__ == "__main__":
     raise SystemExit(main())

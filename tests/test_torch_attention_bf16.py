@@ -168,3 +168,24 @@ def test_attention_variants_bf16_substitutions_apply_once_and_need_the_card():
         pytest.skip("this host has CUDA")
     with pytest.raises(SystemExit, match="CUDA is not available"):
         tool.main(["--bf16"])
+
+
+def test_attention_variants_c4_substitutions_apply_once():
+    """The head-dim 48-64 variants of ``--bf16`` (C4): every substitution
+    matches the kernel's source exactly once, each variant is its own
+    source, and the first is the source as the port builds it."""
+    from l3ac_tpu_torch.tools import attention_variants as tool
+    from l3ac_tpu_torch.tools import variant_source
+    sources = [variant_source(tool.SOURCE_BF16, subs, "attention_variants")
+               for _, subs in tool.C4_VARIANTS]
+    assert len(set(sources)) == len(sources)
+    assert sources[0] == tool.SOURCE_BF16.read_text()
+
+
+@pytest.mark.parametrize("D,cols", [(4, 16), (16, 16), (20, 32), (32, 32), (36, 64), (48, 64),
+                                    (64, 64), (68, 128), (128, 128)])
+def test_instance_rule_names_the_instantiation_of_each_head_dim(D, cols):
+    """``instance_for`` mirrors the kernel's dispatch: D zero-padded to 16,
+    32, 64 or 128 (D = 33-64 on the 64-column instantiation since C4's fix);
+    ``INSTANCES`` has a count for each."""
+    assert la.instance_for(D) == cols and cols in la.INSTANCES

@@ -792,14 +792,17 @@ def test_local_attention_bf16_kernel(bf16_products, D, n, bias):
     (16, 1, 8, "full", "proj"), (64, 3, 20, "table", "proj"), (100, 1, 64, "full", "proj"),
     (250, 3, 128, "table", "proj"), (16, 3, 128, "none", "contig"), (100, 3, 32, "table", "proj+4"),
     (64, 1, 8, "full", "proj+4"), (250, 3, 64, "none", "proj+4"), (750, 1, 20, "table", "contig"),
-    (64, 3, 16, "table", "proj"), (100, 2, 64, "table", "contig")])
+    (64, 3, 16, "table", "proj"), (100, 2, 64, "table", "contig"),
+    *[(n, 3 if n < 750 else 1, 48, bias, view) for n in (16, 250, 750)
+      for bias in ("table", "full", "none") for view in ("proj", "proj+4")]])
 def test_local_attention_bf16_routes(bf16_products, n, W, D, bias, view):
     """The bf16 kernel at n = 16, 64, 250, 750 and 100 (no multiple of 64),
     one to three windows, D = 8, 16, 20, 32, 64, 128, the table, the full bias
     and none, on the model's head views of one (B, T, 3 H D) projection, on
     that projection at a storage offset of 4 elements (8-byte aligned: the
     cp.async route) and on contiguous operands; the route counted where the
-    strides and addresses put it."""
+    strides and addresses put it, and the instantiation (columns of the
+    padded head dim) that ``instance_for`` names."""
     from l3ac_tpu_torch.ops import kernels as K
     from l3ac_tpu_torch.ops.attention import expand_position_table
     from l3ac_tpu_torch.ops.kernels import local_attention as la
@@ -818,10 +821,13 @@ def test_local_attention_bf16_routes(bf16_products, n, W, D, bias, view):
           "none": {}}[bias]
     expected = "tma" if view != "proj+4" and D % 8 == 0 else "cp_async"
     before, K.LAUNCHES["local_attention"] = dict(la.ROUTES), 0
+    inst = dict(la.INSTANCES)
     got = la.local_attention(q, k, v, window_size=n, **kw)
     assert K.LAUNCHES["local_attention"] == 1
     assert {r: la.ROUTES[r] - before[r] for r in la.ROUTES} == \
         {r: int(r == expected) for r in la.ROUTES}
+    assert {c: la.INSTANCES[c] - inst[c] for c in la.INSTANCES} == \
+        {c: int(c == la.instance_for(D)) for c in la.INSTANCES}
     assert got.shape == (B, H, T, D) and got.permute(0, 2, 1, 3).is_contiguous()
     _check_bf16(got, la.local_attention_plain(q, k, v, window_size=n, **kw))
 
@@ -969,7 +975,7 @@ def test_up_fused_bf16_kernels(bf16_products, Ci, Co, T, scale, cl, split, norm)
     dev = bf16_products
     w, x = _bf16_up(*_up_case(dev, Ci, Co, T, cl, norm=norm))
     name = "up_fused" if cl else "up_fused_ct"
-    route = uf.route_for(Ci, Co, cl)
+    route = uf.route_for(Ci, Co, cl, bf16=True)
     before, K.LAUNCHES[name] = dict(uf.ROUTES), 0
     got = uf.up_fused(x, w, scale=scale) if cl else \
         uf.up_fused_ct(x, w, scale=scale, phase_split=split)
@@ -983,6 +989,47 @@ def test_up_fused_bf16_kernels(bf16_products, Ci, Co, T, scale, cl, split, norm)
     _check_bf16(got, want)
     _check_bf16(torch.cat([got[..., :8], got[..., -8:]], -1),
                 torch.cat([want[..., :8], want[..., -8:]], -1))
+
+
+@pytest.mark.parametrize("Ci,Co,T,scale,norm", [
+    (8, 32, 63, 1, True), (128, 64, 200, 2, False), (256, 96, 61, 3, True),
+    (1024, 128, 1001, 4, True), (64, 160, 61, 2, False), (192, 192, 130, 5, True),
+    (192, 224, 65, 3, True), (512, 256, 124, 5, False), (768, 256, 1, 16, True)])
+def test_up_fused_wgmma_bf16_at_every_co(bf16_products, Ci, Co, T, scale, norm):
+    """csrc/up_fused_tc_bf16.cu at every Co it instantiates (32-256: wgmma
+    n16-n128 chunks per warpgroup), with and without the norm, at scales 1-16
+    and at T below, at and past one 62-row tile; the route asserted."""
+    from l3ac_tpu_torch.ops.kernels import up_fused as uf
+    w, x = _bf16_up(*_up_case(bf16_products, Ci, Co, T, True, norm=norm))
+    assert uf.route_for(Ci, Co, True, bf16=True, x_ptr=x.data_ptr()) == "wgmma"
+    before = uf.ROUTES["wgmma"]
+    got = uf.up_fused(x, w, scale=scale)
+    want = uf.up_fused_plain_bf16(x, w, scale=scale, channel_dim=2)
+    assert uf.ROUTES["wgmma"] == before + 1
+    got, want = got.transpose(1, 2), want.transpose(1, 2)
+    _check_bf16(got, want)
+    _check_bf16(torch.cat([got[..., :8], got[..., -8:]], -1),
+                torch.cat([want[..., :8], want[..., -8:]], -1))
+
+
+@pytest.mark.parametrize("offset", [3, 5])
+@pytest.mark.parametrize("Ci,Co,T,scale", [(512, 256, 200, 5), (256, 96, 150, 3)])
+def test_up_fused_bf16_kernel_on_unaligned_x(bf16_products, offset, Ci, Co, T, scale):
+    """bf16 (B, T, C) x at a storage offset that is no multiple of 8
+    elements: the wgmma kernel's TMA needs a 16-byte aligned base, so the
+    route rule sends it to "tc", which copies it element by element."""
+    from l3ac_tpu_torch.ops.kernels import up_fused as uf
+    dev = bf16_products
+    w, _ = _bf16_up(*_up_case(dev, Ci, Co, T, True))
+    rng = np.random.default_rng(offset)
+    x = _t(rng, (offset + 2 * T * Ci,), 1.0, dev).bfloat16()[offset:].view(2, T, Ci)
+    assert x.data_ptr() % 16 != 0
+    assert uf.route_for(Ci, Co, True, bf16=True, x_ptr=x.data_ptr()) == "tc"
+    before = uf.ROUTES["tc"]
+    got = uf.up_fused(x, w, scale=scale)
+    want = uf.up_fused_plain_bf16(x, w, scale=scale, channel_dim=2)
+    assert uf.ROUTES["tc"] == before + 1
+    _check_bf16(got, want)
 
 
 @pytest.mark.parametrize("T", [1, 63, 65, 1001])

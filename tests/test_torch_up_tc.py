@@ -15,6 +15,17 @@ prepared once.
   at the wide widths and scales, with T ragged against the 62-row tile (1,
   tile - 1, tile + 1, 2 tile + 3; the edge rows repeat the edge frame), and
   against JAX's jnp up path at one shape.
+- ``up_wgmma_emulated`` sums as the bf16 (B, T, C) kernel
+  (``csrc/up_fused_tc_bf16.cu``) does: the same 64-row tiles, z from bf16
+  operands with fp32 sums plus the bias, the halo row before t = 0 and the
+  one past T - 1 copies of the edge rows, the statistics as above, the
+  blend and the norm folded into two fmas of per-(row, phase) coefficients
+  (w_c sd^-1, w_o sd^-1, -mean sd^-1) and the affine as a third, the output
+  rounded to bf16. Held against
+  ``up_fused_plain_bf16`` within the bf16 kernels' tolerance at the 1kbps
+  widths, at Co = 160 (wgmma chunks of 64 and 16) and 32, at ragged T and
+  on the edge frames, and against JAX's jnp up path in bf16; the ``"tc"``
+  buffer it reads is W itself.
 - ``up_stream_emulated`` sums as the streaming kernel does (the conv on the
   same 3xTF32 scheme, the column statistics as sequential sums over Co);
   held the same way at the narrow widths.
@@ -22,8 +33,10 @@ prepared once.
   ``Stage.up_prepared`` and ``prepared_up`` cache them, rebuild them after
   ``load_state_dict`` and an in-place ``mul_``, never cache them for
   inference tensors, and a warm decode transposes no up weight.
-- ``route_for`` is a shape rule; ``tools/up_variants.py``'s substitutions
-  apply to both kernels' sources, and the tool needs the card.
+- ``route_for`` is a shape rule (and of the dtype: bf16 (B, T, C) at Ci % 8
+  == 0 and Co a multiple of 32 up to 256 takes ``"wgmma"``);
+  ``tools/up_variants.py``'s substitutions apply to every kernel's source,
+  and the tool needs the card.
 
 The kernels themselves are held against the plain version on the card by
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
@@ -138,6 +151,82 @@ def up_tc_emulated(x: torch.Tensor, w: uf.UpWeights, scale: int) -> torch.Tensor
                     v = _fma((v - mu[:, None]) * rsd[:, None], w.norm_w, w.norm_b)
                 out[b, t0:t0 + n, p] = v
     return out.reshape(B, T * scale, Co)
+
+
+def _quads(v, Co):
+    """(rows, Co) -> (rows, warpgroup, j, t4, e): column Co / 2 cw + 8 j + 2 t4
+    + e, as wgmma's accumulators hold a row of each warpgroup's half."""
+    return v.reshape(v.shape[0], 2, Co // 16, 4, 2)
+
+
+def _quad_reduce(q):
+    """(.., t4) -> their sum as the shuffles xor 1, then xor 2 add, per
+    warpgroup; then the two warpgroups' partial sums added."""
+    q = q[..., 0::2] + q[..., 1::2]
+    q = q[..., 0] + q[..., 1]
+    return q[:, 0] + q[:, 1]
+
+
+def _wgmma_row_sum(z, Co):
+    """up_fused_tc_bf16.cu's row_stats sums: per lane, (z_e0 + z_e1) added
+    over j in order, then the quad and the warpgroups."""
+    q = _quads(z, Co)
+    s = torch.zeros(q.shape[:2] + q.shape[3:4])
+    for j in range(q.shape[2]):
+        s = s + (q[:, :, j, :, 0] + q[:, :, j, :, 1])
+    return _quad_reduce(s)
+
+
+def _wgmma_row_dot(u, w, Co):
+    """row_stats' D and C: per lane fma(u_e1, w_e1, fma(u_e0, w_e0, acc)) over
+    j in order, then the quad and the warpgroups."""
+    a, b = _quads(u, Co), _quads(w, Co)
+    s = torch.zeros(a.shape[:2] + a.shape[3:4])
+    for j in range(a.shape[2]):
+        s = _fma(a[:, :, j, :, 1], b[:, :, j, :, 1], _fma(a[:, :, j, :, 0], b[:, :, j, :, 0], s))
+    return _quad_reduce(s)
+
+
+def up_wgmma_emulated(x: torch.Tensor, w: uf.UpWeights, scale: int) -> torch.Tensor:
+    """csrc/up_fused_tc_bf16.cu's sums: bf16 x (B, T, Ci) -> bf16 (B, T scale,
+    Co). x rows outside [0, T) arrive as zeros (TMA), so their z is the bias;
+    the kernel then copies z row 0 into the halo row before it and z row T -
+    1 into the one after it, and gives those rows the edge rows' statistics
+    (the values the copies' statistics have: the same sums in the same
+    order)."""
+    B, T, Ci = x.shape
+    wf = uf.UpWeights(*(None if t is None else t.float() for t in w))
+    Co = wf.w.shape[0]
+    out = torch.empty(B, T, scale, Co)
+    taps = _taps(scale)
+    for b in range(B):
+        for t0 in range(0, T, TILE):
+            rows = torch.arange(t0 - 1, t0 + TILE + 1)
+            ok = (rows >= 0) & (rows < T)
+            xt = torch.where(ok[:, None], x[b, rows.clamp(0, T - 1)].float(), 0.0)
+            z = (xt.double() @ wf.w.double().t()).float() + wf.b           # (64, Co)
+            if t0 == 0:
+                z[0] = z[1]
+            if T - t0 < TILE + 1:
+                z[T - t0 + 1] = z[T - t0]
+            if wf.norm_w is not None:
+                m = _wgmma_row_sum(z, Co) / Co
+                u = z - m[:, None]
+                d = _wgmma_row_dot(u, u, Co)
+                c = _wgmma_row_dot(u[:-1], u[1:], Co)
+            n = min(TILE, T - t0)
+            i = torch.arange(1, n + 1)
+            for p, (wp, wc, wn) in enumerate(taps):
+                prev = wp != 0.0
+                wo = wp if prev else wn
+                io = i - 1 if prev else i + 1
+                v = _blend(z[i], z[io], wc, wo)
+                if wf.norm_w is not None:   # the blend and the norm as two fmas
+                    mu, rsd = _moments(m, d, c[i - 1 if prev else i], io, i, wo, wc, Co)
+                    ca, cb, cc = (wc * rsd)[:, None], (wo * rsd)[:, None], (-mu * rsd)[:, None]
+                    v = _fma(_fma(z[i], ca, _fma(z[io], cb, cc)), wf.norm_w, wf.norm_b)
+                out[b, t0:t0 + n, p] = v
+    return out.reshape(B, T * scale, Co).bfloat16()
 
 
 def _moments(m, d, c, a, b, wo, wc, Co):
@@ -261,6 +350,92 @@ def test_the_models_match_the_jax_up_path():
         np.testing.assert_allclose(got, want, rtol=0, atol=TOL * max(1.0, np.abs(want).max()))
 
 
+def _bf16_weights(rng, Ci, Co, norm=True):
+    return uf.UpWeights(*(None if t is None else t.bfloat16() for t in _weights(rng, Ci, Co, norm)))
+
+
+def _check_bf16(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.bfloat16
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -6 * max(1.0, want.float().abs().max().item()), err
+
+
+@pytest.mark.parametrize("Ci,Co,scale,norm", [(512, 256, 5, True), (256, 96, 3, True),
+                                              (64, 160, 2, True), (24, 32, 4, False)])
+def test_wgmma_bf16_sums_match_the_plain_bf16_up_path(Ci, Co, scale, norm):
+    """T ragged against the 62-row tile (1, tile - 1, tile + 1, 2 tile + 3),
+    the output and its first and last frames (the edge rows' copies)."""
+    rng = np.random.default_rng([Ci, Co, scale, 16])
+    w = _bf16_weights(rng, Ci, Co, norm)
+    for T in (1, TILE - 1, TILE + 1, 2 * TILE + 3):
+        x = _t(rng, (2, T, Ci)).bfloat16()
+        with torch.no_grad():
+            got = up_wgmma_emulated(x, w, scale)
+            want = uf.up_fused_plain_bf16(x, w, scale=scale, channel_dim=2)
+        _check_bf16(got, want)
+        _check_bf16(torch.cat([got[:, :scale], got[:, -scale:]], 1),
+                    torch.cat([want[:, :scale], want[:, -scale:]], 1))
+
+
+def test_wgmma_bf16_sums_match_the_jax_bf16_up_path():
+    """The emulated kernel against ``l3ac_tpu/models/decoder.py:_up_path`` in
+    bf16 on the same seeded weights: relative L2 within two bf16 ulps."""
+    rng = np.random.default_rng(9)
+    Ci, Co, T, scale = 256, 96, 2 * TILE + 3, 3
+    w = _bf16_weights(rng, Ci, Co)
+    j = lambda t: jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+    stage = {"up_conv": {"w": j(w.w.t()[None]), "b": j(w.b)},
+             "up_norm": {"w": j(w.norm_w), "b": j(w.norm_b)}}
+    x = _t(rng, (1, T, Ci)).bfloat16()
+    want = np.asarray(jdec._up_path(stage, j(x), scale, in_t=False).astype(jnp.float32))
+    with torch.no_grad():
+        got = up_wgmma_emulated(x, w, scale).float().numpy()
+    assert got.shape == want.shape
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) <= 2.0 ** -6
+
+
+def test_wgmma_route_reads_the_tc_buffer_as_w():
+    """At the wgmma route's shapes the "tc" buffer is W (Co, Ci) unpadded,
+    then b, norm_w, norm_b: the kernel's TMA map reads W in place."""
+    w = _bf16_weights(np.random.default_rng(3), 256, 96)
+    assert uf.route_for(256, 96, True, bf16=True) == "wgmma"
+    assert uf.tc_padded_co(96) == 96 and uf.tc_row_elems(256, torch.bfloat16) == 256
+    assert torch.equal(uf.prepare_up(w, "tc"),
+                       torch.cat([w.w.reshape(-1), w.b, w.norm_w, w.norm_b]))
+
+
+def test_bf16_route_is_a_shape_rule():
+    """bf16 (B, T, C) with Ci % 8 == 0 up to 1024 and Co a multiple of 32 up
+    to 256 takes the wgmma kernel; other bf16 (B, T, C) shapes the route
+    they took before; fp32 and (B, C, T) are unchanged. The rule reads
+    nothing but its arguments."""
+    for Ci, Co in ((512, 256), (256, 96), (8, 32), (1024, 256), (768, 160)):
+        assert uf.route_for(Ci, Co, True, bf16=True) == "wgmma"
+        assert uf.route_for(Ci, Co, True) in ("tc", "stream")
+    assert uf.route_for(36, 32, True, bf16=True) == "tc"            # Ci % 8 != 0
+    assert uf.route_for(768, 320, True, bf16=True) == "tc"          # Co > 256
+    assert uf.route_for(1024, 512, True, bf16=True) == "tc"
+    assert uf.route_for(512, 100, True, bf16=True) == "tc"          # Co % 32 != 0
+    assert uf.route_for(100, 20, True, bf16=True) == "stream"
+    assert uf.route_for(256, 96, False, bf16=True) is None
+    assert uf.route_for(96, 48, False, bf16=True) == "stream"
+    assert [uf.route_for(512, 256, True, bf16=True) for _ in range(3)] == ["wgmma"] * 3
+
+
+def test_bf16_route_sends_unaligned_x_to_tc():
+    """The wgmma kernel's TMA reads x from a 16-byte aligned base: at its
+    shapes an x at another address takes "tc" (which takes any x), by the
+    rule alone; the other routes do not read the address."""
+    for ptr in (0x1000, 0x7f0000000040):
+        assert uf.route_for(512, 256, True, bf16=True, x_ptr=ptr) == "wgmma"
+    for ptr in (0x1006, 0x100a, 0x1008):
+        assert uf.route_for(512, 256, True, bf16=True, x_ptr=ptr) == "tc"
+        assert uf.route_for(256, 96, True, bf16=True, x_ptr=ptr) == "tc"
+        assert uf.route_for(512, 256, True, x_ptr=ptr) == "tc"
+        assert uf.route_for(100, 20, True, bf16=True, x_ptr=ptr) == "stream"
+        assert uf.route_for(96, 48, False, bf16=True, x_ptr=ptr) == "stream"
+
+
 def test_route_is_a_shape_rule():
     assert uf.route_for(512, 256, True) == uf.route_for(256, 96, True) == "tc"
     assert uf.route_for(36, 32, True) == uf.route_for(512, 160, True) == "tc"
@@ -326,6 +501,10 @@ def test_up_variants_bf16_substitutions_apply_once_and_need_the_card():
     from l3ac_tpu_torch.tools import variant_source
     for source, variants in ((tool.SOURCE_BF16, tool.STREAM_VARIANTS_BF16),
                              (tool.STREAM_SOURCE, tool.STREAM_VARIANTS_PR12)):
+        sources = {variant_source(source, subs, "up_variants") for _, subs, _ in variants}
+        assert len(sources) == len(variants)
+    for source, variants in ((tool.SOURCE_WGMMA, tool.TC_VARIANTS_WGMMA),
+                             (tool.TC_SOURCE, tool.TC_VARIANTS_PREV)):
         sources = {variant_source(source, subs, "up_variants") for _, subs, _ in variants}
         assert len(sources) == len(variants)
     if torch.cuda.is_available():
