@@ -10,15 +10,22 @@ on the compute dtype. ``torch.round`` rounds half to even, as ``jnp.round``
 does. The unpack is integer mixed-radix arithmetic, exact for every index.
 """
 
+import functools
 import math
 
 import torch
 
 
-def _levels(levels: tuple[int, ...], device) -> tuple[torch.Tensor, torch.Tensor]:
-    lv = torch.tensor(levels, dtype=torch.float32, device=device)
-    basis = torch.tensor([math.prod(levels[:i]) for i in range(len(levels))],
-                         dtype=torch.int32, device=device)
+@functools.lru_cache(maxsize=None)
+def _levels(levels: tuple[int, ...], device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The level counts and the mixed-radix basis on ``device``, made once
+    per (levels, device): a table built from a Python list on a CUDA device
+    is a synchronizing copy, which would stop the host at every call. Made
+    outside inference mode, so that any caller may use them."""
+    with torch.inference_mode(False):
+        lv = torch.tensor(levels, dtype=torch.float32, device=device)
+        basis = torch.tensor([math.prod(levels[:i]) for i in range(len(levels))],
+                             dtype=torch.int32, device=device)
     return lv, basis
 
 

@@ -1,12 +1,12 @@
 """ctypes bindings for the C++ stream framer (``l3ac_tpu/runtime/native.py``).
 
-Builds the repo's ``native/framer.cpp`` with g++ into
+Builds the port's own copy of the framer, ``l3ac_tpu_torch/native/framer.cpp``
+(byte-identical to the JAX package's ``native/framer.cpp``), with g++ into
 ``l3ac_tpu_torch/_build/framer-<hash>/libframer.so`` at first use, under a
-file lock, where the hash covers the source and the flags (the JAX package's
-``native/libframer.so`` is left alone). :class:`NativeFramer` is the
-host-side hot loop of the streaming runtime: per-stream buffering, chunk
-assembly with the ``ChunkData`` overlap, and zero-copy fixed-shape batch
-filling.
+file lock, where the hash covers the source and the flags. :class:`NativeFramer`
+is the host-side hot loop of the streaming runtime: per-stream buffering,
+chunk assembly with the ``ChunkData`` overlap, zero-copy fixed-shape batch
+filling, and its restartable state (``save_state`` / ``restore_state``).
 
 ``available()`` reports whether the framer builds and loads; constructing a
 ``NativeFramer`` raises, with the compiler's output, when it does not.
@@ -25,9 +25,9 @@ from pathlib import Path
 
 import numpy as np
 
-REPO_DIR = Path(__file__).resolve().parents[2]
-SOURCE = REPO_DIR / "native" / "framer.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+SOURCE = PACKAGE_DIR / "native" / "framer.cpp"
+BUILD_DIR = PACKAGE_DIR / "_build"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-Wextra", "-shared")
 
 _lock = threading.Lock()
@@ -86,6 +86,14 @@ def _load() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_int64)]
         lib.framer_pending.restype = ctypes.c_int
         lib.framer_pending.argtypes = [ctypes.c_void_p]
+        lib.framer_state_size.restype = ctypes.c_int64
+        lib.framer_state_size.argtypes = [ctypes.c_void_p]
+        lib.framer_save_state.restype = ctypes.c_int64
+        lib.framer_save_state.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8),
+                                          ctypes.c_int64]
+        lib.framer_restore_state.restype = ctypes.c_int
+        lib.framer_restore_state.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8),
+                                             ctypes.c_int64]
         _lib = lib
         return lib
 
@@ -146,3 +154,25 @@ class NativeFramer:
 
     def pending(self) -> int:
         return self._lib.framer_pending(self._h)
+
+    # -- restartable state (kill-and-resume; framer.cpp's state layout) ----
+    def save_state(self) -> bytes:
+        """Serialize all framer state (stream buffers, chunk cursors, the
+        ready queue) so that a restored framer reproduces the same batches."""
+        n = self._lib.framer_state_size(self._h)
+        buf = np.zeros(n, np.uint8)
+        wrote = self._lib.framer_save_state(
+            self._h, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), n)
+        if wrote != n:
+            raise RuntimeError(f"framer_save_state wrote {wrote}, expected {n}")
+        return buf.tobytes()
+
+    def restore_state(self, data: bytes) -> None:
+        """Restore :meth:`save_state`'s bytes into this framer, which must
+        have the same chunk_len / prefix_len / batch; raises ``ValueError``
+        on a blob it cannot read or from another geometry."""
+        buf = np.frombuffer(data, np.uint8)
+        rc = self._lib.framer_restore_state(
+            self._h, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), buf.size)
+        if rc != 0:
+            raise ValueError(f"framer_restore_state failed: {rc}")

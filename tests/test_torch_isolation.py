@@ -27,7 +27,9 @@ def test_import_pulls_in_no_jax():
             "l3ac_tpu_torch.tools.attention_variants, l3ac_tpu_torch.tools.tail_variants, "
             "l3ac_tpu_torch.runtime.chunk, l3ac_tpu_torch.runtime.convert, "
             "l3ac_tpu_torch.runtime.checkpoint, l3ac_tpu_torch.runtime.native, "
-            "l3ac_tpu_torch.runtime.streaming, l3ac_tpu_torch.utils.audio_io, "
+            "l3ac_tpu_torch.runtime.streaming, l3ac_tpu_torch.runtime.scheduler, "
+            "l3ac_tpu_torch.profile_serve, "
+            "l3ac_tpu_torch.utils.audio_io, "
             "l3ac_tpu_torch.utils.metrics, l3ac_tpu_torch.__main__; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'l3ac_tpu' or m.startswith('l3ac_tpu.')]; "
@@ -67,6 +69,18 @@ def test_key_manifest_copies_equal_the_jax_manifests(name):
     ours = PORT / "configs" / f"{name}.keys.json"
     theirs = REPO / "l3ac_tpu" / "configs" / f"{name}.keys.json"
     assert ours.read_bytes() == theirs.read_bytes()
+
+
+def test_framer_copy_equals_the_jax_framer_source():
+    ours = PORT / "native" / "framer.cpp"
+    theirs = REPO / "native" / "framer.cpp"
+    assert ours.read_bytes() == theirs.read_bytes()
+
+
+def test_native_framer_builds_from_the_port_copy():
+    from l3ac_tpu_torch.runtime import native
+    assert native.SOURCE.resolve().is_relative_to(PORT.resolve())
+    assert native.SOURCE.is_file() and native.BUILD_DIR.resolve().is_relative_to(PORT.resolve())
 
 
 def test_get_model_defaults_to_cuda_and_raises_without_it():

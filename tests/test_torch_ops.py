@@ -109,6 +109,17 @@ def test_fsq_matches_jax():
     assert ti.dtype == torch.int32
 
 
+def test_fsq_level_tables_are_made_once_per_device():
+    """The level tables are cached per (levels, device), since building them
+    on a CUDA device is a synchronizing copy; made outside inference mode
+    even when first asked for inside it."""
+    with torch.inference_mode():
+        lv, basis = tfsq._levels((3, 4, 6, 2), torch.device("cpu"))
+    assert tfsq._levels((3, 4, 6, 2), torch.device("cpu"))[0] is lv
+    assert not lv.is_inference() and not basis.is_inference()
+    assert lv.tolist() == [3.0, 4.0, 6.0, 2.0] and basis.tolist() == [1, 3, 12, 72]
+
+
 def test_fsq_exact_ties_round_half_to_even():
     """z = 0 squashes to exactly 0.5; with L - 1 odd, 0.5 * (L - 1) is a tie
     (1.5, 2.5, 3.5), which both packages round to even (2, 2, 4)."""
