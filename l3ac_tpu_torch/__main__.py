@@ -5,12 +5,15 @@
     python -m l3ac_tpu_torch info   --model 1kbps
     python -m l3ac_tpu_torch encode in.wav tokens.npz --model 1kbps [--pretrained]
     python -m l3ac_tpu_torch decode tokens.npz out.wav
+    python -m l3ac_tpu_torch train  --config debug --steps 20 [--ckpt-dir d --save-every k --resume]
 
 Tokens are stored as an ``.npz`` with the FSQ indices, the model name and
 the original sample count (so decode crops exactly), as the JAX CLI writes
 them. WAV I/O is PCM16 mono at the model's sample rate.
 
-The models run on the card; ``--device cpu`` runs the plain path.
+The models run on the card; ``--device cpu`` runs the plain path. ``train``
+runs ``trainer.train`` on one device (``--dp`` / ``--sp`` / ``--tp`` above 1
+raise: ROADMAP A11).
 ``--pretrained`` reads the released checkpoints from ``config.model_path``
 and raises when they are not there: nothing is downloaded.
 """
@@ -77,6 +80,18 @@ def cmd_decode(args) -> int:
     return 0
 
 
+def cmd_train(args) -> int:
+    from .trainer import train
+
+    train(args.config, steps=args.steps, batch=args.batch,
+          seconds=args.seconds, tokens=args.tokens, dp=args.dp, sp=args.sp,
+          tp=args.tp, lr=args.lr, spectral=args.spectral,
+          drop_path_rate=args.drop_path, seed=args.seed, wav_dir=args.wav_dir,
+          ckpt_dir=args.ckpt_dir, save_every=args.save_every,
+          resume=args.resume, device=args.device)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m l3ac_tpu_torch")
     sub = ap.add_subparsers(dest="command", required=True)
@@ -103,9 +118,40 @@ def main(argv=None) -> int:
     p.add_argument("output")
     model_args(p, None, "override the model recorded in the token file")
 
+    p = sub.add_parser(
+        "train", help="train on one device with Adam + spectral loss, "
+                      "checkpoints and --resume restart")
+    p.add_argument("--config", default="debug")
+    p.add_argument("--steps", type=int, default=20)
+    p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--seconds", type=float, default=None,
+                   help="clip length (rounded down to a hop multiple); "
+                        "default --tokens")
+    p.add_argument("--tokens", type=int, default=8,
+                   help="clip length in codec tokens (hop multiples)")
+    p.add_argument("--dp", type=int, default=1, help="not ported: above 1 raises")
+    p.add_argument("--sp", type=int, default=1, help="not ported: above 1 raises")
+    p.add_argument("--tp", type=int, default=1, help="not ported: above 1 raises")
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--spectral", action="store_true",
+                   help="add multi-resolution STFT + log-mel losses")
+    p.add_argument("--drop-path", type=float, default=0.0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--wav-dir", default=None,
+                   help="train on random crops from *.wav here (synthetic "
+                        "noise feed otherwise)")
+    p.add_argument("--ckpt-dir", default=None)
+    p.add_argument("--save-every", type=int, default=0,
+                   help="checkpoint every K steps")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the newest checkpoint in --ckpt-dir")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default: the CUDA kernels) or cpu (the plain path)")
+
     args = ap.parse_args(argv)
     return {"list": cmd_list, "info": cmd_info,
-            "encode": cmd_encode, "decode": cmd_decode}[args.command](args)
+            "encode": cmd_encode, "decode": cmd_decode,
+            "train": cmd_train}[args.command](args)
 
 
 if __name__ == "__main__":

@@ -12,6 +12,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import ModelConfig
+from ..ops.droppath import split
 from . import local_transformer as lt
 from .decoder import Decoder
 from .encoder import Encoder
@@ -82,3 +83,35 @@ class Codec(nn.Module):
         """(B, T'') indices -> (B, T) audio, features made in the decoder's dtype."""
         dtype = self.decoder.in_conv.weight.dtype
         return self.decode(self.quantizer.indices_to_features(indices, dtype))
+
+    def forward(self, audio: torch.Tensor, *, training: bool = False,
+                generator: torch.Generator | None = None,
+                drop_path_rate: float = 0.0) -> dict:
+        """The training-style round trip (``l3ac_tpu/models/codec.py:229-261``,
+        the reference's ``EnCodec.forward``): (B, T) audio, padded here to a
+        hop multiple, -> the reference's output dict, ``generated_audio``
+        cropped to T. ``training``: FSQ's straight-through estimator.
+        ``generator`` (on the audio's device) enables FSQ's noise and, with
+        ``drop_path_rate > 0``, the conv units' stochastic depth; it is split
+        into FSQ, encoder and decoder streams as JAX splits its key."""
+        g_fsq, g_enc, g_dec = split(generator, 3)
+        padded, length = preprocess(audio, self.mc)
+        feature = self.encoder(padded.contiguous(), drop_path_rate=drop_path_rate,
+                               generator=g_enc)
+        trans_feature = self.en_encoder_apply(feature)
+        q_trans, indices, _ = self.quantizer(trans_feature, training=training,
+                                             generator=g_fsq)
+        q_feature = self.en_decoder_apply(q_trans)
+        y = self.decoder(q_feature, drop_path_rate=drop_path_rate, generator=g_dec)
+        return {
+            "generated_audio": y[..., :length],
+            "embedded_audio": q_feature,
+            "indices": indices,
+            "commit_loss": torch.zeros((), dtype=audio.dtype, device=audio.device),
+            "hidden_feature": {
+                "encoded_feature": feature,
+                "encoded_trans_feature": trans_feature,
+                "quantized_trans_feature": q_trans,
+                "quantized_feature": q_feature,
+            },
+        }

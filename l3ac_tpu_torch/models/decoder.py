@@ -14,6 +14,13 @@ up path (1x1 conv -> linear upsample x rate -> optional ChannelNorm, the
 - ``dilation``: 3 ConvUnits at dilations 1 / 3 / 9; ``None``: 2 ConvUnits;
   both followed by snake -> conv k7 -> tanh in plain PyTorch.
 
+Training: a ``(drop_path_rate, generator)`` gives the stage units stochastic
+depth on a descending linspace ramp over ``sum(decoder_depths)`` units, the
+tail at rate 0 (``l3ac_tpu/models/decoder.py:131-150``). Under autograd the
+tail takes its live stacked weights (``tail_weights``), with the cached pack
+only as the kernel's operand, so that its parameters get their gradient on
+the card and on the CPU.
+
 Wide stages run on (B, T, C); once a stage's width is at most
 ``NARROW_MAX_C`` the activation flips to (B, C, T) once and stays there, the
 same switch as the JAX decoder. The reference's fp64 tail flag is not ported
@@ -30,6 +37,9 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops import conv1d, snake
+from ..ops import kernels as K
+from ..ops.droppath import schedule
+from ..ops.kernels import autograd
 from ..ops.kernels.conv_unit import cached_prepare
 from ..ops.kernels.legacy_tail import (DILATIONS, PreparedTail, TailWeights, legacy_tail_ct,
                                        legacy_tail_poly_ct, pack)
@@ -121,10 +131,7 @@ class Decoder(nn.Module):
         cached on the tail's parameters (``cached_prepare``: rebuilt after
         ``load_state_dict`` or an in-place change; built on every call,
         never cached, where a parameter is an inference tensor)."""
-        us = self.tail_units
-        src = tuple(t for u in us for t in (u.alpha1, u.conv1.weight, u.conv1.bias,
-                                            u.alpha2, u.conv2.weight, u.conv2.bias))
-        src += (self.tail_alpha, self.out_conv.weight, self.out_conv.bias)
+        src = self.tail_parameters()
 
         def build() -> PreparedTail:
             with torch.no_grad():
@@ -133,9 +140,28 @@ class Decoder(nn.Module):
 
         return cached_prepare(self.tail_alpha, src, build)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, T', feature_dim) -> audio (B, T' * prod(decode_rates))."""
+    def tail(self, x: torch.Tensor) -> TailWeights | PreparedTail:
+        """The tail's operands for input ``x``: the cached
+        :meth:`tail_prepared`, or under autograd the live stacked weights
+        (where x takes the kernel, beside the cached pack)."""
+        if not autograd.needs_grad(*self.tail_parameters()):
+            return self.tail_prepared()
+        w = self.tail_weights()
+        return PreparedTail(w, self.tail_prepared().packed) if K.route(x, "legacy_tail") else w
+
+    def tail_parameters(self) -> tuple[torch.Tensor, ...]:
+        us = self.tail_units
+        return tuple(t for u in us for t in (u.alpha1, u.conv1.weight, u.conv1.bias,
+                                             u.alpha2, u.conv2.weight, u.conv2.bias)) + \
+            (self.tail_alpha, self.out_conv.weight, self.out_conv.bias)
+
+    def forward(self, x: torch.Tensor, *, drop_path_rate: float = 0.0,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """x: (B, T', feature_dim) -> audio (B, T' * prod(decode_rates)).
+        ``drop_path_rate`` / ``generator``: train-only stochastic depth."""
         mc = self.mc
+        drops = iter(schedule(drop_path_rate, sum(mc.decoder_depths), generator,
+                              ascending=False))
         h = conv1d(x.transpose(1, 2), self.in_conv.weight, self.in_conv.bias, padding=1)
         h = h.transpose(1, 2).contiguous()                     # (B, T, C)
         in_t = False
@@ -148,7 +174,7 @@ class Decoder(nn.Module):
                 h = h.transpose(1, 2).contiguous()             # (B, C, T) from here
                 in_t = True
             for u in st.units:
-                h = u(h, channels_last=not in_t)
+                h = u(h, channels_last=not in_t, drop=next(drops))
             h = st.enhance(h, channels_last=not in_t).contiguous()
             uw, prep = st.up_weights(), st.up_prepared()
             if not in_t:
@@ -158,11 +184,11 @@ class Decoder(nn.Module):
             else:
                 h = up_fused_ct(h, uw, scale=rate, prepared=prep)
         if phases is not None:
-            return legacy_tail_poly_ct(*phases, self.tail_prepared())
+            return legacy_tail_poly_ct(*phases, self.tail(phases[0]))
         if not in_t:                                           # geometries that never narrow
             h = h.transpose(1, 2).contiguous()
         if mc.decoder_last_layer == "legacy":
-            return legacy_tail_ct(h, self.tail_prepared())
+            return legacy_tail_ct(h, self.tail(h))
         for u in self.tail_units:
             h = u(h, channels_last=False)
         h = conv1d(snake(h, self.tail_alpha[:, None]), self.out_conv.weight,

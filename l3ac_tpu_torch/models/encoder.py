@@ -10,6 +10,10 @@ Layout: the stem emits (B, C, T), torch's native conv layout, and stages
 whose input width is at most ``NARROW_MAX_C`` stay there (the ``conv_unit_ct``
 kernel); wider stages and the last units run on (B, T, C) (the ``conv_unit``
 kernel), the same switching as the JAX encoder.
+
+Training: a ``(drop_path_rate, generator)`` gives every ConvUnit stochastic
+depth on an ascending linspace ramp over ``sum(encoder_depths)`` units
+(``l3ac_tpu/models/encoder.py:55-70``).
 """
 
 import torch
@@ -17,6 +21,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops import conv1d, conv1d_strided_matmul
+from ..ops.droppath import schedule
 from ..utils import init as pinit
 from .layers import ChannelNorm, ConvUnit
 from .tconv import FirstBlock
@@ -39,6 +44,7 @@ class Encoder(nn.Module):
     def __init__(self, mc: ModelConfig, device=None):
         super().__init__()
         dims = mc.encoder_dims
+        self.depths = tuple(mc.encoder_depths)
         self.first = FirstBlock(dims[0], device=device)
         self.stages = nn.ModuleList(
             Stage(i_d, o_d, s, depth, mc, device=device)
@@ -59,8 +65,11 @@ class Encoder(nn.Module):
             u.init_weights(gen)
         pinit.weight_norm_layer_(self.out_conv, gen)
 
-    def forward(self, audio: torch.Tensor) -> torch.Tensor:
-        """audio: (B, T), T a multiple of conv_hop -> (B, T', feature_dim)."""
+    def forward(self, audio: torch.Tensor, *, drop_path_rate: float = 0.0,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """audio: (B, T), T a multiple of conv_hop -> (B, T', feature_dim).
+        ``drop_path_rate`` / ``generator``: train-only stochastic depth."""
+        drops = iter(schedule(drop_path_rate, sum(self.depths), generator, ascending=True))
         h = self.first(audio)                                  # (B, C, T)
         in_t = True
         for st in self.stages:
@@ -69,7 +78,7 @@ class Encoder(nn.Module):
                 h = h.transpose(1, 2).contiguous()
                 in_t = narrow
             for u in st.units:
-                h = u(h, channels_last=not in_t)
+                h = u(h, channels_last=not in_t, drop=next(drops))
             h = conv1d_strided_matmul(h, st.down.weight, st.down.bias,
                                       channels_last=not in_t)
             if st.down_norm is not None:
@@ -78,7 +87,7 @@ class Encoder(nn.Module):
         if in_t:
             h = h.transpose(1, 2).contiguous()                 # (B, T, C)
         for u in self.last_units:
-            h = u(h, channels_last=True)
+            h = u(h, channels_last=True, drop=next(drops))
         y = conv1d(h.transpose(1, 2), self.out_conv.weight, self.out_conv.bias,
                    padding=1)
         return y.transpose(1, 2)

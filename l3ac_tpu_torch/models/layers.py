@@ -17,6 +17,13 @@ operands prepared once from the int8 weights (:meth:`ConvUnit.prepared`),
 which differ from that body only by the GRN fold
 (``ops/kernels/conv_unit.py``).
 
+Training: under autograd the CUDA kernels run through ``ops/kernels/autograd``
+(the backward differentiates their plain versions on the dense weights), and
+the unit takes a ``(drop_rate, generator)`` pair for stochastic depth,
+applied as ``x + drop_path(out - x)`` around the fused unit, as JAX's
+``_maybe_drop`` does (``l3ac_tpu/models/layers.py:63-71``). int8 units do not
+train: on the card their kernels raise under autograd.
+
 LegacyUnit: snake -> conv k7 at dilation d -> snake -> conv k1, residual
 outside. It holds the weights of one unit of the decoder's legacy tail, which
 runs as one kernel with its plain version beside it
@@ -27,6 +34,7 @@ import torch
 from torch import nn
 
 from ..ops import channel_norm, instance_norm
+from ..ops.droppath import drop_path
 from ..ops.kernels.conv_unit import (ConvUnitWeights, PreparedWeights, cached_prepare,
                                      conv_unit, conv_unit_ct, prepare_weights, prepared_weights,
                                      unit_body)
@@ -117,19 +125,29 @@ class ConvUnit(nn.Module):
         src += tuple(t for t in self.kernel_weights(dense=False) if t is not None)
         return cached_prepare(self.pw1.w_q, src, lambda: prepare_weights(self.kernel_weights()))
 
-    def forward(self, x: torch.Tensor, *, channels_last: bool) -> torch.Tensor:
-        """Residual unit: x (B, T, C) if ``channels_last`` else (B, C, T)."""
-        if channels_last and isinstance(self.pw1, Int8Linear):
+    def forward(self, x: torch.Tensor, *, channels_last: bool,
+                drop: tuple[float, torch.Generator | None] = (0.0, None)) -> torch.Tensor:
+        """Residual unit: x (B, T, C) if ``channels_last`` else (B, C, T).
+        ``drop``: the unit's (drop_rate, generator), inert by default."""
+        int8 = isinstance(self.pw1, Int8Linear)
+        if channels_last and int8:
             # JAX conv_unit_apply's unfused body: elementwise steps in plain
             # PyTorch, pw1 / pw2 as modules (int8_matmul), the exact GRN
-            return x + unit_body(x, self.kernel_weights(dense=False),
-                                 lambda h: self.pw1(h.contiguous()), self.pw2,
-                                 channel_dim=2, dilation=self.dilation)
-        if channels_last:
-            return conv_unit(x, self.kernel_weights(), dilation=self.dilation)
-        # the kernel takes prepared products; the CPU plain path dense weights
-        return conv_unit_ct(x, self.kernel_weights(dense=not x.is_cuda),
-                            dilation=self.dilation, prepared=self.prepared)
+            out = x + unit_body(x, self.kernel_weights(dense=False),
+                                lambda h: self.pw1(h.contiguous()), self.pw2,
+                                channel_dim=2, dilation=self.dilation)
+        elif channels_last:
+            out = conv_unit(x, self.kernel_weights(), dilation=self.dilation)
+        else:
+            # the kernel takes prepared products; the plain path (the CPU, and
+            # a training backward) the dense weights, which an int8 unit makes
+            # per call
+            out = conv_unit_ct(x, self.kernel_weights(dense=not (int8 and x.is_cuda)),
+                               dilation=self.dilation, prepared=self.prepared)
+        rate, generator = drop
+        if rate > 0.0 and generator is not None:
+            return x + drop_path(out - x, rate, generator)
+        return out
 
 
 def _dense_weight(lin: nn.Module, dtype: torch.dtype) -> torch.Tensor:

@@ -2,7 +2,10 @@
 
 Plain Linear feature_dim -> codebook_dim and back (none when they are
 equal), called as modules so that an ``Int8Linear`` in their place runs its
-kernel. Eval path only; ``indices_to_features`` is the closed-form decode.
+kernel. The training path (``training=True``) quantizes with FSQ's
+straight-through estimator and, given a generator, its noise at
+``vq.noise_rate`` (``l3ac_tpu/models/quantizer.py:29-44``);
+``indices_to_features`` is the closed-form decode.
 """
 
 import torch
@@ -17,6 +20,7 @@ class Quantizer(nn.Module):
     def __init__(self, feature_dim: int, vq: VQConfig, device=None):
         super().__init__()
         self.levels = vq.levels
+        self.noise_rate = vq.noise_rate
         self.has_proj = feature_dim != vq.codebook_dim
         if self.has_proj:
             self.proj_in = nn.Linear(feature_dim, vq.codebook_dim, device=device)
@@ -30,10 +34,18 @@ class Quantizer(nn.Module):
     def project_in(self, x: torch.Tensor) -> torch.Tensor:
         return self.proj_in(x) if self.has_proj else x
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, *, training: bool = False,
+                generator: torch.Generator | None = None):
         """x: (B, T, feature_dim) -> (q (B, T, feature_dim), indices (B, T)
-        int32, level indices (B, T, D) int32)."""
-        q_z, indices, li = fsq.quantize(self.project_in(x), self.levels)
+        int32, level indices (B, T, D) int32). ``training``: the
+        straight-through estimator, with the noise when a generator is given
+        (the eval path forces the rate to 0, ``l3ac/vq/fsq.py:31``)."""
+        z = self.project_in(x)
+        if training:
+            q_z, indices, li = fsq.quantize_ste(z, self.levels, noise_rate=self.noise_rate,
+                                                generator=generator)
+        else:
+            q_z, indices, li = fsq.quantize(z, self.levels)
         q = self.proj_out(q_z) if self.has_proj else q_z
         return q, indices, li
 

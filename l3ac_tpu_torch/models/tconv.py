@@ -22,6 +22,7 @@ from torch import nn
 
 from ..ops import conv1d, trend_pool
 from ..ops import kernels as K
+from ..ops.kernels import autograd
 from ..ops.kernels.conv_unit import cached_prepare
 from ..ops.kernels.first_block import (POOLS, FirstBlockWeights, PreparedStem, first_block,
                                       first_block_plain, pack)
@@ -102,10 +103,14 @@ class FirstBlock(nn.Module):
     def forward(self, audio: torch.Tensor) -> torch.Tensor:
         """audio: (B, T) -> (B, target_dim, T). The kernel takes the cached
         pack; on the CPU the plain version takes the live parameters, so its
-        output keeps their autograd graph."""
-        if K.route(audio, "first_block"):
-            return first_block(audio, self.prepared())
-        return first_block_plain(audio, self.kernel_weights())
+        output keeps their autograd graph. Under autograd the kernel's
+        backward differentiates the plain version on the live parameters too
+        (the pack is only the launch's operand)."""
+        if not K.route(audio, "first_block"):
+            return first_block_plain(audio, self.kernel_weights())
+        if autograd.needs_grad(audio, *self.parameters()):
+            return first_block(audio, PreparedStem(self.kernel_weights(), self.prepared().packed))
+        return first_block(audio, self.prepared())
 
 
 ENHANCE_POOLS = (1, 3, 5, 9)

@@ -1,5 +1,7 @@
-"""Finite Scalar Quantization, eval path (``l3ac_tpu/ops/fsq.py:57-78`` and
-the closed-form unpack ``:114-131``).
+"""Finite Scalar Quantization: the eval path (``l3ac_tpu/ops/fsq.py:57-78``),
+the training path's straight-through estimator with the uniform-noise
+injection (``:81-111``, :func:`quantize_ste`) and the closed-form unpack
+(``:114-131``).
 
 No codebook and no search: a per-dimension squash ``(tanh(z) + 1) / 2`` to
 [0, 1], a round to one of L levels, and a mixed-radix pack of the level
@@ -44,6 +46,28 @@ def quantize(z: torch.Tensor, levels: tuple[int, ...]):
     indices = (li_i * basis).sum(dim=-1, dtype=torch.int32)
     q_z = q_act * 2.0 - 1.0
     return q_z.to(z.dtype), indices, li_i
+
+
+def quantize_ste(z: torch.Tensor, levels: tuple[int, ...], *, noise_rate: float = 0.0,
+                 generator: torch.Generator | None = None):
+    """Training-path quantize with the reference's straight-through estimator
+    (``l3ac/vq/fsq.py:56-65``), applied at the activation value: the gradient
+    flows through ``act(z)``, the round and the linear inverse pass it
+    through. With ``noise_rate > 0`` and a generator (on z's device), each
+    element is, with that probability, ``act(z) + U(-0.5, 0.5) / L`` instead
+    of its quantized value (``:40-43``). The indices come from the detached
+    input, as :func:`quantize` gives them. Returns (q_z, indices, level
+    indices) as :func:`quantize` does."""
+    lv, _ = _levels(levels, z.device)
+    act_z = (torch.tanh(z.float()) + 1.0) / 2.0
+    q_act = act_z + (torch.round(act_z * (lv - 1.0)) / (lv - 1.0) - act_z).detach()
+    if noise_rate > 0.0 and generator is not None:
+        mask = torch.rand(act_z.shape, generator=generator, device=z.device) <= noise_rate
+        noise = (torch.rand(act_z.shape, generator=generator, device=z.device) - 0.5) / lv
+        q_act = torch.where(mask, act_z + noise, q_act)
+    q_z = q_act * 2.0 - 1.0
+    _, indices, li = quantize(z.detach(), levels)
+    return q_z.to(z.dtype), indices, li
 
 
 def indices_to_level_indices(indices: torch.Tensor, levels: tuple[int, ...]) -> torch.Tensor:

@@ -8,7 +8,9 @@ Each wrapper:
   each dtype its own kernel (no bf16 tensor is cast to fp32 for an fp32
   kernel); bf16 only for the two probe kernels;
 - on a CUDA tensor launches its kernel or raises; there is no fallback;
-- on a CPU tensor runs the plain PyTorch version in the same module;
+- on a CPU tensor runs the plain PyTorch version in the same module (which
+  also takes float64 there where the kernel takes fp32: a reference for
+  fp32's roundoff, as the training checks use it);
 - adds one to ``LAUNCHES[name]`` where it launches its kernel, and nowhere
   else, so a run can show that it went through the kernel.
 """
@@ -35,9 +37,12 @@ DTYPES = (torch.float32, torch.bfloat16)
 def check_input(t: torch.Tensor, name: str, ndim: int | None = None,
                 dtype: torch.dtype | tuple[torch.dtype, ...] = torch.float32) -> None:
     """The checks every kernel input passes before its pointer is taken;
-    ``dtype`` is the one dtype the kernel takes or a tuple of them."""
+    ``dtype`` is the one dtype the kernel takes or a tuple of them. A CPU
+    tensor, which only the plain version sees, may be float64 where fp32 is
+    taken."""
     dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
-    if t.dtype not in dtypes:
+    plain64 = t.dtype == torch.float64 and t.device.type == "cpu" and torch.float32 in dtypes
+    if t.dtype not in dtypes and not plain64:
         raise TypeError(f"{name}: {', '.join(map(str, dtypes))} only, got {t.dtype}")
     if ndim is not None and t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")

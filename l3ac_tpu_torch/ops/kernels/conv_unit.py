@@ -77,7 +77,7 @@ import torch.nn.functional as F
 from .. import kernels as K
 from ..activations import EPS, gelu, snake
 from ..norms import channel_norm, grn
-from . import _build, gemm_sm90
+from . import _build, autograd, gemm_sm90
 from .tc_gemm import split_tf32
 
 MAX_C = 512        # conv_unit, SIMT route: conv_unit.cu's accumulators and shared memory
@@ -500,13 +500,28 @@ def _launch_bf16(x: torch.Tensor, p: PreparedBf16, dilation: int, *,
     return out
 
 
+def _plain(channel_dim: int, dilation: int) -> Callable:
+    """The fp32 plain version over the flattened inputs (x, *ConvUnitWeights):
+    what a training backward differentiates (``autograd.call``)."""
+    return lambda x, *ws: conv_unit_plain(x, ConvUnitWeights(*ws), channel_dim=channel_dim,
+                                          dilation=dilation)
+
+
+def _check_trainable(x: torch.Tensor, w: ConvUnitWeights, name: str) -> None:
+    if w.pw1_w is None and autograd.needs_grad(x, *w):
+        raise TypeError(f"{name}: int8 weight-only units do not train (the JAX package trains "
+                        "no int8 model); run them under torch.inference_mode()")
+
+
 def conv_unit_ct(x: torch.Tensor, w: ConvUnitWeights, *, dilation: int = 1,
                  prepared: Callable[[], PreparedWeights | PreparedBf16] | None = None
                  ) -> torch.Tensor:
     """Residual ConvUnit on (B, C, T), fp32 or bf16. On CUDA the narrow
     tensor-core kernel of x's dtype at C <= NARROW_MAX_C (raises above), its
     operands from ``prepared()`` when given (then ``w`` may leave pw1_w /
-    pw2_w out), else from :func:`prepared_weights`. Plain on the CPU, from
+    pw2_w out), else from :func:`prepared_weights`; under autograd through
+    ``autograd.call`` (the backward differentiates the plain version on
+    ``w``, which then holds the dense weights). Plain on the CPU, from
     ``w``'s dense weights."""
     K.check_input(x, "conv_unit_ct x", ndim=3, dtype=K.DTYPES)
     bf16 = x.dtype == torch.bfloat16
@@ -517,11 +532,15 @@ def conv_unit_ct(x: torch.Tensor, w: ConvUnitWeights, *, dilation: int = 1,
     why = admits("conv_unit_ct", x.shape[1], x.dtype)
     if why is not None:
         raise ValueError(why)
+    _check_trainable(x, w, "conv_unit_ct")
     p = prepared() if prepared is not None else prepared_weights(w)
     if bf16 != isinstance(p, PreparedBf16):
         raise TypeError(f"conv_unit_ct: x is {x.dtype} but the unit's weights are not")
-    out = _launch_bf16(x, p, dilation, channels_last=False) if bf16 else \
-        _launch_narrow(x, w, p, dilation)
+    if bf16:
+        launch = lambda: _launch_bf16(x, p, dilation, channels_last=False)
+    else:
+        launch = lambda: _launch_narrow(x, w, p, dilation)
+    out = autograd.call("conv_unit_ct", launch, _plain(1, dilation), x, *w)
     K.LAUNCHES["conv_unit_ct"] += 1
     return out
 
@@ -530,7 +549,8 @@ def conv_unit(x: torch.Tensor, w: ConvUnitWeights, *,
               dilation: int = 1) -> torch.Tensor:
     """Residual ConvUnit on (B, T, C), fp32 or bf16. On CUDA: the tensor-core
     path when C is a multiple of TC_MULTIPLE (bf16: of BF16_MULTIPLE), else
-    (fp32 only) the SIMT kernel; one count either way. Plain on CPU."""
+    (fp32 only) the SIMT kernel; one count either way; under autograd through
+    ``autograd.call``. Plain on CPU."""
     K.check_input(x, "conv_unit x", ndim=3, dtype=K.DTYPES)
     bf16 = x.dtype == torch.bfloat16
     if not K.route(x, "conv_unit"):
@@ -540,14 +560,16 @@ def conv_unit(x: torch.Tensor, w: ConvUnitWeights, *,
     why = admits("conv_unit", x.shape[2], x.dtype)
     if why is not None:
         raise ValueError(why)
+    _check_trainable(x, w, "conv_unit")
     if bf16:
         p = prepared_weights(w)
         if not isinstance(p, PreparedBf16):
             raise TypeError("conv_unit: x is bf16 but the unit's weights are not")
-        out = _launch_bf16(x, p, dilation, channels_last=True)
+        launch = lambda: _launch_bf16(x, p, dilation, channels_last=True)
     elif x.shape[2] % TC_MULTIPLE == 0:
-        out = _launch_tc(x, w, dilation)
+        launch = lambda: _launch_tc(x, w, dilation)
     else:
-        out = conv_unit_simt(x, w, dilation, channels_last=True)
+        launch = lambda: conv_unit_simt(x, w, dilation, channels_last=True)
+    out = autograd.call("conv_unit", launch, _plain(2, dilation), x, *w)
     K.LAUNCHES["conv_unit"] += 1
     return out

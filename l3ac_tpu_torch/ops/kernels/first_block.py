@@ -57,7 +57,7 @@ import torch.nn.functional as F
 from .. import kernels as K
 from ..activations import gelu
 from ..pool import trend_pool
-from . import _build
+from . import _build, autograd
 from .conv_unit import cached_prepare
 from .tc_gemm import split_tf32
 
@@ -297,8 +297,13 @@ def _launch(x: torch.Tensor, w: FirstBlockWeights | PreparedStem) -> torch.Tenso
 def first_block(x: torch.Tensor, w: FirstBlockWeights | PreparedStem) -> torch.Tensor:
     """x: (B, T) fp32 or bf16 audio -> (B, Cout, T) in x's dtype. ``w``: the
     weights (of x's dtype), or a :class:`PreparedStem` whose buffer the
-    kernel takes as it is. Kernel on CUDA, plain on CPU."""
+    kernel takes as it is. Kernel on CUDA (under autograd through
+    ``autograd.call``: the backward differentiates the plain version on the
+    weights, so a trainer passes a PreparedStem of the live weights), plain on
+    CPU."""
     K.check_input(x, "first_block x", ndim=2, dtype=K.DTYPES)
+    weights = w.weights if isinstance(w, PreparedStem) else w
     if not K.route(x, "first_block"):
-        return first_block_plain(x, w.weights if isinstance(w, PreparedStem) else w)
-    return _launch(x, w)
+        return first_block_plain(x, weights)
+    return autograd.call("first_block", lambda: _launch(x, w),
+                         lambda x, *ws: first_block_plain(x, FirstBlockWeights(*ws)), x, *weights)

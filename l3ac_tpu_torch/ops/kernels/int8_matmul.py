@@ -38,7 +38,7 @@ import ctypes
 import torch
 
 from .. import kernels as K
-from . import _build, gemm_sm90
+from . import _build, autograd, gemm_sm90
 
 
 def dequantize_weight(w_q: torch.Tensor, scale: torch.Tensor,
@@ -106,9 +106,11 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
                 b: torch.Tensor | None = None) -> torch.Tensor:
     """x (..., K) fp32 or bf16; w_q (N, K) int8; scale (N,) fp32; b (N,) in
     x's dtype or None -> (..., N) in x's dtype. Kernel on CUDA (x contiguous;
-    a strided view raises), plain on CPU."""
+    a strided view raises; under autograd it raises: int8 does not train),
+    plain on CPU."""
     K.check_input(x, "int8_matmul x", dtype=K.DTYPES)
     if not K.route(x, "int8_matmul"):
         plain = int8_matmul_plain_bf16 if x.dtype == torch.bfloat16 else int8_matmul_plain
         return plain(x, w_q, scale, b)
-    return _launch(x, w_q, scale, b)
+    return autograd.call("int8_matmul", lambda: _launch(x, w_q, scale, b), int8_matmul_plain,
+                         x, w_q, scale, b)

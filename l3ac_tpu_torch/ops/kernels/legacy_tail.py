@@ -48,7 +48,7 @@ import torch.nn.functional as F
 from .. import kernels as K
 from ..activations import EPS, snake
 from ..resample import interleave
-from . import _build
+from . import _build, autograd
 from .conv_unit import cached_prepare
 from .tc_gemm import split_tf32
 
@@ -262,12 +262,25 @@ def _plain(x: torch.Tensor):
     return legacy_tail_plain_bf16 if x.dtype == torch.bfloat16 else legacy_tail_plain
 
 
+def _call(x0: torch.Tensor, x1: torch.Tensor | None, w: TailWeights | PreparedTail, T: int,
+          name: str) -> torch.Tensor:
+    """The launch through ``autograd.call``: under autograd the backward
+    differentiates the plain tail on the weights (``w``'s own, or a
+    PreparedTail's, which a trainer builds from the live parameters)."""
+    def plain(x0, x1, *ws):
+        return legacy_tail_plain(x0 if x1 is None else interleave([x0, x1], 2), TailWeights(*ws))
+
+    return autograd.call(name, lambda: _launch(x0, x1, w, T, name), plain, x0, x1,
+                         *_plain_weights(w))
+
+
 def legacy_tail_poly_ct(x0: torch.Tensor, x1: torch.Tensor,
                         w: TailWeights | PreparedTail) -> torch.Tensor:
     """Phase pair x0, x1 (B, C, Tt) of the interleaved input
     (``x[.., 2 t + q] = x_q[.., t]``) -> audio (B, 2 Tt) in x's dtype (fp32
     or bf16). ``w``: the weights, or a :class:`PreparedTail` whose buffer
-    the kernel takes as it is. Kernel on CUDA, plain on CPU."""
+    the kernel takes as it is. Kernel on CUDA (under autograd with the plain
+    version's gradient), plain on CPU."""
     K.check_input(x0, "legacy_tail_poly_ct x0", ndim=3, dtype=K.DTYPES)
     K.check_input(x1, "legacy_tail_poly_ct x1", ndim=3, dtype=x0.dtype)
     if x0.shape != x1.shape:
@@ -275,13 +288,14 @@ def legacy_tail_poly_ct(x0: torch.Tensor, x1: torch.Tensor,
                          f"{tuple(x1.shape)} differ")
     if not K.route(x0, "legacy_tail_poly_ct"):
         return _plain(x0)(interleave([x0, x1], 2), _plain_weights(w))
-    return _launch(x0, x1, w, 2 * x0.shape[2], "legacy_tail_poly_ct")
+    return _call(x0, x1, w, 2 * x0.shape[2], "legacy_tail_poly_ct")
 
 
 def legacy_tail_ct(x: torch.Tensor, w: TailWeights | PreparedTail) -> torch.Tensor:
     """Interleaved (B, C, T) -> audio (B, T) in x's dtype (fp32 or bf16).
-    Kernel on CUDA, plain on CPU."""
+    Kernel on CUDA (under autograd with the plain version's gradient), plain
+    on CPU."""
     K.check_input(x, "legacy_tail_ct x", ndim=3, dtype=K.DTYPES)
     if not K.route(x, "legacy_tail_ct"):
         return _plain(x)(x, _plain_weights(w))
-    return _launch(x, None, w, x.shape[2], "legacy_tail_ct")
+    return _call(x, None, w, x.shape[2], "legacy_tail_ct")

@@ -66,7 +66,7 @@ import torch
 
 from .. import kernels as K
 from ..attention import local_attention as local_attention_plain
-from . import _build
+from . import _build, autograd
 from .conv_unit import cached_prepare
 
 MAX_HEAD_DIM = 128  # csrc/local_attention.cu: D / 8 n8 tiles of O
@@ -175,8 +175,9 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     bias_table: torch.Tensor | None = None) -> torch.Tensor:
     """q, k, v: (B, H, T, D) views, T a multiple of window_size; bias
     (H, n, 2n), or bias_table (2n, H), or neither. Returns (B, H, T, D), on
-    CUDA a permuted view of a (B, T, H, D) tensor. Kernel on CUDA, plain on
-    CPU."""
+    CUDA a permuted view of a (B, T, H, D) tensor. Kernel on CUDA (under
+    autograd through ``autograd.call``, with a gradient for q, k, v and the
+    bias or its table), plain on CPU."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         K.check_input(t, f"local_attention {name}", ndim=4, dtype=K.DTYPES)
     if bias is not None and bias_table is not None:
@@ -208,6 +209,25 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         st, ptr = _strides(t, name)
         strides += st
         ptrs.append(ptr)
+
+    def launch():
+        return _launch(q, k, v, bias, bias_table, n, ptrs, strides)
+
+    def plain(q, k, v, bias, bias_table):
+        return local_attention_plain(q, k, v, window_size=n, bias=bias,
+                                     bias_table=bias_table).permute(0, 2, 1, 3)
+
+    out = autograd.call("local_attention", launch, plain, q, k, v, bias, bias_table)
+    K.LAUNCHES["local_attention"] += 1
+    return out.permute(0, 2, 1, 3)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor | None,
+            bias_table: torch.Tensor | None, n: int, ptrs: list[int],
+            strides: list[int]) -> torch.Tensor:
+    """The kernel of q's dtype on operands :func:`local_attention` checked
+    (``ptrs`` / ``strides`` of q, k, v) -> (B, T, H, D)."""
+    B, H, T, D = q.shape
     out = torch.empty((B, T, H, D), device=q.device, dtype=q.dtype)
     if q.dtype == torch.bfloat16:
         route = route_for(strides, ptrs)
@@ -223,5 +243,4 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = fn(*ptrs, _build.ptr(bias), _build.ptr(bias_table), out.data_ptr(), B, H, T, n,
                  D, *strides, D ** -0.5, _build.stream_ptr())
         _build.check(err, "local_attention")
-    K.LAUNCHES["local_attention"] += 1
-    return out.permute(0, 2, 1, 3)
+    return out

@@ -71,7 +71,7 @@ import torch.nn.functional as F
 from .. import kernels as K
 from ..norms import channel_norm
 from ..resample import interleave, upsample_phases
-from . import _build
+from . import _build, autograd
 from .conv_unit import cached_prepare
 
 MAX_SCALE = 16
@@ -301,6 +301,24 @@ def _launch(x: torch.Tensor, w: UpWeights, scale: int, *, channels_last: bool,
     _build.check(err, name)
     ROUTES[route] += 1
     K.LAUNCHES[name] += 1
+    return out
+
+
+def _call(x: torch.Tensor, w: UpWeights, scale: int, *, channels_last: bool,
+          phase_split: bool, name: str, prepared: UpPrepared | None):
+    """The launch through ``autograd.call``: under autograd the backward
+    differentiates :func:`up_fused_plain` (its phases stacked as the launch
+    returns them, (scale, B, Co, T)) on the weights."""
+    def launch():
+        return _launch(x, w, scale, channels_last=channels_last, phase_split=phase_split,
+                       name=name, prepared=prepared)
+
+    def plain(x, *ws):
+        out = up_fused_plain(x, UpWeights(*ws), scale=scale, channel_dim=2 if channels_last else 1,
+                             phase_split=phase_split)
+        return torch.stack(out) if phase_split else out
+
+    out = autograd.call(name, launch, plain, x, *w)
     return tuple(out.unbind(0)) if phase_split else out
 
 
@@ -308,24 +326,24 @@ def up_fused_ct(x: torch.Tensor, w: UpWeights, *, scale: int, phase_split: bool 
                 prepared: UpPrepared | None = None):
     """(B, Ci, T) -> (B, Co, T * scale), or with ``phase_split`` the tuple of
     ``scale`` phases (B, Co, T) with ``out[.., t * scale + p] ==
-    phases[p][.., t]``; fp32 or bf16. Kernel on CUDA, plain on CPU.
-    ``prepared``: the weights' :class:`UpPrepared` (default:
-    :func:`prepared_up`)."""
+    phases[p][.., t]``; fp32 or bf16. Kernel on CUDA (under autograd with the
+    plain version's gradient), plain on CPU. ``prepared``: the weights'
+    :class:`UpPrepared` (default: :func:`prepared_up`)."""
     K.check_input(x, "up_fused_ct x", ndim=3, dtype=K.DTYPES)
     if not K.route(x, "up_fused_ct"):
         plain = up_fused_plain_bf16 if x.dtype == torch.bfloat16 else up_fused_plain
         return plain(x, w, scale=scale, channel_dim=1, phase_split=phase_split)
-    return _launch(x, w, scale, channels_last=False, phase_split=phase_split,
-                   name="up_fused_ct", prepared=prepared)
+    return _call(x, w, scale, channels_last=False, phase_split=phase_split,
+                 name="up_fused_ct", prepared=prepared)
 
 
 def up_fused(x: torch.Tensor, w: UpWeights, *, scale: int,
              prepared: UpPrepared | None = None) -> torch.Tensor:
-    """(B, T, Ci) -> (B, T * scale, Co), fp32 or bf16. Kernel on CUDA, plain
-    on CPU."""
+    """(B, T, Ci) -> (B, T * scale, Co), fp32 or bf16. Kernel on CUDA (under
+    autograd with the plain version's gradient), plain on CPU."""
     K.check_input(x, "up_fused x", ndim=3, dtype=K.DTYPES)
     if not K.route(x, "up_fused"):
         plain = up_fused_plain_bf16 if x.dtype == torch.bfloat16 else up_fused_plain
         return plain(x, w, scale=scale, channel_dim=2)
-    return _launch(x, w, scale, channels_last=True, phase_split=False, name="up_fused",
-                   prepared=prepared)
+    return _call(x, w, scale, channels_last=True, phase_split=False, name="up_fused",
+                 prepared=prepared)

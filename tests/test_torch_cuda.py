@@ -1166,3 +1166,65 @@ def test_debug_bf16_decode_and_int8_roundtrip_match_cpu(dev):
     assert torch.isfinite(y.float()).all()
     _, i_c = cpu.encode_audio(audio)
     assert (i_g.cpu() == i_c).float().mean().item() >= 0.97
+
+
+# -- training: the kernels' autograd Functions (ops/kernels/autograd.py) ------
+
+@pytest.mark.parametrize("size", ["debug", "1kbps"])
+@pytest.mark.parametrize("name", ["first_block", "conv_unit_ct", "conv_unit", "local_attention",
+                                  "up_fused_ct", "up_fused", "legacy_tail_poly_ct",
+                                  "legacy_tail_ct"])
+def test_kernel_gradient_through_its_function(dev, name, size):
+    """The gradient of (out * r).sum() through the kernel's Function (forward:
+    the launch; backward: the plain version's VJP) against the same through
+    the plain version, every input, within 1e-5 relative L2 (chip_smoke.py's
+    FAMILY_GRAD_TOL); the launch counted once."""
+    from l3ac_tpu_torch import grad_check
+    from l3ac_tpu_torch.ops import kernels as K
+    call, plain, inputs = grad_check.case(name, size, dev)
+    K.reset_launches()
+    out, got = grad_check.grads(call, inputs)
+    assert K.LAUNCHES[name] == 1, K.LAUNCHES
+    p_out, want = grad_check.grads(plain, inputs)
+    _check(out, p_out)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert grad_check.rel_l2(g, w) <= 1e-5, (name, i, grad_check.rel_l2(g, w))
+
+
+def test_debug_training_step_on_the_card(dev):
+    """A debug training step (2 x 4 tokens, the waveform loss): each kernel
+    launched as an encode plus a decode launches it, none in the backward;
+    loss and every gradient against the CPU's (leaves of roundoff alone,
+    ``grad_check.negligible``, aside); bf16 under autograd raises."""
+    from l3ac_tpu_torch import grad_check, train
+    from l3ac_tpu_torch.config import get_config
+    from l3ac_tpu_torch.models.codec import Codec
+    from l3ac_tpu_torch.ops import kernels as K
+    mc = get_config("debug").network_config
+    gpu = Codec(mc, device=dev)
+    gpu.init_weights(torch.Generator().manual_seed(0))
+    cpu = Codec(mc)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    audio = (np.random.default_rng(0).standard_normal((2, 4 * mc.hop_length)) * 0.3
+             ).astype(np.float32)
+    K.reset_launches()
+    with torch.no_grad():
+        q, _ = gpu.encode(torch.from_numpy(audio).to(dev))
+        gpu.decode(q)
+    roundtrip = dict(K.LAUNCHES)
+    K.reset_launches()
+    loss_g, _ = train.loss_fn(gpu, torch.from_numpy(audio).to(dev))
+    forward = dict(K.LAUNCHES)
+    loss_g.backward()
+    assert dict(K.LAUNCHES) == forward == roundtrip
+    loss_c, _ = train.loss_fn(cpu, torch.from_numpy(audio))
+    loss_c.backward()
+    assert abs(loss_g.item() - loss_c.item()) <= 1e-5 * abs(loss_c.item())
+    want = {n: c.grad for n, c in cpu.named_parameters()}
+    zero = grad_check.negligible(want)             # roundoff alone
+    for n, p in gpu.named_parameters():
+        if n not in zero:
+            assert grad_check.rel_l2(p.grad.cpu(), want[n]) <= 1e-3, n
+    gpu.to(torch.bfloat16)
+    with pytest.raises(TypeError, match="float32 only"):
+        train.loss_fn(gpu, torch.from_numpy(audio).to(dev).bfloat16())

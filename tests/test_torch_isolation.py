@@ -30,7 +30,10 @@ def test_import_pulls_in_no_jax():
             "l3ac_tpu_torch.runtime.streaming, l3ac_tpu_torch.runtime.scheduler, "
             "l3ac_tpu_torch.profile_serve, "
             "l3ac_tpu_torch.utils.audio_io, "
-            "l3ac_tpu_torch.utils.metrics, l3ac_tpu_torch.__main__; "
+            "l3ac_tpu_torch.utils.metrics, l3ac_tpu_torch.__main__, "
+            "l3ac_tpu_torch.train, l3ac_tpu_torch.trainer, l3ac_tpu_torch.ops.droppath, "
+            "l3ac_tpu_torch.utils.debug, l3ac_tpu_torch.grad_check, "
+            "l3ac_tpu_torch.ops.kernels.autograd; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'l3ac_tpu' or m.startswith('l3ac_tpu.')]; "
             "assert not bad, bad; print('clean')")

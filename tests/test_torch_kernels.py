@@ -317,9 +317,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 
 def test_wrappers_take_fp32_only():
     """fp32 and bf16 only (the bf16 variants' own tests are in
-    test_torch_bf16.py and test_torch_bf16_decode.py), never another dtype:
-    fp16 raises on every wrapper, the decode-only ones included; bf16 reaches
-    their bf16 plain versions on the CPU."""
+    test_torch_bf16.py and test_torch_bf16_decode.py), never another dtype
+    for a kernel: fp16 raises on every wrapper, the decode-only ones
+    included; bf16 reaches their bf16 plain versions on the CPU (float64 on
+    the CPU reaches the plain versions too: test_torch_autograd.py)."""
     unit = ConvUnit(8)
     with pytest.raises(TypeError, match="float32"):
         cu.conv_unit_ct(torch.zeros(1, 8, 16, dtype=torch.float16), unit.kernel_weights())
