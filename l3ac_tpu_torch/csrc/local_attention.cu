@@ -52,6 +52,13 @@
 // cost 8 per k8 step, a per-warp buffer a store, a barrier and a load.
 // No fast math: expf, IEEE division for the final 1 / sum. The bf16 attention
 // is its own kernel, csrc/local_attention_bf16.cu.
+// The previous-window operands of JAX's kernel (_attn_kernel's kp, kp0 and vp0
+// refs): window w >= 1 reads its previous half's keys from kp (a view like k,
+// default k: the rotary path's keys rotated as previous-window keys), and
+// window 0 from pk / pv, (B, H, n, D) contiguous (under sequence parallelism
+// the left shard's last window), unless its previous half is masked: with no
+// pk, or with left_edge 1 (the globally first shard). The K / V ring loads
+// each key row from its own source, so a tile may straddle the two halves.
 #include "common.cuh"
 #include "ptx.cuh"
 
@@ -73,11 +80,15 @@ struct Args {
   const float* q;
   const float* k;
   const float* v;
+  const float* kp;     // the previous-role keys of windows w >= 1 (default k)
+  const float* pk;     // (B, H, n, D) window 0's previous keys, or null
+  const float* pv;     // ... its values
   const float* bias;   // (H, n, 2n), kFullBias
   const float* table;  // (2n, H), kTableBias
   float* out;          // (B, T, H, D) contiguous
-  long long qs[3], ks[3], vs[3];  // B, H, T strides in floats
+  long long qs[3], ks[3], vs[3], kps[3];  // B, H, T strides in floats
   int H, T, n, D;
+  int mask_first;      // window 0's previous half masked (no pk, or left_edge)
   float scale;
 };
 
@@ -136,7 +147,7 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const Args a) {
   const int b = bh / a.H, h = bh - b * a.H;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rows = min(kRows, n - i0);
-  const int j_begin = w == 0 ? n : 0;
+  const int j_begin = w == 0 && a.mask_first ? n : 0;
   const int j_end = n + i0 + rows;              // one past the last row's last key
   const int ntiles = (j_end - j_begin + kKeys - 1) / kKeys;
   const long long q_row0 = static_cast<long long>(w) * n + i0;  // time of query row 0
@@ -144,8 +155,11 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const Args a) {
   const float* qb = a.q + b * a.qs[0] + h * a.qs[1];
   const float* kb = a.k + b * a.ks[0] + h * a.ks[1];
   const float* vb = a.v + b * a.vs[0] + h * a.vs[1];
+  const float* kpb = a.kp + b * a.kps[0] + h * a.kps[1];
+  const long long p_row0 = static_cast<long long>(bh) * n;  // pk / pv row of key j = 0
   constexpr int kPieces = 2 * kD8;              // 16-byte pieces per (zero-filled) row
 
+  // key j < n of window w >= 1 from kp, of window 0 from pk / pv; j >= n from k
   auto stage_kv = [&](int s, int j0) {
     float* kt = ring + s * L::stage;
     float* vt = kt + L::ktile;
@@ -153,8 +167,19 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const Args a) {
       const int jj = e / kPieces, c = 4 * (e - jj * kPieces), j = j0 + jj;
       const bool ok = j < j_end && c < D;
       const long long t = k_row0 + j;
-      ptx::cp_async16(kt + jj * L::qk + c, ok ? kb + t * a.ks[2] + c : a.k, ok ? 16 : 0);
-      ptx::cp_async16(vt + jj * L::v + c, ok ? vb + t * a.vs[2] + c : a.v, ok ? 16 : 0);
+      const float* ks = a.k;
+      const float* vs = a.v;
+      if (ok) {
+        if (j >= n || w > 0) {
+          ks = (j >= n ? kb + t * a.ks[2] : kpb + t * a.kps[2]) + c;
+          vs = vb + t * a.vs[2] + c;
+        } else {
+          ks = a.pk + (p_row0 + j) * D + c;
+          vs = a.pv + (p_row0 + j) * D + c;
+        }
+      }
+      ptx::cp_async16(kt + jj * L::qk + c, ks, ok ? 16 : 0);
+      ptx::cp_async16(vt + jj * L::v + c, vs, ok ? 16 : 0);
     }
   };
 
@@ -391,26 +416,32 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 }  // namespace
 
-// q, k, v: (B, H, T, D) with element strides (sB, sH, sT, 1) each, every
-// stride a multiple of 4 and every pointer 16-byte aligned; D a multiple of 4
-// up to 128; T a multiple of n. bias: (H, n, 2n) contiguous, or table: (2n, H)
-// contiguous, or neither (not both). out: (B, T, H, D) contiguous. All fp32.
-// Returns the CUDA error code (invalid value for what it does not take).
+// q, k, v, kp: (B, H, T, D) with element strides (sB, sH, sT, 1) each, every
+// stride a multiple of 4 and every pointer 16-byte aligned (kp null: k); D a
+// multiple of 4 up to 128; T a multiple of n. pk, pv: (B, H, n, D) contiguous,
+// both or neither; left_edge 1 masks window 0's previous half all the same.
+// bias: (H, n, 2n) contiguous, or table: (2n, H) contiguous, or neither (not
+// both). out: (B, T, H, D) contiguous. All fp32. Returns the CUDA error code
+// (invalid value for what it does not take).
 extern "C" int l3ac_local_attention(const float* q, const float* k, const float* v,
+                                    const float* kp, const float* pk, const float* pv,
                                     const float* bias, const float* table, float* out, int B,
-                                    int H, int T, int n, int D, long long qsB, long long qsH,
-                                    long long qsT, long long ksB, long long ksH, long long ksT,
-                                    long long vsB, long long vsH, long long vsT, float scale,
+                                    int H, int T, int n, int D, int left_edge, long long qsB,
+                                    long long qsH, long long qsT, long long ksB, long long ksH,
+                                    long long ksT, long long vsB, long long vsH, long long vsT,
+                                    long long kpsB, long long kpsH, long long kpsT, float scale,
                                     void* stream) {
-  const long long strides[9] = {qsB, qsH, qsT, ksB, ksH, ksT, vsB, vsH, vsT};
+  if (kp == nullptr) kp = k, kpsB = ksB, kpsH = ksH, kpsT = ksT;
+  const long long strides[12] = {qsB, qsH, qsT, ksB, ksH, ksT, vsB, vsH, vsT, kpsB, kpsH, kpsT};
   bool ok = B >= 1 && H >= 1 && static_cast<long long>(B) * H <= 65535 && n >= 1 &&
             T >= n && T % n == 0 && T / n <= 65535 && D >= 4 && D <= 8 * kMaxD8 &&
             D % 4 == 0 && !(bias != nullptr && table != nullptr) && aligned16(q) &&
-            aligned16(k) && aligned16(v) && aligned16(out);
+            aligned16(k) && aligned16(v) && aligned16(kp) && aligned16(out) &&
+            (pk == nullptr) == (pv == nullptr) && aligned16(pk) && aligned16(pv);
   for (long long s : strides) ok = ok && s % 4 == 0;
   if (!ok) return cudaErrorInvalidValue;
-  Args a{q, k, v, bias, table, out, {qsB, qsH, qsT}, {ksB, ksH, ksT}, {vsB, vsH, vsT},
-         H, T, n, D, scale};
+  Args a{q, k, v, kp, pk, pv, bias, table, out, {qsB, qsH, qsT}, {ksB, ksH, ksT},
+         {vsB, vsH, vsT}, {kpsB, kpsH, kpsT}, H, T, n, D, pk == nullptr || left_edge != 0, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int d8 = (D + 7) / 8;  // k8 steps, exact up to 4, then 8 or 16 (zero-filled)
   if (d8 <= 4) {

@@ -53,6 +53,18 @@
 // time is the latency of each warpgroup's S -> softmax -> P V chain, which
 // four warpgroups an SM do not hide. At n = 250 (0.017 ms) the prologue and
 // the launch are most of it.
+// The previous-window operands of JAX's kernel (_attn_kernel's kp, kp0 and
+// vp0 refs): window w >= 1 reads its previous half's keys from kp (a view
+// like k: the rotary path's keys rotated as previous-window keys), window 0
+// from pk / pv, (B, H, n, D) contiguous (sequence parallelism: the left
+// shard's last window), unless that half is masked (no pk, or left_edge 1).
+// The key tiles stay the contiguous 64-key tiles of [prev | cur], so a
+// window reads the same keys in the same tiles as it does without the
+// operands (a shard's first window under SP as the single-device run's).
+// A tile wholly on one side of key n is one TMA box from that side's tensor;
+// the one tile across it, which one box cannot hold, the producer warp's 32
+// lanes copy row by row from either source (cp.async, the cp.async route's
+// copy), then complete its full barrier with one arrival.
 #include <cuda.h>
 
 #include <cstring>
@@ -82,11 +94,15 @@ struct Params {
   const bf16* q;
   const bf16* k;
   const bf16* v;
+  const bf16* kp;       // the previous-role keys of windows w >= 1, or null (k)
+  const bf16* pk;       // (B, H, n, D) window 0's previous keys, or null
+  const bf16* pv;       // ... its values
   const bf16* bias;     // (H, n, 2n), kFullBias
   const float* table;   // (H, 2n) fp32 times log2 e, kTableBias
   bf16* out;            // (B, T, H, D) contiguous
-  long long qs[3], ks[3], vs[3];  // B, H, T strides in elements
+  long long qs[3], ks[3], vs[3], kps[3];  // B, H, T strides in elements
   int H, T, n, D;
+  int mask_first;       // window 0's previous half masked (no pk, or left_edge)
   float scale;          // D^-1/2 rounded to bf16
   int nq, W, BH, items;  // query tiles per window, windows, B * H, work items
 };
@@ -158,10 +174,15 @@ __device__ __forceinline__ Item work_item(const Params& p, int idx) {
   return {qt * kQRows, w, b, bh - b * p.H};
 }
 
-// key tiles of item it: keys j_begin .. n + i0 + rows - 1 (its last row's last key)
+// the first key of item it's tiles: n where window 0's previous half is masked
+__device__ __forceinline__ int key_begin(const Params& p, const Item& it) {
+  return it.w == 0 && p.mask_first ? p.n : 0;
+}
+
+// key tiles of item it: keys key_begin .. n + i0 + rows - 1 (its last row's last key)
 __device__ __forceinline__ int key_tiles(const Params& p, const Item& it) {
   const int rows = min(kQRows, p.n - it.i0);
-  return (p.n + it.i0 + rows - (it.w == 0 ? p.n : 0) + kKeys - 1) / kKeys;
+  return (p.n + it.i0 + rows - key_begin(p, it) + kKeys - 1) / kKeys;
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -178,25 +199,46 @@ __device__ __forceinline__ uint32_t scale_pair(uint32_t x, float s) {
   return ptx::bf16x2_rn(__uint_as_float(x << 16) * s, __uint_as_float(x & 0xffff0000u) * s);
 }
 
-// the cp.async route: rows [0, rows) of the (time t0 + r) rows of one head
-// into a swizzled tile, 8-byte pieces, zero past T and past D
+// One side of a key tile: rows of one head of a tensor, row r at time t0 + r,
+// valid below T.
+struct Rows {
+  const bf16* src;
+  long long st, t0;
+  int T;
+};
+
+// the cp.async copy: rows [0, rows) of a swizzled tile, 8-byte pieces, row r
+// from a for r < split and from b past it, zero outside [0, T) and past D
 template <int kD16>
-__device__ __forceinline__ void copy_rows(unsigned char* dst, const bf16* src, long long st,
-                                          long long t0, int rows, int T, int D, int lane) {
+__device__ __forceinline__ void copy_rows2(unsigned char* dst, const Rows& a, const Rows& b,
+                                           int split, int rows, int D, int lane) {
   constexpr int kPieces = Geo<kD16>::kDp / 4;
   for (int e = lane; e < rows * kPieces; e += 32) {
     const int r = e / kPieces, c = 4 * (e - r * kPieces);
-    const long long t = t0 + r;
-    const bool ok = t < T && c < D;
-    ptx::cp_async8(dst + elem_offset<kD16>(r, c, rows), ok ? src + t * st + c : src, ok ? 8 : 0);
+    const Rows& s = r < split ? a : b;
+    const long long t = s.t0 + r;
+    const bool ok = t >= 0 && t < s.T && c < D;
+    ptx::cp_async8(dst + elem_offset<kD16>(r, c, rows), ok ? s.src + t * s.st + c : s.src,
+                   ok ? 8 : 0);
   }
+}
+
+// the cp.async route: rows [0, rows) of the (time t0 + r) rows of one head
+template <int kD16>
+__device__ __forceinline__ void copy_rows(unsigned char* dst, const bf16* src, long long st,
+                                          long long t0, int rows, int T, int D, int lane) {
+  const Rows a{src, st, t0, T};
+  copy_rows2<kD16>(dst, a, a, rows, rows, D, lane);
 }
 
 template <int kD16, int kBias, int kRoute>
 __global__ void __launch_bounds__(kThreads, kD16 <= 2 ? 2 : 1)
     attention_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
-                          const __grid_constant__ CUtensorMap map_v, const Params p) {
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_kp,
+                          const __grid_constant__ CUtensorMap map_pk,
+                          const __grid_constant__ CUtensorMap map_pv, const Params p) {
   using G = Geo<kD16>;
   constexpr int S = G::kStages;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -229,7 +271,9 @@ __global__ void __launch_bounds__(kThreads, kD16 <= 2 ? 2 : 1)
 
   if (threadIdx.x >= kProducer) {  // ---- producer warp ----
     const int lane = threadIdx.x - kProducer;
-    if (kTmaRoute && lane != 0) return;
+    // with the previous-window operands the TMA route's lanes copy the tile across key n
+    const bool prev_ops = p.kp != nullptr || p.pk != nullptr;
+    if (kTmaRoute && lane != 0 && !prev_ops) return;
     int c = 0;
     uint32_t qe = 1;  // a fresh barrier's parity-1 wait passes: no item before the first
     uint64_t* pending = nullptr;  // cp.async: the barrier of the last group, signalled one group late
@@ -242,15 +286,29 @@ __global__ void __launch_bounds__(kThreads, kD16 <= 2 ? 2 : 1)
     };
     for (int idx = blockIdx.x; idx < p.items; idx += gridDim.x) {
       const Item it = work_item(p, idx);
-      const int j_begin = it.w == 0 ? n : 0;
+      const int j_begin = key_begin(p, it);
       const int ntiles = key_tiles(p, it);
       const int tq = it.w * n + it.i0;  // time of the item's query row 0
+      // keys j < n: window 0 from pk / pv (row j), a later window from kp (or
+      // k) and v at time (w - 1) n + j; keys j >= n from k and v
+      const bool alt = it.w == 0 ? p.pk != nullptr : p.kp != nullptr;
+      const long long hb = static_cast<long long>(it.b) * p.H + it.h;
+      const Rows kcur{p.k + it.b * p.ks[0] + it.h * p.ks[1], p.ks[2], 0, p.T};
+      const Rows vcur{p.v + it.b * p.vs[0] + it.h * p.vs[1], p.vs[2], 0, p.T};
+      const Rows kprev = it.w == 0 ? Rows{p.pk + hb * n * p.D, p.D, 0, n}
+                         : alt     ? Rows{p.kp + it.b * p.kps[0] + it.h * p.kps[1], p.kps[2], 0,
+                                          p.T}
+                                   : kcur;
+      const Rows vprev = it.w == 0 ? Rows{p.pv + hb * n * p.D, p.D, 0, n} : vcur;
       ptx::mbar_wait(q_empty, qe);
       qe ^= 1;
       if constexpr (kTmaRoute) {
-        ptx::mbar_arrive_expect_tx(q_full, G::kQ);
-        for (int hf = 0; hf < G::kHalves; ++hf)
-          ptx::tma_load_4d(qbuf + hf * G::kHalfQ, &map_q, q_full, hf * G::kSpan, tq, it.h, it.b);
+        if (lane == 0) {
+          ptx::mbar_arrive_expect_tx(q_full, G::kQ);
+          for (int hf = 0; hf < G::kHalves; ++hf)
+            ptx::tma_load_4d(qbuf + hf * G::kHalfQ, &map_q, q_full, hf * G::kSpan, tq, it.h,
+                             it.b);
+        }
       } else {
         copy_rows<kD16>(qbuf, p.q + it.b * p.qs[0] + it.h * p.qs[1], p.qs[2], tq, kQRows, p.T,
                         p.D, lane);
@@ -260,21 +318,40 @@ __global__ void __launch_bounds__(kThreads, kD16 <= 2 ? 2 : 1)
         const int s = c % S;
         ptx::mbar_wait(&empty[s], ((c / S) & 1) ^ 1);
         unsigned char* kt = ring + s * 2 * G::kTile;
-        const int tk = (it.w - 1) * n + j_begin + t * kKeys;  // time of the tile's key 0
-        if constexpr (kTmaRoute) {
-          ptx::mbar_arrive_expect_tx(&full[s], 2 * G::kTile);
-          for (int hf = 0; hf < G::kHalves; ++hf) {
-            ptx::tma_load_4d(kt + hf * G::kHalfTile, &map_k, &full[s], hf * G::kSpan, tk, it.h,
-                             it.b);
-            ptx::tma_load_4d(kt + G::kTile + hf * G::kHalfTile, &map_v, &full[s], hf * G::kSpan,
-                             tk, it.h, it.b);
+        const int j0 = j_begin + t * kKeys;
+        const int tk = (it.w - 1) * n + j0;  // time of the tile's key 0
+        // the tile's first `split` keys are previous-half keys (0 .. 64)
+        const int split = alt ? min(max(n - j0, 0), kKeys) : 0;
+        // a previous-half row r sits at pk row j0 + r (window 0) or time tk + r
+        const long long tp = it.w == 0 ? j0 : tk;
+        if (kTmaRoute && (split == 0 || split == kKeys)) {
+          if (lane == 0) {
+            const bool prev = split == kKeys;
+            const CUtensorMap* mk = !prev ? &map_k : it.w == 0 ? &map_pk : &map_kp;
+            const CUtensorMap* mv = prev && it.w == 0 ? &map_pv : &map_v;
+            const int row = prev ? static_cast<int>(tp) : tk;
+            ptx::mbar_arrive_expect_tx(&full[s], 2 * G::kTile);
+            for (int hf = 0; hf < G::kHalves; ++hf) {
+              ptx::tma_load_4d(kt + hf * G::kHalfTile, mk, &full[s], hf * G::kSpan, row, it.h,
+                               it.b);
+              ptx::tma_load_4d(kt + G::kTile + hf * G::kHalfTile, mv, &full[s], hf * G::kSpan,
+                               row, it.h, it.b);
+            }
           }
         } else {
-          copy_rows<kD16>(kt, p.k + it.b * p.ks[0] + it.h * p.ks[1], p.ks[2], tk, kKeys, p.T,
-                          p.D, lane);
-          copy_rows<kD16>(kt + G::kTile, p.v + it.b * p.vs[0] + it.h * p.vs[1], p.vs[2], tk,
-                          kKeys, p.T, p.D, lane);
-          signal(&full[s]);
+          const Rows ka{kprev.src, kprev.st, tp, kprev.T}, kb{kcur.src, kcur.st, tk, kcur.T};
+          const Rows va{vprev.src, vprev.st, tp, vprev.T}, vb{vcur.src, vcur.st, tk, vcur.T};
+          copy_rows2<kD16>(kt, ka, kb, split, kKeys, p.D, lane);
+          copy_rows2<kD16>(kt + G::kTile, va, vb, split, kKeys, p.D, lane);
+          if constexpr (kTmaRoute) {  // the tile across key n: complete it here
+            ptx::cp_async_commit();
+            ptx::cp_async_wait<0>();
+            ptx::fence_proxy_async();
+            __syncwarp();
+            if (lane == 0) ptx::mbar_arrive(&full[s]);
+          } else {
+            signal(&full[s]);
+          }
         }
       }
     }
@@ -296,7 +373,7 @@ __global__ void __launch_bounds__(kThreads, kD16 <= 2 ? 2 : 1)
   uint32_t qf_par = 0;
   for (int idx = blockIdx.x; idx < p.items; idx += gridDim.x) {
     const Item it = work_item(p, idx);
-    const int j_begin = it.w == 0 ? n : 0;
+    const int j_begin = key_begin(p, it);
     const int ntiles = key_tiles(p, it);
     const int i0w = it.i0 + 64 * cw;            // this warpgroup's first row
     const int r_hi = min(i0w + 63, n - 1);      // its last row that is stored
@@ -544,14 +621,17 @@ template <int kD16, int kBias, int kRoute>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   const size_t smem = smem_bytes<kD16>(p.n, kBias == kTableBias);
   if (smem > l3ac::sm90::kMaxSmem) return cudaErrorInvalidValue;
-  CUtensorMap maps[3];
+  CUtensorMap maps[6];  // q, k, v, kp, pk, pv (the last three where given)
   std::memset(maps, 0, sizeof(maps));
   if constexpr (kRoute == kTma) {
-    const void* bases[3] = {p.q, p.k, p.v};
-    const long long* st[3] = {p.qs, p.ks, p.vs};
-    for (int i = 0; i < 3; ++i) {
-      const cudaError_t err =
-          encode_map<kD16>(&maps[i], bases[i], B, p.H, p.T, p.D, st[i], i == 0 ? kQRows : kKeys);
+    const long long pst[3] = {static_cast<long long>(p.H) * p.n * p.D,
+                              static_cast<long long>(p.n) * p.D, p.D};
+    const void* bases[6] = {p.q, p.k, p.v, p.kp, p.pk, p.pv};
+    const long long* st[6] = {p.qs, p.ks, p.vs, p.kps, pst, pst};
+    for (int i = 0; i < 6; ++i) {
+      if (bases[i] == nullptr) continue;
+      const cudaError_t err = encode_map<kD16>(&maps[i], bases[i], B, p.H, i >= 4 ? p.n : p.T,
+                                               p.D, st[i], i == 0 ? kQRows : kKeys);
       if (err != cudaSuccess) return err;
     }
   }
@@ -576,7 +656,8 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   if (per_sm < 1) return cudaErrorInvalidValue;
   const int cap = per_sm * l3ac::sm90::sm_count();
   const int grid = p.items < cap ? p.items : cap;
-  kernel<<<grid, kThreads, smem, stream>>>(maps[0], maps[1], maps[2], p);
+  kernel<<<grid, kThreads, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], maps[4], maps[5],
+                                           p);
   return cudaGetLastError();
 }
 
@@ -597,36 +678,48 @@ bool aligned(const void* ptr, int bytes) { return reinterpret_cast<uintptr_t>(pt
 
 }  // namespace
 
-// q, k, v: bf16 (B, H, T, D) with element strides (sB, sH, sT, 1) each (0 for
-// a dim of extent 1); D a multiple of 4 up to 128; T a multiple of n. bias:
-// bf16 (H, n, 2n) contiguous, or table: the prepared fp32 (H, 2n) table times
-// log2 e (ops/kernels/local_attention.py:prepare_table), or neither (not
-// both). out: bf16 (B, T, H, D) contiguous. scale: D^-1/2 rounded to bf16.
-// route 0 (TMA): every stride a multiple of 8 and q, k, v 16-byte aligned;
-// route 1 (cp.async): strides multiples of 4, pointers 8-byte aligned.
-// Returns the CUDA error code (invalid value for what it does not take).
+// q, k, v, kp: bf16 (B, H, T, D) with element strides (sB, sH, sT, 1) each
+// (0 for a dim of extent 1; kp null: window w >= 1 reads its previous keys
+// from k); D a multiple of 4 up to 128; T a multiple of n. pk, pv: bf16 (B,
+// H, n, D) contiguous, both or neither; left_edge 1 masks window 0's previous
+// half all the same. bias: bf16 (H, n, 2n) contiguous, or table: the
+// prepared fp32 (H, 2n) table times log2 e
+// (ops/kernels/local_attention.py:prepare_table), or neither (not both).
+// out: bf16 (B, T, H, D) contiguous. scale: D^-1/2 rounded to bf16. route 0
+// (TMA): every stride (with pk, D too) a multiple of 8 and every operand
+// 16-byte aligned; route 1 (cp.async): strides multiples of 4, pointers
+// 8-byte aligned. Returns the CUDA error code (invalid value for what it
+// does not take).
 extern "C" int l3ac_local_attention_bf16(const void* q, const void* k, const void* v,
+                                         const void* kp, const void* pk, const void* pv,
                                          const void* bias, const float* table, void* out, int B,
-                                         int H, int T, int n, int D, long long qsB,
-                                         long long qsH, long long qsT, long long ksB,
-                                         long long ksH, long long ksT, long long vsB,
-                                         long long vsH, long long vsT, float scale, int route,
-                                         void* stream) {
-  const long long strides[9] = {qsB, qsH, qsT, ksB, ksH, ksT, vsB, vsH, vsT};
+                                         int H, int T, int n, int D, int left_edge,
+                                         long long qsB, long long qsH, long long qsT,
+                                         long long ksB, long long ksH, long long ksT,
+                                         long long vsB, long long vsH, long long vsT,
+                                         long long kpsB, long long kpsH, long long kpsT,
+                                         float scale, int route, void* stream) {
+  const long long strides[13] = {qsB, qsH, qsT, ksB, ksH, ksT, vsB, vsH, vsT,
+                                 kp != nullptr ? kpsB : 0, kp != nullptr ? kpsH : 0,
+                                 kp != nullptr ? kpsT : 0, pk != nullptr ? D : 0};
   const int align = route == kTma ? 16 : 8;
   bool ok = B >= 1 && H >= 1 && n >= 1 && T >= n && T % n == 0 && D >= 4 && D <= 128 &&
             D % 4 == 0 && (route == kTma || route == kCpAsync) &&
             !(bias != nullptr && table != nullptr) && aligned(q, align) && aligned(k, align) &&
-            aligned(v, align) && aligned(out, 4);
+            aligned(v, align) && aligned(kp, align) && aligned(pk, align) &&
+            aligned(pv, align) && (pk == nullptr) == (pv == nullptr) && aligned(out, 4);
   for (long long s : strides) ok = ok && s % (align / 2) == 0;
   const long long BH = static_cast<long long>(B) * H, W = T / n, nq = (n + kQRows - 1) / kQRows;
   ok = ok && nq * W * BH <= 0x7fffffffLL;
   if (!ok) return cudaErrorInvalidValue;
   const Params p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                 static_cast<const bf16*>(v), static_cast<const bf16*>(bias), table,
-                 static_cast<bf16*>(out), {qsB, qsH, qsT}, {ksB, ksH, ksT}, {vsB, vsH, vsT},
-                 H, T, n, D, scale, static_cast<int>(nq), static_cast<int>(W),
-                 static_cast<int>(BH), static_cast<int>(nq * W * BH)};
+                 static_cast<const bf16*>(v), static_cast<const bf16*>(kp),
+                 static_cast<const bf16*>(pk), static_cast<const bf16*>(pv),
+                 static_cast<const bf16*>(bias), table, static_cast<bf16*>(out),
+                 {qsB, qsH, qsT}, {ksB, ksH, ksT}, {vsB, vsH, vsT}, {kpsB, kpsH, kpsT},
+                 H, T, n, D, pk == nullptr || left_edge != 0 ? 1 : 0, scale,
+                 static_cast<int>(nq), static_cast<int>(W), static_cast<int>(BH),
+                 static_cast<int>(nq * W * BH)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   // k16 steps: 1, 2, 4 or 8, D zero-padded to them
   // (ops/kernels/local_attention.py:instance_for is the host twin)

@@ -3,6 +3,16 @@
 
 Audio is (B, T) in the model's dtype (float32 or bfloat16); features are
 channels-last (B, T', C).
+
+Sequence parallelism (``l3ac_tpu/models/codec.py:130-226``): :func:`encode_sp`,
+:func:`decode_sp` and :func:`decode_indices_sp` run one stream with its time
+axis sharded over the ``sp`` ranks of a ``parallel.mesh`` mesh. Each rank
+passes its own (batch, time) block, in order along the group, and gets its
+own block back, as ``shard_map`` hands the blocks out in JAX; every op
+exchanges exactly the halo it needs (``parallel.sp``), so the result equals
+the single-device run to float tolerance and the FSQ indices exactly. The dp
+axis (``batch_axis``) needs no exchange: each dp row of ranks runs its own
+streams.
 """
 
 import math
@@ -13,6 +23,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops.droppath import split
+from ..parallel import sp
 from . import local_transformer as lt
 from .decoder import Decoder
 from .encoder import Encoder
@@ -75,14 +86,19 @@ class Codec(nn.Module):
         q, indices, _ = self.quantizer(trans_feature)
         return q, indices
 
-    def decode(self, q_trans_feature: torch.Tensor) -> torch.Tensor:
-        """(B, T'', C) quantized features -> (B, T) audio."""
-        return self.decoder(self.en_decoder_apply(q_trans_feature))
+    def decode(self, q_trans_feature: torch.Tensor, *,
+               tail_high_precision: bool = False) -> torch.Tensor:
+        """(B, T'', C) quantized features -> (B, T) audio. ``tail_high_precision``:
+        the decoder's tail in float64 (``Decoder.tail_apply``)."""
+        return self.decoder(self.en_decoder_apply(q_trans_feature),
+                            tail_high_precision=tail_high_precision)
 
-    def decode_indices(self, indices: torch.Tensor) -> torch.Tensor:
+    def decode_indices(self, indices: torch.Tensor, *,
+                       tail_high_precision: bool = False) -> torch.Tensor:
         """(B, T'') indices -> (B, T) audio, features made in the decoder's dtype."""
         dtype = self.decoder.in_conv.weight.dtype
-        return self.decode(self.quantizer.indices_to_features(indices, dtype))
+        return self.decode(self.quantizer.indices_to_features(indices, dtype),
+                           tail_high_precision=tail_high_precision)
 
     def forward(self, audio: torch.Tensor, *, training: bool = False,
                 generator: torch.Generator | None = None,
@@ -115,3 +131,67 @@ class Codec(nn.Module):
                 "quantized_feature": q_feature,
             },
         }
+
+
+def sp_time_quantum(mc: ModelConfig) -> int:
+    """Samples per sp shard must be a multiple of ``hop_length *
+    en_coder_window_size``: whole hops keep every strided conv's grid inside
+    a shard, whole windows keep the attention's window grid aligned across
+    shards (every transformer stage's window divides this quantum at its own
+    rate)."""
+    return mc.hop_length * mc.en_coder_window_size
+
+
+def _check_sp_len(T: int, mc: ModelConfig, n_sp: int, what: str, per_shard: int) -> None:
+    if T % (per_shard * n_sp):
+        raise ValueError(
+            f"{what} length {T} must be a multiple of {per_shard * n_sp} "
+            f"({n_sp} sp shards x quantum {per_shard}); pad/chunk the input "
+            f"(see runtime.chunk) before the sp call")
+
+
+def _sp_call(model, mesh, axis_name: str, batch_axis: str | None, local_len: int,
+             what: str, per_shard: int, fn):
+    codec = getattr(model, "codec", model)
+    if axis_name not in mesh.shape:
+        raise KeyError(f"mesh has no axis {axis_name!r}")
+    if batch_axis is not None and (batch_axis not in mesh.shape or batch_axis == axis_name):
+        raise KeyError(f"batch_axis {batch_axis!r} is not another axis of the mesh")
+    n_sp = mesh.shape[axis_name]
+    _check_sp_len(local_len * n_sp, codec.mc, n_sp, what, per_shard)
+    with torch.inference_mode(), sp.sequence_parallel(mesh, axis_name):
+        return fn(codec)
+
+
+def encode_sp(model, audio: torch.Tensor, mesh, *, axis_name: str = "sp",
+              batch_axis: str | None = None):
+    """:meth:`Codec.encode` of this rank's block of a stream whose time axis
+    is sharded over ``mesh[axis_name]``. ``model``: a Codec (or the zoo's
+    L3AC). audio: this rank's (B, T / n_sp) block of hop-padded audio, T a
+    multiple of ``sp_time_quantum(mc) * n_sp``. Returns this rank's
+    (q_trans_feature, indices) block."""
+    return _sp_call(model, mesh, axis_name, batch_axis, audio.shape[-1], "audio",
+                    sp_time_quantum(getattr(model, "codec", model).mc),
+                    lambda c: c.encode(audio))
+
+
+def decode_sp(model, q_trans_feature: torch.Tensor, mesh, *, axis_name: str = "sp",
+              batch_axis: str | None = None, tail_high_precision: bool = False) -> torch.Tensor:
+    """:meth:`Codec.decode` of this rank's (B, T'' / n_sp, C) feature block,
+    T'' a multiple of ``en_coder_window_size * n_sp``; returns this rank's
+    audio block."""
+    mc = getattr(model, "codec", model).mc
+    return _sp_call(model, mesh, axis_name, batch_axis, q_trans_feature.shape[1], "token",
+                    mc.en_coder_window_size,
+                    lambda c: c.decode(q_trans_feature, tail_high_precision=tail_high_precision))
+
+
+def decode_indices_sp(model, indices: torch.Tensor, mesh, *, axis_name: str = "sp",
+                      batch_axis: str | None = None,
+                      tail_high_precision: bool = False) -> torch.Tensor:
+    """:meth:`Codec.decode_indices` of this rank's (B, T'' / n_sp) index
+    block (FSQ's unpack is pointwise in time); returns its audio block."""
+    mc = getattr(model, "codec", model).mc
+    return _sp_call(model, mesh, axis_name, batch_axis, indices.shape[1], "token",
+                    mc.en_coder_window_size,
+                    lambda c: c.decode_indices(indices, tail_high_precision=tail_high_precision))

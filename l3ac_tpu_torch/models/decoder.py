@@ -23,8 +23,14 @@ the card and on the CPU.
 
 Wide stages run on (B, T, C); once a stage's width is at most
 ``NARROW_MAX_C`` the activation flips to (B, C, T) once and stays there, the
-same switch as the JAX decoder. The reference's fp64 tail flag is not ported
-(ROADMAP).
+same switch as the JAX decoder. The reference's fp64 tail flag
+(``tail_high_precision``) runs the tail in float64 in plain PyTorch, as JAX
+runs it in jnp (:meth:`Decoder.tail_apply`).
+
+Sequence parallelism (``parallel.sp``): the up paths take a one-frame halo a
+side and the shard flags, the legacy tail 42 frames (21 a phase) and the
+flags, as JAX's kernels take them; units, the EnhanceBlock and the convs
+exchange their own halos.
 
 A bf16 decoder runs in bf16 throughout, each kernel's bf16 variant, and
 returns bf16 audio (JAX casts the tail's tanh back to the ambient dtype,
@@ -40,13 +46,19 @@ from ..ops import conv1d, snake
 from ..ops import kernels as K
 from ..ops.droppath import schedule
 from ..ops.kernels import autograd
-from ..ops.kernels.conv_unit import cached_prepare
-from ..ops.kernels.legacy_tail import (DILATIONS, PreparedTail, TailWeights, legacy_tail_ct,
-                                       legacy_tail_poly_ct, pack)
+from ..ops.kernels.conv_unit import ConvUnitWeights, cached_prepare, conv_unit_plain
+from ..ops.kernels.legacy_tail import (DILATIONS, HALO, PHALO, PreparedTail, TailWeights,
+                                       legacy_tail_ct, legacy_tail_plain, legacy_tail_poly_ct,
+                                       pack)
 from ..ops.kernels.up_fused import UpPrepared, UpWeights, up_fused, up_fused_ct
+from ..parallel import sp
 from ..utils import init as pinit
-from .layers import ChannelNorm, ConvUnit, LegacyUnit
+from .layers import ChannelNorm, ConvUnit, LegacyUnit, sp_halos
 from .tconv import EnhanceBlock
+
+# model-level routes: the fp64 tail (tail_high_precision), plain PyTorch in
+# float64 by design, as JAX takes jnp there
+ROUTES = {"tail_fp64": 0}
 
 NARROW_MAX_C = 96  # l3ac_tpu/models/decoder.py:34
 
@@ -156,16 +168,28 @@ class Decoder(nn.Module):
             (self.tail_alpha, self.out_conv.weight, self.out_conv.bias)
 
     def forward(self, x: torch.Tensor, *, drop_path_rate: float = 0.0,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                tail_high_precision: bool = False) -> torch.Tensor:
         """x: (B, T', feature_dim) -> audio (B, T' * prod(decode_rates)).
-        ``drop_path_rate`` / ``generator``: train-only stochastic depth."""
+        ``drop_path_rate`` / ``generator``: train-only stochastic depth.
+        ``tail_high_precision``: the reference's fp64 tail flag (:meth:`tail_apply`)."""
+        h, phases = self.pre_tail(x, drop_path_rate=drop_path_rate, generator=generator,
+                                  poly=not tail_high_precision)
+        return self.tail_apply(h, phases, high_precision=tail_high_precision)
+
+    def pre_tail(self, x: torch.Tensor, *, drop_path_rate: float = 0.0,
+                 generator: torch.Generator | None = None, poly: bool = True):
+        """The stages: x (B, T', feature_dim) -> (h, phases), the tail's input:
+        (B, C, T) with phases None, or, where the last up path feeds the
+        polyphase tail (``poly`` and a legacy tail after a stride-2 stage),
+        h None and the up path's two phase arrays."""
         mc = self.mc
         drops = iter(schedule(drop_path_rate, sum(mc.decoder_depths), generator,
                               ascending=False))
         h = conv1d(x.transpose(1, 2), self.in_conv.weight, self.in_conv.bias, padding=1)
         h = h.transpose(1, 2).contiguous()                     # (B, T, C)
         in_t = False
-        poly = mc.decoder_last_layer == "legacy" and mc.decode_rates[-1] == 2
+        poly = poly and mc.decoder_last_layer == "legacy" and mc.decode_rates[-1] == 2
         phases = None
         last = len(self.stages) - 1
         for si, (st, rate, i_d) in enumerate(zip(self.stages, mc.decode_rates,
@@ -177,20 +201,80 @@ class Decoder(nn.Module):
                 h = u(h, channels_last=not in_t, drop=next(drops))
             h = st.enhance(h, channels_last=not in_t).contiguous()
             uw, prep = st.up_weights(), st.up_prepared()
+            halos = _up_halos(h, 2 if in_t else 1)
             if not in_t:
-                h = up_fused(h, uw, scale=rate, prepared=prep)
+                h = up_fused(h, uw, scale=rate, prepared=prep, **halos)
             elif poly and si == last:
-                phases = up_fused_ct(h, uw, scale=rate, phase_split=True, prepared=prep)
+                phases = up_fused_ct(h, uw, scale=rate, phase_split=True, prepared=prep,
+                                     **halos)
             else:
-                h = up_fused_ct(h, uw, scale=rate, prepared=prep)
+                h = up_fused_ct(h, uw, scale=rate, prepared=prep, **halos)
         if phases is not None:
-            return legacy_tail_poly_ct(*phases, self.tail(phases[0]))
+            return None, phases
         if not in_t:                                           # geometries that never narrow
             h = h.transpose(1, 2).contiguous()
+        return h, None
+
+    def tail_apply(self, h: torch.Tensor | None, phases=None, *,
+                   high_precision: bool = False) -> torch.Tensor:
+        """The tail on :meth:`pre_tail`'s output -> audio (B, T).
+
+        ``high_precision``: the reference's LastBlock fp64 flag
+        (``l3ac_tpu/models/decoder.py:186-199``): the tail's units, snake, out
+        conv and tanh run in float64 on the tensor's device, in plain PyTorch
+        (JAX routes it to jnp: its tail kernel is bf16 / fp32 only by design),
+        and the audio is cast back to h's dtype. Counted in
+        ``ROUTES["tail_fp64"]``; no tail kernel runs. The polyphase input is
+        not taken there (``pre_tail(poly=False)``)."""
+        mc = self.mc
+        if high_precision:
+            if phases is not None:
+                raise ValueError("the fp64 tail takes the interleaved input: "
+                                 "pre_tail(..., poly=False)")
+            ROUTES["tail_fp64"] += 1
+            return self._tail_fp64(h).to(h.dtype)
+        if phases is not None:
+            halos = {}
+            if sp.active():
+                got = sp.halo_blocks_many(list(phases), PHALO, PHALO, axis=2)
+                halos = {"lh": tuple(g[0] for g in got), "rh": tuple(g[1] for g in got),
+                         "edges": sp.edge_flags()}
+            return legacy_tail_poly_ct(*phases, self.tail(phases[0]), **halos)
         if mc.decoder_last_layer == "legacy":
-            return legacy_tail_ct(h, self.tail(h))
+            return legacy_tail_ct(h, self.tail(h), **_tail_halos(h))
         for u in self.tail_units:
             h = u(h, channels_last=False)
         h = conv1d(snake(h, self.tail_alpha[:, None]), self.out_conv.weight,
                    self.out_conv.bias, padding=3)
         return torch.tanh(h)[:, 0]
+
+    def _tail_fp64(self, h: torch.Tensor) -> torch.Tensor:
+        h = h.double()
+        if self.mc.decoder_last_layer == "legacy":
+            w = TailWeights(*(t.double() for t in self.tail_weights()))
+            return legacy_tail_plain(h, w, **_tail_halos(h))
+        for u in self.tail_units:
+            w = ConvUnitWeights(*(None if t is None else t.double() for t in u.kernel_weights()))
+            halos = sp_halos(h, axis=2, dilation=u.dilation, kernel_size=u.dw.kernel_size[0])
+            h = conv_unit_plain(h, w, channel_dim=1, dilation=u.dilation, **halos)
+        h = conv1d(snake(h, self.tail_alpha.double()[:, None]), self.out_conv.weight.double(),
+                   self.out_conv.bias.double(), padding=3)
+        return torch.tanh(h)[:, 0]
+
+
+def _up_halos(h: torch.Tensor, axis: int) -> dict:
+    """An up path's SP operands: the neighbours' boundary frame a side and
+    the shard flags (the kernel clamps at a global edge itself); {} off SP."""
+    if not sp.active():
+        return {}
+    lh, rh = sp.halo_blocks(h, 1, 1, axis=axis)
+    return {"lh": lh, "rh": rh, "edges": sp.edge_flags()}
+
+
+def _tail_halos(h: torch.Tensor) -> dict:
+    """The legacy tail's SP operands on (B, C, T): HALO frames a side and the
+    shard flags; {} off SP."""
+    if not sp.active():
+        return {}
+    lh, rh = sp.halo_blocks(h, HALO, HALO, axis=2)
+    return {"lh": lh, "rh": rh, "edges": sp.edge_flags()}

@@ -11,6 +11,11 @@ whose input width is at most ``NARROW_MAX_C`` stay there (the ``conv_unit_ct``
 kernel); wider stages and the last units run on (B, T, C) (the ``conv_unit``
 kernel), the same switching as the JAX encoder.
 
+Sequence parallelism (``parallel.sp``): the stem takes 47-sample halos and
+the shard flags as operands; the units, the k3 projection and the norms
+exchange their own halos or sums; the strided convs need none (each shard
+holds whole hops).
+
 Training: a ``(drop_path_rate, generator)`` gives every ConvUnit stochastic
 depth on an ascending linspace ramp over ``sum(encoder_depths)`` units
 (``l3ac_tpu/models/encoder.py:55-70``).
@@ -22,6 +27,8 @@ from torch import nn
 from ..config import ModelConfig
 from ..ops import conv1d, conv1d_strided_matmul
 from ..ops.droppath import schedule
+from ..ops.kernels.first_block import HALO as STEM_HALO
+from ..parallel import sp
 from ..utils import init as pinit
 from .layers import ChannelNorm, ConvUnit
 from .tconv import FirstBlock
@@ -70,7 +77,12 @@ class Encoder(nn.Module):
         """audio: (B, T), T a multiple of conv_hop -> (B, T', feature_dim).
         ``drop_path_rate`` / ``generator``: train-only stochastic depth."""
         drops = iter(schedule(drop_path_rate, sum(self.depths), generator, ascending=True))
-        h = self.first(audio)                                  # (B, C, T)
+        if sp.active():
+            # the stem's receptive field: 47 samples a side (JAX stages 25, ROADMAP C)
+            lh, rh = sp.halo_blocks(audio, STEM_HALO, STEM_HALO, axis=1)
+            h = self.first(audio, lh=lh, rh=rh, edges=sp.edge_flags())
+        else:
+            h = self.first(audio)                              # (B, C, T)
         in_t = True
         for st in self.stages:
             narrow = st.down.in_channels <= NARROW_MAX_C

@@ -24,6 +24,10 @@ applied as ``x + drop_path(out - x)`` around the fused unit, as JAX's
 ``_maybe_drop`` does (``l3ac_tpu/models/layers.py:63-71``). int8 units do not
 train: on the card their kernels raise under autograd.
 
+Sequence parallelism: under ``parallel.sp`` the unit fetches its
+3 * dilation halo frames from the neighbour shards (:func:`sp_halos`) and
+hands them to its kernel as JAX's ``lh`` / ``rh``.
+
 LegacyUnit: snake -> conv k7 at dilation d -> snake -> conv k1, residual
 outside. It holds the weights of one unit of the decoder's legacy tail, which
 runs as one kernel with its plain version beside it
@@ -40,6 +44,7 @@ from ..ops.kernels.conv_unit import (ConvUnitWeights, PreparedWeights, cached_pr
                                      unit_body)
 from ..ops.norms import EPS
 from ..ops.quantized import Int8Linear
+from ..parallel import sp
 from ..utils import init as pinit
 
 
@@ -130,24 +135,37 @@ class ConvUnit(nn.Module):
         """Residual unit: x (B, T, C) if ``channels_last`` else (B, C, T).
         ``drop``: the unit's (drop_rate, generator), inert by default."""
         int8 = isinstance(self.pw1, Int8Linear)
+        halos = sp_halos(x, axis=1 if channels_last else 2, dilation=self.dilation,
+                         kernel_size=self.dw.kernel_size[0])
         if channels_last and int8:
             # JAX conv_unit_apply's unfused body: elementwise steps in plain
             # PyTorch, pw1 / pw2 as modules (int8_matmul), the exact GRN
             out = x + unit_body(x, self.kernel_weights(dense=False),
                                 lambda h: self.pw1(h.contiguous()), self.pw2,
-                                channel_dim=2, dilation=self.dilation)
+                                channel_dim=2, dilation=self.dilation, **halos)
         elif channels_last:
-            out = conv_unit(x, self.kernel_weights(), dilation=self.dilation)
+            out = conv_unit(x, self.kernel_weights(), dilation=self.dilation, **halos)
         else:
             # the kernel takes prepared products; the plain path (the CPU, and
             # a training backward) the dense weights, which an int8 unit makes
             # per call
             out = conv_unit_ct(x, self.kernel_weights(dense=not (int8 and x.is_cuda)),
-                               dilation=self.dilation, prepared=self.prepared)
+                               dilation=self.dilation, prepared=self.prepared, **halos)
         rate, generator = drop
         if rate > 0.0 and generator is not None:
             return x + drop_path(out - x, rate, generator)
         return out
+
+
+def sp_halos(x: torch.Tensor, *, axis: int, dilation: int = 1, kernel_size: int = 7) -> dict:
+    """{"lh", "rh"}: the neighbour halo blocks of a SAME-padded conv under SP,
+    zeros at the global edges, the conv's own padding
+    (``l3ac_tpu/models/layers.py:_sp_halos``); {} off SP."""
+    if not sp.active():
+        return {}
+    halo = (kernel_size - 1) * dilation // 2
+    lh, rh = sp.halo_blocks(x, halo, halo, axis=axis)
+    return {"lh": lh, "rh": rh}
 
 
 def _dense_weight(lin: nn.Module, dtype: torch.dtype) -> torch.Tensor:

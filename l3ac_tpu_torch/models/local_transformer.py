@@ -11,8 +11,17 @@ The linear layers are called as modules, so that an ``Int8Linear`` that
 ``ops.quantized.quantize_params`` put in their place runs the ``int8_matmul``
 kernel.
 
-All released configs use the dynamic position bias; the rotary path the
-reference takes without it is not ported yet.
+All released configs use the dynamic position bias. Without it
+(``dynamic_pos = false``) the stack has no position MLP, as JAX's params do,
+and takes the reference's rotary position embeddings: q and k rotated by
+window positions in plain PyTorch (``ops.attention.rotary_operands``; k
+twice, as a current-window and as a previous-window key), then the kernel
+with the second as its ``kp`` operand.
+
+Sequence parallelism (``parallel.sp``): each shard's first window reads the
+left shard's last K / V window as the kernel's ``prev_k`` / ``prev_v``, the
+globally first shard masks it (``left_edge``), and a shard's length must be
+a window multiple (JAX asserts both). Rotary under SP raises, as JAX asserts.
 
 Activations are channels-last (B, T, C). In a bf16 model the linears are
 bf16 ``torch.matmul`` products, as in the JAX package, the norms follow
@@ -28,9 +37,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import conv1d_strided_matmul, geglu, layer_norm, upsample_linear
-from ..ops.attention import dynamic_position_table
+from ..ops.attention import dynamic_position_table, rotary_operands
 from ..ops.kernels.local_attention import local_attention
 from ..ops.norms import LAYER_NORM_EPS
+from ..parallel import sp
 from ..utils import init as pinit
 from .layers import ChannelNorm
 
@@ -105,8 +115,19 @@ class Attention(nn.Module):
         def heads(t):
             return t.view(B, T, tc.heads, tc.dim_head).permute(0, 2, 1, 3)
 
-        out = local_attention(heads(q), heads(k), heads(v),
-                              window_size=tc.window_size, bias_table=bias_table)
+        n = tc.window_size
+        qh, kh, vh = heads(q), heads(k), heads(v)
+        extra = {}
+        if not tc.dynamic_pos:
+            if sp.active():
+                raise NotImplementedError("rotary position embeddings are not supported "
+                                          "under sequence parallelism (as in JAX)")
+            qh, kh, extra["kp"] = rotary_operands(qh, kh, n)
+        elif sp.active():
+            # the left shard's last K / V window, one exchange for both
+            (pk, _), (pv, _) = sp.halo_blocks_many([kh, vh], n, 0, axis=2)
+            extra = {"prev_k": pk, "prev_v": pv, "left_edge": sp.edge_flags()[0]}
+        out = local_attention(qh, kh, vh, window_size=n, bias_table=bias_table, **extra)
         out = out.permute(0, 2, 1, 3).reshape(B, T, tc.inner_dim)
         return self.out(out)
 
@@ -133,16 +154,15 @@ class Layer(nn.Module):
 class LocalTrans(nn.Module):
     def __init__(self, tc: TransConfig, device=None):
         super().__init__()
-        if not tc.dynamic_pos:
-            raise NotImplementedError("rotary position embeddings (dynamic_pos "
-                                      "= false) are not ported yet")
         self.tc = tc
-        self.dyn_bias = DynamicPositionBias(tc.dim, tc.heads, device=device)
+        self.dyn_bias = (DynamicPositionBias(tc.dim, tc.heads, device=device)
+                         if tc.dynamic_pos else None)
         self.layers = nn.ModuleList(Layer(tc, device=device) for _ in range(tc.depth))
         self.register_buffer("bias_cache", None, persistent=False)
 
     def init_weights(self, gen: torch.Generator) -> None:
-        self.dyn_bias.init_weights(gen)
+        if self.dyn_bias is not None:
+            self.dyn_bias.init_weights(gen)
         for layer in self.layers:
             for lin in (layer.attn.qkv, layer.attn.out, layer.ff.w1, layer.ff.w2):
                 pinit.torch_linear_(lin, gen)
@@ -151,8 +171,9 @@ class LocalTrans(nn.Module):
     def attach_bias_cache(self) -> None:
         """Precompute the (2n, heads) position-bias table from the current MLP
         weights. Recomputed on every call, so a cache never outlives the
-        weights it came from."""
-        self.bias_cache = self.dyn_bias(self.tc.window_size)
+        weights it came from. A rotary stack has no bias."""
+        if self.dyn_bias is not None:
+            self.bias_cache = self.dyn_bias(self.tc.window_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, T, C) -> (B, T, C). Right-pads T to a window multiple and
@@ -160,9 +181,14 @@ class LocalTrans(nn.Module):
         T = x.shape[1]
         pad = (-T) % self.tc.window_size
         if pad:
+            if sp.active():
+                raise ValueError(
+                    "under sequence parallelism the per-shard length must be a window "
+                    f"multiple (got T={T}, window={self.tc.window_size}) so the global "
+                    "window grid stays aligned across shards")
             x = F.pad(x, (0, 0, 0, pad))
         table = self.bias_cache
-        if table is None:
+        if table is None and self.dyn_bias is not None:
             table = self.dyn_bias(self.tc.window_size)
         for layer in self.layers:
             x = layer.attn(x, table) + x

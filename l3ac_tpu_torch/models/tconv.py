@@ -14,7 +14,10 @@
   (``enhance_block_apply`` / ``_t`` on bf16 parameters), the instance norm by
   ``ops.norms``' bf16 rule (fp32 statistics), and the gate in bf16.
 
-Activations are (B, C, T) unless a forward says otherwise.
+Activations are (B, C, T) unless a forward says otherwise. Under sequence
+parallelism the EnhanceBlock's branch pads (``ops.conv1d``, ``trend_pool``)
+exchange halos and its instance norm sums its moments over the shards
+(``ops.norms``); the stem takes its halos as operands.
 """
 
 import torch
@@ -100,17 +103,22 @@ class FirstBlock(nn.Module):
 
         return cached_prepare(self.conv1.weight, src, build)
 
-    def forward(self, audio: torch.Tensor) -> torch.Tensor:
+    def forward(self, audio: torch.Tensor, *, lh: torch.Tensor | None = None,
+                rh: torch.Tensor | None = None,
+                edges: tuple[int, int] | None = None) -> torch.Tensor:
         """audio: (B, T) -> (B, target_dim, T). The kernel takes the cached
         pack; on the CPU the plain version takes the live parameters, so its
         output keeps their autograd graph. Under autograd the kernel's
         backward differentiates the plain version on the live parameters too
-        (the pack is only the launch's operand)."""
+        (the pack is only the launch's operand). ``lh`` / ``rh`` / ``edges``:
+        the SP halos (B, HALO) and shard flags, as ``first_block`` takes them."""
+        halos = {} if lh is None and rh is None else {"lh": lh, "rh": rh, "edges": edges}
         if not K.route(audio, "first_block"):
-            return first_block_plain(audio, self.kernel_weights())
+            return first_block_plain(audio, self.kernel_weights(), **halos)
         if autograd.needs_grad(audio, *self.parameters()):
-            return first_block(audio, PreparedStem(self.kernel_weights(), self.prepared().packed))
-        return first_block(audio, self.prepared())
+            return first_block(audio, PreparedStem(self.kernel_weights(), self.prepared().packed),
+                               **halos)
+        return first_block(audio, self.prepared(), **halos)
 
 
 ENHANCE_POOLS = (1, 3, 5, 9)

@@ -16,6 +16,11 @@ q is scaled by D^-1/2 in bf16 (the scale itself rounded to bf16, as JAX's
 weakly typed scalar is); the scores are accumulated in fp32 and the bias
 and the mask added in fp32; the softmax is fp32; P is rounded to bf16 and
 P V summed in fp32, then rounded to bf16 once.
+
+Rotary position embeddings (the reference's path when the dynamic position
+bias is off): :func:`rotary_operands` rotates q and k by window positions
+before the attention, k twice (as a current-window and as a previous-window
+key), and the attention reads the second as its ``kp`` operand.
 """
 
 import torch
@@ -63,16 +68,82 @@ def dynamic_position_bias(params: dict, window_size: int) -> torch.Tensor:
     return expand_position_table(dynamic_position_table(params, window_size))
 
 
+def rotary_freqs(window_size: int, dim: int, device=None) -> torch.Tensor:
+    """The sinusoidal rotary angles over the [prev | cur] key extent, (2n,
+    dim) fp32 (local-attention 1.11.2's SinusoidalEmbeddings, as
+    ``l3ac_tpu/ops/attention.py:rotary_freqs``): ``inv_freq = 10000^(-2i/d)``
+    at window-relative positions 0..2n-1, duplicated over the head dim."""
+    inv = 1.0 / (10000.0 ** (torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim))
+    t = torch.arange(2 * window_size, dtype=torch.float32, device=device)
+    fr = t[:, None] * inv[None, :]
+    return torch.cat([fr, fr], dim=-1)
+
+
+def _rotate_half(x: torch.Tensor) -> torch.Tensor:
+    d = x.shape[-1] // 2
+    return torch.cat([-x[..., d:], x[..., :d]], dim=-1)
+
+
+def rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x (..., P, D) rotated by ``angles`` (P, D) (half-split rotation, the
+    cos and sin cast to x's dtype first, as JAX casts them)."""
+    c, s = torch.cos(angles).to(x.dtype), torch.sin(angles).to(x.dtype)
+    return x * c + _rotate_half(x) * s
+
+
+def apply_rotary(q_w: torch.Tensor, k_w: torch.Tensor,
+                 freqs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Windowed q (..., n, d) by positions n..2n-1 and the looked-around k
+    (..., 2n, d) by 0..2n-1 (``l3ac_tpu/ops/attention.py:apply_rotary``)."""
+    n = q_w.shape[-2]
+    return rotate(q_w, freqs[-n:]), rotate(k_w, freqs)
+
+
+def rotary_operands(q: torch.Tensor, k: torch.Tensor, window_size: int
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The rotary path's kernel operands from q, k (B, H, T, D): q and k
+    rotated by their window position plus n (queries and current-window
+    keys), and k rotated by its window position alone (the same keys read as
+    the next window's previous-window keys, the ``kp`` operand). JAX rotates
+    each key twice in the same way (``l3ac_tpu/ops/attention.py:162-165``).
+    Elementwise work in q's dtype; the results are contiguous (B, H, T, D)."""
+    B, H, T, D = q.shape
+    n = window_size
+    fr = rotary_freqs(n, D, q.device)
+
+    def by(x, angles):
+        return rotate(x.reshape(B, H, T // n, n, D), angles).reshape(B, H, T, D)
+
+    return by(q, fr[n:]), by(k, fr[n:]), by(k, fr[:n])
+
+
 def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window_size: int, bias: torch.Tensor | None = None,
-                    bias_table: torch.Tensor | None = None) -> torch.Tensor:
+                    bias_table: torch.Tensor | None = None, kp: torch.Tensor | None = None,
+                    prev_k: torch.Tensor | None = None, prev_v: torch.Tensor | None = None,
+                    left_edge: int | None = None) -> torch.Tensor:
     """q, k, v: (B, H, T, D), T a multiple of window_size; bias: (H, n, 2n),
     or its (2n, H) Toeplitz ``bias_table`` (at most one of the two), or
-    neither. Returns (B, H, T, D)."""
+    neither. Returns (B, H, T, D).
+
+    The previous-window operands of ``l3ac_tpu/ops/pallas/local_attention.py``:
+    ``kp`` (B, H, T, D), the keys as the next window reads them as its
+    previous half (default k; the rotary path's keys rotated as
+    previous-window keys); ``prev_k`` / ``prev_v`` (B, H, n, D), window 0's
+    previous half (under SP the left shard's last window; default zeros);
+    ``left_edge``: 1 on the globally first shard. Window 0's previous half is
+    masked when there is no ``prev_k`` or ``left_edge`` is 1."""
     B, H, T, D = q.shape
     n = window_size
     if T % n:
         raise ValueError(f"T = {T} is not a multiple of the window {n}")
+    if (prev_k is None) != (prev_v is None):
+        raise ValueError("local_attention: prev_k and prev_v go together")
+    for name, t, shape in (("kp", kp, (B, H, T, D)), ("prev_k", prev_k, (B, H, n, D)),
+                           ("prev_v", prev_v, (B, H, n, D))):
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"local_attention: {name} {tuple(t.shape)} is not {shape}")
+    mask_first = prev_k is None or bool(left_edge)
     if bias_table is not None:
         if bias is not None:
             raise ValueError("local_attention: pass bias or bias_table, not both")
@@ -89,10 +160,13 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bq = q.reshape(B, H, W, n, D) * scale
     bk = k.reshape(B, H, W, n, D)
     bv = v.reshape(B, H, W, n, D)
-    prev_k = torch.cat([torch.zeros_like(bk[:, :, :1]), bk[:, :, :-1]], dim=2)
-    prev_v = torch.cat([torch.zeros_like(bv[:, :, :1]), bv[:, :, :-1]], dim=2)
-    kk = torch.cat([prev_k, bk], dim=3)                       # (B, H, W, 2n, D)
-    vv = torch.cat([prev_v, bv], dim=3)
+    bkp = bk if kp is None else kp.reshape(B, H, W, n, D)
+    p0k = torch.zeros_like(bk[:, :, :1]) if prev_k is None else prev_k[:, :, None].to(k.dtype)
+    p0v = torch.zeros_like(bv[:, :, :1]) if prev_v is None else prev_v[:, :, None].to(v.dtype)
+    pk = torch.cat([p0k, bkp[:, :, :-1]], dim=2)
+    pv = torch.cat([p0v, bv[:, :, :-1]], dim=2)
+    kk = torch.cat([pk, bk], dim=3)                           # (B, H, W, 2n, D)
+    vv = torch.cat([pv, bv], dim=3)
 
     if low:
         bq, kk = bq.float(), kk.float()  # bf16 products are exact in fp32: fp32 sums
@@ -102,7 +176,8 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mask = local_attention_mask(n, q.device)[None, None, None]
     first = ((torch.arange(W, device=q.device)[:, None, None] == 0)
              & (torch.arange(2 * n, device=q.device)[None, None, :] < n))
-    mask = mask & ~first[None, None]
+    if mask_first:
+        mask = mask & ~first[None, None]
     sim = sim.masked_fill(~mask, NEG_INF)
     attn = sim.softmax(dim=-1)
     if low:

@@ -14,11 +14,22 @@ product (:func:`conv1d_strided_matmul`), as in ``l3ac_tpu/ops/conv.py``.
 import torch
 import torch.nn.functional as F
 
+from ..parallel import sp
+
 
 def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
            stride: int = 1, padding: int = 0, dilation: int = 1,
            groups: int = 1) -> torch.Tensor:
-    """General 1-D conv with symmetric zero padding. x: (B, Cin, T)."""
+    """General 1-D conv with symmetric zero padding. x: (B, Cin, T).
+
+    Under sequence parallelism (``parallel.sp``) the zero padding becomes a
+    neighbour halo exchange (zeros at the global edges, the monolithic pad)
+    and the conv runs unpadded."""
+    if padding and sp.active():
+        if stride != 1 or (w.shape[-1] - 1) * dilation != 2 * padding:
+            raise ValueError("an SP conv1d takes stride 1 and centered SAME padding")
+        x = sp.pad_time(x, padding, padding, axis=2)
+        padding = 0
     return F.conv1d(x, w, b, stride=stride, padding=padding,
                     dilation=dilation, groups=groups)
 

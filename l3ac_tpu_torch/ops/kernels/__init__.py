@@ -13,9 +13,21 @@ Each wrapper:
   fp32's roundoff, as the training checks use it);
 - adds one to ``LAUNCHES[name]`` where it launches its kernel, and nowhere
   else, so a run can show that it went through the kernel.
+
+Sequence parallelism (``parallel.sp``): the wrappers of the conv kernels take
+JAX's halo operands (``lh`` / ``rh``, and ``edges`` where the kernel pads per
+layer). Where a kernel has no halo operand of its own, the wrapper stages
+``[lh | x | rh]`` into one buffer (:func:`stage_halos`), runs the kernel or
+its plain version on it as a local call and crops the halo frames' outputs
+(:func:`crop_halos`). That is exact: every kernel pads or clamps only at the
+ends of its buffer, each halo is at least the kernel's receptive field, and
+on the globally first (last) shard no left (right) halo is staged, so the
+kernel's own padding there is the monolithic one.
 """
 
 import torch
+
+from ...parallel import sp
 
 LAUNCHES: dict[str, int] = {"first_block": 0, "conv_unit_ct": 0,
                             "conv_unit": 0, "local_attention": 0,
@@ -69,3 +81,40 @@ def check_cuda(ts: dict, device: torch.device,
             raise ValueError(f"{name} is on {t.device}, expected {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def stage_halos(x: torch.Tensor, lh: torch.Tensor | None, rh: torch.Tensor | None,
+                edges: tuple[int, int] | None = None, axis: int = -1
+                ) -> tuple[torch.Tensor, int, int]:
+    """``[lh | x | rh]`` along time axis ``axis``, leaving out ``lh`` where
+    ``edges[0]`` (the globally first shard) and ``rh`` where ``edges[1]``;
+    -> (buffer, left frames staged, right frames staged)."""
+    use_l = lh is not None and not (edges is not None and int(edges[0]))
+    use_r = rh is not None and not (edges is not None and int(edges[1]))
+    if not (use_l or use_r):
+        return x, 0, 0
+    parts = ([lh.to(x.dtype)] if use_l else []) + [x] + ([rh.to(x.dtype)] if use_r else [])
+    return (torch.cat(parts, dim=axis), lh.shape[axis] if use_l else 0,
+            rh.shape[axis] if use_r else 0)
+
+
+def crop_halos(y: torch.Tensor, left: int, right: int, axis: int = -1) -> torch.Tensor:
+    """``y`` without ``left`` / ``right`` frames at the ends of ``axis``."""
+    if not (left or right):
+        return y
+    return y.narrow(axis, left, y.shape[axis] - left - right)
+
+
+def halo_call(fn, x: torch.Tensor, lh, rh, edges=None, *, axis: int = -1,
+              out_axis: int = -1, scale: int = 1):
+    """``fn`` on the staged buffer of x with SP suspended, the result (or
+    each result of a tuple) cropped by the staged frames times ``scale``
+    along ``out_axis``."""
+    if lh is None and rh is None:
+        return fn(x)
+    buf, left, right = stage_halos(x, lh, rh, edges, axis)
+    with sp.suspended():
+        y = fn(buf)
+    if isinstance(y, tuple):
+        return tuple(crop_halos(t, left * scale, right * scale, out_axis) for t in y)
+    return crop_halos(y, left * scale, right * scale, out_axis)

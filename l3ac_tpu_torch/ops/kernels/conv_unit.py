@@ -102,16 +102,36 @@ class ConvUnitWeights(NamedTuple):
     pw2_b: torch.Tensor           # (C,)
 
 
+def _depthwise(xt: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dilation: int,
+               lh: torch.Tensor | None, rh: torch.Tensor | None) -> torch.Tensor:
+    """The SAME-padded depthwise conv on xt (B, C, T); with halo blocks
+    ``lh`` / ``rh`` (B, C, halo) in place of the zero padding (a missing
+    one is zeros), unpadded over ``[lh | xt | rh]``."""
+    pad = (w.shape[-1] - 1) * dilation // 2
+    if lh is None and rh is None:
+        return F.conv1d(xt, w, b, padding=pad, dilation=dilation, groups=xt.shape[1])
+    z = xt.new_zeros(xt.shape[0], xt.shape[1], pad)
+    xp = torch.cat([z if lh is None else lh.to(xt.dtype), xt,
+                    z if rh is None else rh.to(xt.dtype)], dim=2)
+    return F.conv1d(xp, w, b, dilation=dilation, groups=xt.shape[1])
+
+
+def _t(h: torch.Tensor | None, channel_dim: int) -> torch.Tensor | None:
+    return h if h is None or channel_dim == 1 else h.transpose(1, 2)
+
+
 def unit_body(x: torch.Tensor, w: ConvUnitWeights, pw1: Callable, pw2: Callable, *,
-              channel_dim: int, dilation: int = 1) -> torch.Tensor:
+              channel_dim: int, dilation: int = 1, lh: torch.Tensor | None = None,
+              rh: torch.Tensor | None = None) -> torch.Tensor:
     """The unit's step chain without the residual: depthwise conv ->
     ChannelNorm -> ``pw1`` -> snake or exact GELU -> exact GRN -> ``pw2``, on
     x (B, C, T) (``channel_dim`` 1) or (B, T, C) (2). The two products are
-    callables over that layout; of ``w`` only the other weights are read."""
-    k = w.dw_w.shape[-1]
+    callables over that layout; of ``w`` only the other weights are read.
+    ``lh`` / ``rh``: SP halo blocks in x's layout, 3 * dilation frames, in
+    place of the conv's zero padding (GRN's norm is then summed over the sp
+    group by ``ops.norms.grn``)."""
     xt = x if channel_dim == 1 else x.transpose(1, 2)
-    y = F.conv1d(xt, w.dw_w, w.dw_b, padding=(k - 1) * dilation // 2,
-                 dilation=dilation, groups=xt.shape[1])
+    y = _depthwise(xt, w.dw_w, w.dw_b, dilation, _t(lh, channel_dim), _t(rh, channel_dim))
     y = y if channel_dim == 1 else y.transpose(1, 2)
     if w.norm_w is not None:
         y = channel_norm(y, w.norm_w, w.norm_b, dim=channel_dim)
@@ -124,14 +144,17 @@ def unit_body(x: torch.Tensor, w: ConvUnitWeights, pw1: Callable, pw2: Callable,
 
 
 def conv_unit_plain(x: torch.Tensor, w: ConvUnitWeights, *, channel_dim: int,
-                    dilation: int = 1) -> torch.Tensor:
+                    dilation: int = 1, lh: torch.Tensor | None = None,
+                    rh: torch.Tensor | None = None) -> torch.Tensor:
     """The residual unit in plain PyTorch, with the exact GRN. ``channel_dim``
-    is 1 for (B, C, T) and 2 for (B, T, C)."""
+    is 1 for (B, C, T) and 2 for (B, T, C); ``lh`` / ``rh`` as
+    :func:`unit_body` takes them."""
     xt = x if channel_dim == 1 else x.transpose(1, 2)
     y = unit_body(xt, w,
                   lambda h: torch.einsum("oc,bct->bot", w.pw1_w, h) + w.pw1_b[:, None],
                   lambda h: torch.einsum("oc,bct->bot", w.pw2_w, h) + w.pw2_b[:, None],
-                  channel_dim=1, dilation=dilation)
+                  channel_dim=1, dilation=dilation, lh=_t(lh, channel_dim),
+                  rh=_t(rh, channel_dim))
     out = xt + y
     return out if channel_dim == 1 else out.transpose(1, 2)
 
@@ -229,15 +252,16 @@ def narrow_pack(p: PreparedBf16) -> torch.Tensor:
 
 
 def conv_unit_plain_bf16(x: torch.Tensor, w: ConvUnitWeights | PreparedBf16, *,
-                         channel_dim: int, dilation: int = 1) -> torch.Tensor:
+                         channel_dim: int, dilation: int = 1, lh: torch.Tensor | None = None,
+                         rh: torch.Tensor | None = None) -> torch.Tensor:
     """The bf16 kernels' function in plain PyTorch, rounding where they do:
     fp32 depthwise conv, norm and activation, bf16 product operands with
-    fp32 sums, GRN folded, the residual added in fp32 and rounded once."""
+    fp32 sums, GRN folded, the residual added in fp32 and rounded once.
+    ``lh`` / ``rh`` as :func:`unit_body` takes them."""
     p = w if isinstance(w, PreparedBf16) else prepare_bf16(w)
     xt = (x if channel_dim == 1 else x.transpose(1, 2)).float()
-    k = p.dw.shape[-1]
-    y = F.conv1d(xt, p.dw[:, None, :], p.dw_b, padding=(k - 1) * dilation // 2,
-                 dilation=dilation, groups=xt.shape[1])
+    lh, rh = (None if h is None else _t(h, channel_dim).float() for h in (lh, rh))
+    y = _depthwise(xt, p.dw[:, None, :], p.dw_b, dilation, lh, rh)
     if p.norm_w is not None:
         y = channel_norm(y, p.norm_w, p.norm_b, dim=1)
     h = torch.einsum("oc,bct->bot", p.w1.float(), y.bfloat16().float()) + p.b1[:, None]
@@ -514,7 +538,8 @@ def _check_trainable(x: torch.Tensor, w: ConvUnitWeights, name: str) -> None:
 
 
 def conv_unit_ct(x: torch.Tensor, w: ConvUnitWeights, *, dilation: int = 1,
-                 prepared: Callable[[], PreparedWeights | PreparedBf16] | None = None
+                 prepared: Callable[[], PreparedWeights | PreparedBf16] | None = None,
+                 lh: torch.Tensor | None = None, rh: torch.Tensor | None = None
                  ) -> torch.Tensor:
     """Residual ConvUnit on (B, C, T), fp32 or bf16. On CUDA the narrow
     tensor-core kernel of x's dtype at C <= NARROW_MAX_C (raises above), its
@@ -522,13 +547,15 @@ def conv_unit_ct(x: torch.Tensor, w: ConvUnitWeights, *, dilation: int = 1,
     pw2_w out), else from :func:`prepared_weights`; under autograd through
     ``autograd.call`` (the backward differentiates the plain version on
     ``w``, which then holds the dense weights). Plain on the CPU, from
-    ``w``'s dense weights."""
+    ``w``'s dense weights. ``lh`` / ``rh``: JAX's SP halo blocks (B, C,
+    3 * dilation), zeros where missing; the kernel runs on the staged
+    ``[lh | x | rh]``."""
     K.check_input(x, "conv_unit_ct x", ndim=3, dtype=K.DTYPES)
     bf16 = x.dtype == torch.bfloat16
     if not K.route(x, "conv_unit_ct"):
         if bf16:
-            return conv_unit_plain_bf16(x, w, channel_dim=1, dilation=dilation)
-        return conv_unit_plain(x, w, channel_dim=1, dilation=dilation)
+            return conv_unit_plain_bf16(x, w, channel_dim=1, dilation=dilation, lh=lh, rh=rh)
+        return conv_unit_plain(x, w, channel_dim=1, dilation=dilation, lh=lh, rh=rh)
     why = admits("conv_unit_ct", x.shape[1], x.dtype)
     if why is not None:
         raise ValueError(why)
@@ -537,26 +564,30 @@ def conv_unit_ct(x: torch.Tensor, w: ConvUnitWeights, *, dilation: int = 1,
     if bf16 != isinstance(p, PreparedBf16):
         raise TypeError(f"conv_unit_ct: x is {x.dtype} but the unit's weights are not")
     if bf16:
-        launch = lambda: _launch_bf16(x, p, dilation, channels_last=False)
+        run = lambda x: _launch_bf16(x, p, dilation, channels_last=False)
     else:
-        launch = lambda: _launch_narrow(x, w, p, dilation)
+        run = lambda x: _launch_narrow(x, w, p, dilation)
+    # on [lh | x | rh], the halo frames' outputs cropped: exact, as the kernel
+    # folds GRN (no reduction over time) and pads only at its buffer's ends
+    launch = lambda: K.halo_call(run, x, lh, rh, axis=2, out_axis=2)
     out = autograd.call("conv_unit_ct", launch, _plain(1, dilation), x, *w)
     K.LAUNCHES["conv_unit_ct"] += 1
     return out
 
 
-def conv_unit(x: torch.Tensor, w: ConvUnitWeights, *,
-              dilation: int = 1) -> torch.Tensor:
+def conv_unit(x: torch.Tensor, w: ConvUnitWeights, *, dilation: int = 1,
+              lh: torch.Tensor | None = None, rh: torch.Tensor | None = None) -> torch.Tensor:
     """Residual ConvUnit on (B, T, C), fp32 or bf16. On CUDA: the tensor-core
     path when C is a multiple of TC_MULTIPLE (bf16: of BF16_MULTIPLE), else
     (fp32 only) the SIMT kernel; one count either way; under autograd through
-    ``autograd.call``. Plain on CPU."""
+    ``autograd.call``. Plain on CPU. ``lh`` / ``rh``: SP halo blocks (B,
+    3 * dilation, C), staged as :func:`conv_unit_ct` stages them."""
     K.check_input(x, "conv_unit x", ndim=3, dtype=K.DTYPES)
     bf16 = x.dtype == torch.bfloat16
     if not K.route(x, "conv_unit"):
         if bf16:
-            return conv_unit_plain_bf16(x, w, channel_dim=2, dilation=dilation)
-        return conv_unit_plain(x, w, channel_dim=2, dilation=dilation)
+            return conv_unit_plain_bf16(x, w, channel_dim=2, dilation=dilation, lh=lh, rh=rh)
+        return conv_unit_plain(x, w, channel_dim=2, dilation=dilation, lh=lh, rh=rh)
     why = admits("conv_unit", x.shape[2], x.dtype)
     if why is not None:
         raise ValueError(why)
@@ -565,11 +596,12 @@ def conv_unit(x: torch.Tensor, w: ConvUnitWeights, *,
         p = prepared_weights(w)
         if not isinstance(p, PreparedBf16):
             raise TypeError("conv_unit: x is bf16 but the unit's weights are not")
-        launch = lambda: _launch_bf16(x, p, dilation, channels_last=True)
+        run = lambda x: _launch_bf16(x, p, dilation, channels_last=True)
     elif x.shape[2] % TC_MULTIPLE == 0:
-        launch = lambda: _launch_tc(x, w, dilation)
+        run = lambda x: _launch_tc(x, w, dilation)
     else:
-        launch = lambda: conv_unit_simt(x, w, dilation, channels_last=True)
+        run = lambda x: conv_unit_simt(x, w, dilation, channels_last=True)
+    launch = lambda: K.halo_call(run, x, lh, rh, axis=1, out_axis=1)
     out = autograd.call("conv_unit", launch, _plain(2, dilation), x, *w)
     K.LAUNCHES["conv_unit"] += 1
     return out

@@ -85,9 +85,16 @@ class PreparedStem(NamedTuple):
     packed: torch.Tensor        # the kernel's buffer (:func:`pack`)
 
 
-def first_block_plain(x: torch.Tensor, w: FirstBlockWeights) -> torch.Tensor:
+def first_block_plain(x: torch.Tensor, w: FirstBlockWeights, *, lh: torch.Tensor | None = None,
+                      rh: torch.Tensor | None = None,
+                      edges: tuple[int, int] | None = None) -> torch.Tensor:
     """x: (B, T) -> (B, Cout, T), in plain PyTorch; bf16 x: the bf16 kernel's
-    roundings (:func:`first_block_plain_bf16`)."""
+    roundings (:func:`first_block_plain_bf16`). ``lh`` / ``rh`` / ``edges``:
+    SP halo blocks (B, HALO) and the (first, last) shard flags, staged as the
+    kernel's wrapper stages them."""
+    if lh is not None or rh is not None:
+        return K.halo_call(lambda b: first_block_plain(b, w), x, lh, rh, edges, axis=1,
+                           out_axis=2)
     if x.dtype == torch.bfloat16:
         return first_block_plain_bf16(x, w)
     xc = x[:, None, :]
@@ -294,16 +301,28 @@ def _launch(x: torch.Tensor, w: FirstBlockWeights | PreparedStem) -> torch.Tenso
     return out
 
 
-def first_block(x: torch.Tensor, w: FirstBlockWeights | PreparedStem) -> torch.Tensor:
+def first_block(x: torch.Tensor, w: FirstBlockWeights | PreparedStem, *,
+                lh: torch.Tensor | None = None, rh: torch.Tensor | None = None,
+                edges: tuple[int, int] | None = None) -> torch.Tensor:
     """x: (B, T) fp32 or bf16 audio -> (B, Cout, T) in x's dtype. ``w``: the
     weights (of x's dtype), or a :class:`PreparedStem` whose buffer the
     kernel takes as it is. Kernel on CUDA (under autograd through
     ``autograd.call``: the backward differentiates the plain version on the
     weights, so a trainer passes a PreparedStem of the live weights), plain on
-    CPU."""
+    CPU. ``lh`` / ``rh`` / ``edges``: JAX's SP operands, the neighbours'
+    HALO (47) boundary samples (B, HALO) and the (first, last) shard flags;
+    the kernel runs on ``[lh | x | rh]`` without the halo an edge shard does
+    not have, and the halo columns are cropped (the stem's receptive field
+    is 47 samples a side; JAX's kernel stages 25, ROADMAP C)."""
     K.check_input(x, "first_block x", ndim=2, dtype=K.DTYPES)
     weights = w.weights if isinstance(w, PreparedStem) else w
     if not K.route(x, "first_block"):
-        return first_block_plain(x, weights)
-    return autograd.call("first_block", lambda: _launch(x, w),
-                         lambda x, *ws: first_block_plain(x, FirstBlockWeights(*ws)), x, *weights)
+        return first_block_plain(x, weights, lh=lh, rh=rh, edges=edges)
+    for h in (lh, rh):
+        if h is not None and h.shape != (x.shape[0], HALO):
+            raise ValueError(f"first_block: halo {tuple(h.shape)} is not {(x.shape[0], HALO)}")
+    return autograd.call(
+        "first_block",
+        lambda: K.halo_call(lambda b: _launch(b, w), x, lh, rh, edges, axis=1, out_axis=2),
+        lambda x, *ws: first_block_plain(x, FirstBlockWeights(*ws), lh=lh, rh=rh, edges=edges),
+        x, *weights)

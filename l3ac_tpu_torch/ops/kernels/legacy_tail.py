@@ -35,6 +35,13 @@ conv's fp32 sum + bias rounded, the residual ``x + h`` rounded after every
 unit; the output conv and tanh in fp32, the audio rounded once). Its buffer
 is :func:`pack_bf16` (``pack`` of bf16 weights). :func:`legacy_tail_plain_bf16`
 rounds at the same points.
+
+Sequence parallelism: both entry points take JAX's ``lh`` / ``rh`` /
+``edges`` (HALO = 42 frames a side, PHALO = 21 of each phase, and the
+(first, last) shard flags). The wrapper stages ``[lh | x | rh]`` (no halo on
+the side of a global edge, where the kernel's per-conv zero padding is the
+monolithic one), launches the kernel on it and crops the halo's audio
+(``ops.kernels.halo_call``).
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ...parallel import sp
 from .. import kernels as K
 from ..activations import EPS, snake
 from ..resample import interleave
@@ -53,6 +61,8 @@ from .conv_unit import cached_prepare
 from .tc_gemm import split_tf32
 
 DILATIONS = (1, 3, 9)
+HALO = 42       # SP halo a side: the receptive field, 3 (1 + 3 + 9) + 3
+PHALO = 21      # ... of each phase of the polyphase input
 MAX_C = 64      # C a multiple of 4 up to this (every released config has 24)
 ALIGN_C = 4
 
@@ -76,8 +86,14 @@ class TailWeights(NamedTuple):
     bo: torch.Tensor  # (1,)
 
 
-def legacy_tail_plain(x: torch.Tensor, w: TailWeights) -> torch.Tensor:
-    """(B, C, T) interleaved -> audio (B, T), in plain PyTorch."""
+def legacy_tail_plain(x: torch.Tensor, w: TailWeights, *, lh: torch.Tensor | None = None,
+                      rh: torch.Tensor | None = None,
+                      edges: tuple[int, int] | None = None) -> torch.Tensor:
+    """(B, C, T) interleaved -> audio (B, T), in plain PyTorch (any float
+    dtype: float64 is the decoder's fp64 tail). ``lh`` / ``rh`` / ``edges``:
+    SP halos staged as the kernel's wrapper stages them."""
+    if lh is not None or rh is not None:
+        return _staged(lambda a, _: legacy_tail_plain(a, w), x, None, lh, rh, edges)
     for u, d in enumerate(DILATIONS):
         h = snake(x, w.a1[u][:, None])
         h = F.conv1d(h, w.w1[u], w.b1[u], padding=3 * d, dilation=d)
@@ -262,40 +278,75 @@ def _plain(x: torch.Tensor):
     return legacy_tail_plain_bf16 if x.dtype == torch.bfloat16 else legacy_tail_plain
 
 
-def _call(x0: torch.Tensor, x1: torch.Tensor | None, w: TailWeights | PreparedTail, T: int,
-          name: str) -> torch.Tensor:
+def _staged(fn, x0: torch.Tensor, x1: torch.Tensor | None, lh, rh, edges) -> torch.Tensor:
+    """``fn(x0, x1)`` -> audio, on the staged ``[lh | x | rh]`` of each input
+    (``lh`` / ``rh`` a pair for the phase pair), the halo's audio cropped."""
+    if lh is None and rh is None:
+        return fn(x0, x1)
+    if x1 is None:
+        return K.halo_call(lambda b: fn(b, None), x0, lh, rh, edges, axis=2, out_axis=1)
+    lh, rh = lh or (None, None), rh or (None, None)
+    b0, left, right = K.stage_halos(x0, lh[0], rh[0], edges, 2)
+    b1, _, _ = K.stage_halos(x1, lh[1], rh[1], edges, 2)
+    with sp.suspended():
+        y = fn(b0, b1)
+    return K.crop_halos(y, 2 * left, 2 * right, 1)
+
+
+def _check_halos(name: str, x: torch.Tensor, width: int, *halos) -> None:
+    for h in halos:
+        if h is not None and h.shape != (*x.shape[:2], width):
+            raise ValueError(f"{name}: halo {tuple(h.shape)} is not "
+                             f"{(*x.shape[:2], width)}")
+
+
+def _call(x0: torch.Tensor, x1: torch.Tensor | None, w: TailWeights | PreparedTail,
+          name: str, lh=None, rh=None, edges=None) -> torch.Tensor:
     """The launch through ``autograd.call``: under autograd the backward
     differentiates the plain tail on the weights (``w``'s own, or a
     PreparedTail's, which a trainer builds from the live parameters)."""
     def plain(x0, x1, *ws):
-        return legacy_tail_plain(x0 if x1 is None else interleave([x0, x1], 2), TailWeights(*ws))
+        tw = TailWeights(*ws)
+        return _staged(lambda a, b: legacy_tail_plain(a if b is None else interleave([a, b], 2),
+                                                      tw), x0, x1, lh, rh, edges)
 
-    return autograd.call(name, lambda: _launch(x0, x1, w, T, name), plain, x0, x1,
-                         *_plain_weights(w))
+    def launch():
+        return _staged(lambda a, b: _launch(a, b, w, a.shape[2] * (1 if b is None else 2), name),
+                       x0, x1, lh, rh, edges)
+
+    return autograd.call(name, launch, plain, x0, x1, *_plain_weights(w))
 
 
 def legacy_tail_poly_ct(x0: torch.Tensor, x1: torch.Tensor,
-                        w: TailWeights | PreparedTail) -> torch.Tensor:
+                        w: TailWeights | PreparedTail, *, lh=None, rh=None,
+                        edges: tuple[int, int] | None = None) -> torch.Tensor:
     """Phase pair x0, x1 (B, C, Tt) of the interleaved input
     (``x[.., 2 t + q] = x_q[.., t]``) -> audio (B, 2 Tt) in x's dtype (fp32
     or bf16). ``w``: the weights, or a :class:`PreparedTail` whose buffer
     the kernel takes as it is. Kernel on CUDA (under autograd with the plain
-    version's gradient), plain on CPU."""
+    version's gradient), plain on CPU. ``lh`` / ``rh``: SP halo pairs, one
+    (B, C, PHALO) block per phase; ``edges``: the (first, last) shard flags."""
     K.check_input(x0, "legacy_tail_poly_ct x0", ndim=3, dtype=K.DTYPES)
     K.check_input(x1, "legacy_tail_poly_ct x1", ndim=3, dtype=x0.dtype)
     if x0.shape != x1.shape:
         raise ValueError(f"legacy_tail_poly_ct: phases {tuple(x0.shape)} and "
                          f"{tuple(x1.shape)} differ")
+    _check_halos("legacy_tail_poly_ct", x0, PHALO, *(lh or ()), *(rh or ()))
     if not K.route(x0, "legacy_tail_poly_ct"):
-        return _plain(x0)(interleave([x0, x1], 2), _plain_weights(w))
-    return _call(x0, x1, w, 2 * x0.shape[2], "legacy_tail_poly_ct")
+        return _staged(lambda a, b: _plain(a)(interleave([a, b], 2), _plain_weights(w)),
+                       x0, x1, lh, rh, edges)
+    return _call(x0, x1, w, "legacy_tail_poly_ct", lh, rh, edges)
 
 
-def legacy_tail_ct(x: torch.Tensor, w: TailWeights | PreparedTail) -> torch.Tensor:
+def legacy_tail_ct(x: torch.Tensor, w: TailWeights | PreparedTail, *,
+                   lh: torch.Tensor | None = None, rh: torch.Tensor | None = None,
+                   edges: tuple[int, int] | None = None) -> torch.Tensor:
     """Interleaved (B, C, T) -> audio (B, T) in x's dtype (fp32 or bf16).
     Kernel on CUDA (under autograd with the plain version's gradient), plain
-    on CPU."""
+    on CPU. ``lh`` / ``rh``: SP halo blocks (B, C, HALO); ``edges``: the
+    (first, last) shard flags."""
     K.check_input(x, "legacy_tail_ct x", ndim=3, dtype=K.DTYPES)
+    _check_halos("legacy_tail_ct", x, HALO, lh, rh)
     if not K.route(x, "legacy_tail_ct"):
-        return _plain(x)(x, _plain_weights(w))
-    return _call(x, None, w, x.shape[2], "legacy_tail_ct")
+        return _staged(lambda a, _: _plain(a)(a, _plain_weights(w)), x, None, lh, rh, edges)
+    return _call(x, None, w, "legacy_tail_ct", lh, rh, edges)

@@ -11,6 +11,13 @@ expansion ``bias[h, i, j] = table[|n + i - j|, h]``. At most one of the two is
 given. The model passes the table; the full bias stays accepted (the tests
 and the JAX parity checks pass random ones).
 
+JAX's previous-window operands are keywords too: ``kp`` (the keys window
+w >= 1 reads from window w - 1, default k; the rotary path's keys rotated as
+previous-window keys), ``prev_k`` / ``prev_v`` (window 0's previous block,
+the left shard's last window under SP) and ``left_edge``. Both kernels take
+them as operands and keep their key tiles (see their sources' notes);
+``ROUTES["kp"]`` / ``ROUTES["prev_k"]`` count the launches that pass them.
+
 The TPU wrapper folds the causal mask and window 0's missing previous block
 into two stored additive planes, ``bias + mask``, indexed by min(w, 1). This
 kernel adds the same bias and applies the same two masks from the indices
@@ -75,14 +82,16 @@ TMA_ALIGN = 8       # elements: the bf16 kernel's TMA route reads 16-byte aligne
 Q_ROWS = 128        # csrc/local_attention_bf16.cu: query rows of a work item
 LOG2E = 1.4426950408889634
 ROUTE_CODE = {"tma": 0, "cp_async": 1}
-# launches of the bf16 kernel per route, and per instantiation (the columns
-# of the padded head dim it runs, :func:`instance_for`)
-ROUTES: dict[str, int] = dict.fromkeys(ROUTE_CODE, 0)
+# launches of the bf16 kernel per route, and of either kernel with the
+# previous-window operands: "kp" (the rotary path's previous-role keys) and
+# "prev_k" (window 0's previous block, the SP path); and the bf16 launches
+# per instantiation (the columns of the padded head dim it runs, :func:`instance_for`)
+ROUTES: dict[str, int] = dict.fromkeys((*ROUTE_CODE, "kp", "prev_k"), 0)
 INSTANCES: dict[int, int] = dict.fromkeys((16, 32, 64, 128), 0)
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9 +
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12 +
              [ctypes.c_float, ctypes.c_void_p])
-_ARGTYPES_BF16 = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9 +
+_ARGTYPES_BF16 = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12 +
                   [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -119,10 +128,10 @@ def admits(D: int) -> str | None:
 
 
 def route_for(strides: list[int], ptrs: list[int]) -> str:
-    """The bf16 kernel's loader for q, k, v with these B / H / T element
-    strides (nine, 0 for a dim of extent 1) and data addresses: ``"tma"``
-    when every stride is a multiple of 8 elements and every address 16-byte
-    aligned, else ``"cp_async"``."""
+    """The bf16 kernel's loader for q, k, v (and kp, prev_k, prev_v where
+    given) with these B / H / T element strides (0 for a dim of extent 1)
+    and data addresses: ``"tma"`` when every stride is a multiple of 8
+    elements and every address 16-byte aligned, else ``"cp_async"``."""
     for s in strides:
         if s % TMA_ALIGN:
             return "cp_async"
@@ -172,19 +181,36 @@ def work_item(idx: int, n: int, W: int, BH: int, H: int) -> tuple[int, int, int,
 
 def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window_size: int, bias: torch.Tensor | None = None,
-                    bias_table: torch.Tensor | None = None) -> torch.Tensor:
+                    bias_table: torch.Tensor | None = None, kp: torch.Tensor | None = None,
+                    prev_k: torch.Tensor | None = None, prev_v: torch.Tensor | None = None,
+                    left_edge: int | None = None) -> torch.Tensor:
     """q, k, v: (B, H, T, D) views, T a multiple of window_size; bias
     (H, n, 2n), or bias_table (2n, H), or neither. Returns (B, H, T, D), on
     CUDA a permuted view of a (B, T, H, D) tensor. Kernel on CUDA (under
-    autograd through ``autograd.call``, with a gradient for q, k, v and the
-    bias or its table), plain on CPU."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        K.check_input(t, f"local_attention {name}", ndim=4, dtype=K.DTYPES)
+    autograd through ``autograd.call``, with a gradient for q, k, v, kp,
+    prev_k, prev_v and the bias or its table), plain on CPU.
+
+    The previous-window operands of JAX's kernel (``_attn_kernel``'s kp /
+    kp0 / vp0 refs): ``kp`` (B, H, T, D), a view like k, the keys window w
+    >= 1 reads from window w - 1 as its previous half (default k; the rotary
+    path passes the keys rotated as previous-window keys); ``prev_k`` /
+    ``prev_v`` (B, H, n, D) contiguous, window 0's previous half (SP: the
+    left shard's last window); ``left_edge`` 1 masks that half all the same
+    (the globally first shard). Without ``prev_k`` window 0's previous half
+    is masked, as before."""
+    for name, t in (("q", q), ("k", k), ("v", v), ("kp", kp), ("prev_k", prev_k),
+                    ("prev_v", prev_v)):
+        if t is not None:
+            K.check_input(t, f"local_attention {name}", ndim=4, dtype=K.DTYPES)
     if bias is not None and bias_table is not None:
         raise ValueError("local_attention: pass bias or bias_table, not both")
+    if (prev_k is None) != (prev_v is None):
+        raise ValueError("local_attention: prev_k and prev_v go together")
+    edge = 0 if left_edge is None else int(left_edge)
     if not K.route(q, "local_attention"):
         return local_attention_plain(q, k, v, window_size=window_size, bias=bias,
-                                     bias_table=bias_table)
+                                     bias_table=bias_table, kp=kp, prev_k=prev_k,
+                                     prev_v=prev_v, left_edge=edge)
     B, H, T, D = q.shape
     n = window_size
     if k.shape != q.shape or v.shape != q.shape:
@@ -200,47 +226,72 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if bias_table is not None and bias_table.shape != (2 * n, H):
         raise ValueError(f"local_attention: bias_table {tuple(bias_table.shape)} is not "
                          f"{(2 * n, H)}")
-    K.check_cuda({"bias": bias, "bias_table": bias_table}, q.device, dtype=q.dtype)
+    K.check_cuda({"bias": bias, "bias_table": bias_table, "prev_k": prev_k, "prev_v": prev_v},
+                 q.device, dtype=q.dtype)
+    for name, t, shape in (("kp", kp, q.shape), ("prev_k", prev_k, (B, H, n, D)),
+                           ("prev_v", prev_v, (B, H, n, D))):
+        if t is not None and t.shape != shape:
+            raise ValueError(f"local_attention: {name} {tuple(t.shape)} is not {tuple(shape)}")
     strides, ptrs = [], []
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("q", q), ("k", k), ("v", v)) + ((("kp", kp),) if kp is not None else ()):
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"{name} is {t.dtype} on {t.device}, expected {q.dtype} on "
                              f"{q.device}")
         st, ptr = _strides(t, name)
         strides += st
         ptrs.append(ptr)
+    prev = None
+    if prev_k is not None:
+        prev = [_strides(t, name)[1] for name, t in (("prev_k", prev_k), ("prev_v", prev_v))]
+
+    extra = {} if prev is None and not edge else {"prev": prev, "left_edge": edge}
 
     def launch():
-        return _launch(q, k, v, bias, bias_table, n, ptrs, strides)
+        return _launch(q, k, v, bias, bias_table, n, ptrs, strides, **extra)
 
-    def plain(q, k, v, bias, bias_table):
-        return local_attention_plain(q, k, v, window_size=n, bias=bias,
-                                     bias_table=bias_table).permute(0, 2, 1, 3)
+    def plain(q, k, v, bias, bias_table, kp, prev_k, prev_v):
+        return local_attention_plain(q, k, v, window_size=n, bias=bias, bias_table=bias_table,
+                                     kp=kp, prev_k=prev_k, prev_v=prev_v,
+                                     left_edge=edge).permute(0, 2, 1, 3)
 
-    out = autograd.call("local_attention", launch, plain, q, k, v, bias, bias_table)
+    out = autograd.call("local_attention", launch, plain, q, k, v, bias, bias_table, kp,
+                        prev_k, prev_v)
     K.LAUNCHES["local_attention"] += 1
+    if kp is not None:
+        ROUTES["kp"] += 1
+    if prev_k is not None:
+        ROUTES["prev_k"] += 1
     return out.permute(0, 2, 1, 3)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor | None,
-            bias_table: torch.Tensor | None, n: int, ptrs: list[int],
-            strides: list[int]) -> torch.Tensor:
+            bias_table: torch.Tensor | None, n: int, ptrs: list[int], strides: list[int],
+            prev: list[int] | None = None, left_edge: int = 0) -> torch.Tensor:
     """The kernel of q's dtype on operands :func:`local_attention` checked
-    (``ptrs`` / ``strides`` of q, k, v) -> (B, T, H, D)."""
+    (``ptrs`` / ``strides`` of q, k, v and kp when given; ``prev`` the
+    addresses of prev_k and prev_v, contiguous (B, H, n, D), or None) ->
+    (B, T, H, D)."""
     B, H, T, D = q.shape
     out = torch.empty((B, T, H, D), device=q.device, dtype=q.dtype)
+    pk, pv = prev if prev is not None else (None, None)
+    kp = ptrs[3] if len(ptrs) > 3 else None
+    args = (*ptrs[:3], kp, pk, pv)
+    kp_strides = strides[9:12] if kp is not None else [0, 0, 0]
     if q.dtype == torch.bfloat16:
-        route = route_for(strides, ptrs)
+        prev_strides = [H * n * D if B > 1 else 0, n * D if H > 1 else 0, D] * 2 \
+            if prev is not None else []
+        route = route_for(strides + prev_strides, ptrs + list(prev or []))
         table = None if bias_table is None else prepared_table(bias_table)
         fn = _build.function("l3ac_local_attention_bf16", _ARGTYPES_BF16)
-        err = fn(*ptrs, _build.ptr(bias), _build.ptr(table), out.data_ptr(), B, H, T, n, D,
-                 *strides, _bf16_scale(D), ROUTE_CODE[route], _build.stream_ptr())
+        err = fn(*args, _build.ptr(bias), _build.ptr(table), out.data_ptr(), B, H, T, n, D,
+                 left_edge, *strides[:9], *kp_strides, _bf16_scale(D), ROUTE_CODE[route],
+                 _build.stream_ptr())
         _build.check(err, "local_attention")
         ROUTES[route] += 1
         INSTANCES[instance_for(D)] += 1
     else:
         fn = _build.function("l3ac_local_attention", _ARGTYPES)
-        err = fn(*ptrs, _build.ptr(bias), _build.ptr(bias_table), out.data_ptr(), B, H, T, n,
-                 D, *strides, D ** -0.5, _build.stream_ptr())
+        err = fn(*args, _build.ptr(bias), _build.ptr(bias_table), out.data_ptr(), B, H, T, n, D,
+                 left_edge, *strides[:9], *kp_strides, D ** -0.5, _build.stream_ptr())
         _build.check(err, "local_attention")
     return out

@@ -89,11 +89,27 @@ class UpWeights(NamedTuple):
     norm_b: torch.Tensor | None
 
 
+def _halo_args(channel_dim: int, scale: int, phase_split: bool) -> dict:
+    """How :func:`K.halo_call` stages and crops the up path: time axis in,
+    time axis out and the output frames per input frame."""
+    t_dim = 3 - channel_dim
+    if phase_split:
+        return {"axis": t_dim, "out_axis": -1, "scale": 1}
+    return {"axis": t_dim, "out_axis": t_dim, "scale": scale}
+
+
 def up_fused_plain(x: torch.Tensor, w: UpWeights, *, scale: int, channel_dim: int,
-                   phase_split: bool = False):
+                   phase_split: bool = False, lh: torch.Tensor | None = None,
+                   rh: torch.Tensor | None = None, edges: tuple[int, int] | None = None):
     """The up path in plain PyTorch. ``channel_dim`` is 1 for (B, C, T) and
     2 for (B, T, C). Returns the interleaved (.., T * scale, ..) tensor, or
-    with ``phase_split`` the tuple of ``scale`` phase tensors."""
+    with ``phase_split`` the tuple of ``scale`` phase tensors. ``lh`` / ``rh``
+    / ``edges``: SP halo frames (one a side, in x's layout), staged as the
+    kernel's wrapper stages them."""
+    if lh is not None or rh is not None:
+        return K.halo_call(lambda b: up_fused_plain(b, w, scale=scale, channel_dim=channel_dim,
+                                                    phase_split=phase_split),
+                           x, lh, rh, edges, **_halo_args(channel_dim, scale, phase_split))
     t_dim = 3 - channel_dim
     if channel_dim == 1:
         z = torch.einsum("oc,bct->bot", w.w, x) + w.b[:, None]
@@ -106,10 +122,17 @@ def up_fused_plain(x: torch.Tensor, w: UpWeights, *, scale: int, channel_dim: in
 
 
 def up_fused_plain_bf16(x: torch.Tensor, w: UpWeights, *, scale: int, channel_dim: int,
-                        phase_split: bool = False):
+                        phase_split: bool = False, lh: torch.Tensor | None = None,
+                        rh: torch.Tensor | None = None, edges: tuple[int, int] | None = None):
     """The bf16 kernels' function in plain PyTorch: the bf16 values in fp32
     (the conv's products exact, its sums fp32), the blend and the norm in
-    fp32, one rounding to x's dtype at the end."""
+    fp32, one rounding to x's dtype at the end. Halos as
+    :func:`up_fused_plain` takes them."""
+    if lh is not None or rh is not None:
+        return K.halo_call(lambda b: up_fused_plain_bf16(b, w, scale=scale,
+                                                         channel_dim=channel_dim,
+                                                         phase_split=phase_split),
+                           x, lh, rh, edges, **_halo_args(channel_dim, scale, phase_split))
     w32 = UpWeights(*(None if t is None else t.float() for t in w))
     out = up_fused_plain(x.float(), w32, scale=scale, channel_dim=channel_dim,
                          phase_split=phase_split)
@@ -305,17 +328,29 @@ def _launch(x: torch.Tensor, w: UpWeights, scale: int, *, channels_last: bool,
 
 
 def _call(x: torch.Tensor, w: UpWeights, scale: int, *, channels_last: bool,
-          phase_split: bool, name: str, prepared: UpPrepared | None):
+          phase_split: bool, name: str, prepared: UpPrepared | None, lh=None, rh=None,
+          edges=None):
     """The launch through ``autograd.call``: under autograd the backward
     differentiates :func:`up_fused_plain` (its phases stacked as the launch
-    returns them, (scale, B, Co, T)) on the weights."""
+    returns them, (scale, B, Co, T)) on the weights. With halos the launch
+    runs on the staged buffer and its outputs are cropped."""
+    cd = 2 if channels_last else 1
+    halo = _halo_args(cd, scale, False)
+    for h in (lh, rh):
+        if h is not None and h.shape[halo["axis"]] != 1:
+            raise ValueError(f"{name}: an up path's halo is one frame, got {tuple(h.shape)}")
+
     def launch():
-        return _launch(x, w, scale, channels_last=channels_last, phase_split=phase_split,
-                       name=name, prepared=prepared)
+        return K.halo_call(lambda b: _launch(b, w, scale, channels_last=channels_last,
+                                             phase_split=phase_split, name=name,
+                                             prepared=prepared),
+                           x, lh, rh, edges, axis=halo["axis"],
+                           out_axis=-1 if phase_split else halo["out_axis"],
+                           scale=1 if phase_split else scale)
 
     def plain(x, *ws):
-        out = up_fused_plain(x, UpWeights(*ws), scale=scale, channel_dim=2 if channels_last else 1,
-                             phase_split=phase_split)
+        out = up_fused_plain(x, UpWeights(*ws), scale=scale, channel_dim=cd,
+                             phase_split=phase_split, lh=lh, rh=rh, edges=edges)
         return torch.stack(out) if phase_split else out
 
     out = autograd.call(name, launch, plain, x, *w)
@@ -323,27 +358,35 @@ def _call(x: torch.Tensor, w: UpWeights, scale: int, *, channels_last: bool,
 
 
 def up_fused_ct(x: torch.Tensor, w: UpWeights, *, scale: int, phase_split: bool = False,
-                prepared: UpPrepared | None = None):
+                prepared: UpPrepared | None = None, lh: torch.Tensor | None = None,
+                rh: torch.Tensor | None = None, edges: tuple[int, int] | None = None):
     """(B, Ci, T) -> (B, Co, T * scale), or with ``phase_split`` the tuple of
     ``scale`` phases (B, Co, T) with ``out[.., t * scale + p] ==
     phases[p][.., t]``; fp32 or bf16. Kernel on CUDA (under autograd with the
     plain version's gradient), plain on CPU. ``prepared``: the weights'
-    :class:`UpPrepared` (default: :func:`prepared_up`)."""
+    :class:`UpPrepared` (default: :func:`prepared_up`). ``lh`` / ``rh``: JAX's
+    SP operands, the neighbours' boundary frame (B, Ci, 1) each (on an edge
+    shard JAX passes the shard's own edge frame, the clamp); with ``edges``
+    the halo of an edge shard is not staged and the kernel clamps there."""
     K.check_input(x, "up_fused_ct x", ndim=3, dtype=K.DTYPES)
     if not K.route(x, "up_fused_ct"):
         plain = up_fused_plain_bf16 if x.dtype == torch.bfloat16 else up_fused_plain
-        return plain(x, w, scale=scale, channel_dim=1, phase_split=phase_split)
+        return plain(x, w, scale=scale, channel_dim=1, phase_split=phase_split, lh=lh, rh=rh,
+                     edges=edges)
     return _call(x, w, scale, channels_last=False, phase_split=phase_split,
-                 name="up_fused_ct", prepared=prepared)
+                 name="up_fused_ct", prepared=prepared, lh=lh, rh=rh, edges=edges)
 
 
 def up_fused(x: torch.Tensor, w: UpWeights, *, scale: int,
-             prepared: UpPrepared | None = None) -> torch.Tensor:
+             prepared: UpPrepared | None = None, lh: torch.Tensor | None = None,
+             rh: torch.Tensor | None = None,
+             edges: tuple[int, int] | None = None) -> torch.Tensor:
     """(B, T, Ci) -> (B, T * scale, Co), fp32 or bf16. Kernel on CUDA (under
-    autograd with the plain version's gradient), plain on CPU."""
+    autograd with the plain version's gradient), plain on CPU. Halos (B, 1,
+    Ci) as :func:`up_fused_ct` takes them."""
     K.check_input(x, "up_fused x", ndim=3, dtype=K.DTYPES)
     if not K.route(x, "up_fused"):
         plain = up_fused_plain_bf16 if x.dtype == torch.bfloat16 else up_fused_plain
-        return plain(x, w, scale=scale, channel_dim=2)
+        return plain(x, w, scale=scale, channel_dim=2, lh=lh, rh=rh, edges=edges)
     return _call(x, w, scale, channels_last=True, phase_split=False, name="up_fused",
-                 prepared=prepared)
+                 prepared=prepared, lh=lh, rh=rh, edges=edges)

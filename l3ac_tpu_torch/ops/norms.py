@@ -15,9 +15,15 @@ bf16 input (``l3ac_tpu/ops/norms.py:_stat_dtype``): the moments and the
 normalization run in fp32, the normalized value is cast back to the input
 dtype, and the affine step runs in that dtype; GRN's scalar ``n`` likewise.
 fp32 input takes exactly the fp32 steps.
+
+Under sequence parallelism (``parallel.sp``) GRN's norm and the instance
+norm's moments are summed over the sp group, the instance norm's in JAX's
+one-pass form.
 """
 
 import torch
+
+from ..parallel import sp
 
 EPS = 1e-8
 LAYER_NORM_EPS = 1e-5
@@ -53,7 +59,7 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 def grn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         eps: float = EPS, dim: int = -1) -> torch.Tensor:
     xs = _stat(x)
-    g = torch.sqrt((xs * xs).sum(dim=tuple(range(1, x.dim())), keepdim=True))
+    g = torch.sqrt(sp.psum_if_active((xs * xs).sum(dim=tuple(range(1, x.dim())), keepdim=True)))
     n = (g / (g + eps)).to(x.dtype)
     return _along(gamma, x, dim) * (x * n) + _along(beta, x, dim) + x
 
@@ -64,7 +70,15 @@ def instance_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     axis ``dim``."""
     t_dim = 1 if dim in (-1, 2) else 2
     xs = _stat(x)
-    u = xs.mean(dim=t_dim, keepdim=True)
-    s = ((xs - u) ** 2).mean(dim=t_dim, keepdim=True)
+    if sp.active():
+        # the moments over the global time axis, in one pass (JAX's formula);
+        # cancellation can take the variance below 0, clamped
+        n = x.shape[t_dim] * sp.size()
+        u = sp.psum_if_active(xs.sum(dim=t_dim, keepdim=True)) / n
+        s2 = sp.psum_if_active((xs * xs).sum(dim=t_dim, keepdim=True)) / n
+        s = torch.clamp(s2 - u * u, min=0.0)
+    else:
+        u = xs.mean(dim=t_dim, keepdim=True)
+        s = ((xs - u) ** 2).mean(dim=t_dim, keepdim=True)
     xn = ((xs - u) / torch.sqrt(s + eps)).to(x.dtype)
     return _along(weight, x, dim) * xn + _along(bias, x, dim)

@@ -3,17 +3,20 @@
 torch's padding semantics, as in ``l3ac_tpu/ops/pool.py``: max pooling pads
 with -inf; average pooling pads with 0 and always divides by k. Each pool is
 k shifted slices reduced in order, the same summation order as the JAX
-package and as the ``first_block`` kernel.
+package and as the ``first_block`` kernel. Under sequence parallelism each
+pool's pad is a halo exchange with its pad value at the global edges, so the
+chained max -> avg pool stays exact across shard boundaries.
 """
 
 import torch
-import torch.nn.functional as F
+
+from ..parallel import sp
 
 
 def _pool(x: torch.Tensor, k: int, op, pad_value: float) -> torch.Tensor:
     p = k // 2
     T = x.shape[-1]
-    xp = F.pad(x, (p, p), value=pad_value)
+    xp = sp.pad_time(x, p, p, axis=-1, fill=pad_value)
     out = xp[..., :T]
     for j in range(1, k):
         out = op(out, xp[..., j:j + T])

@@ -11,6 +11,8 @@ formula as the JAX package, and an interleave.
 
 import torch
 
+from ..parallel import sp
+
 
 def phase_weights(scale: int) -> list[tuple[float, float, float]]:
     """Per-phase (w_prev, w_cur, w_next) of the blend, as Python floats."""
@@ -28,9 +30,8 @@ def phase_weights(scale: int) -> list[tuple[float, float, float]]:
 def upsample_phases(x: torch.Tensor, scale: int, dim: int) -> list[torch.Tensor]:
     """The ``scale`` phases of the upsample along time axis ``dim``, each
     shaped like x: ``out[.., t * scale + p] = phases[p][.., t]``."""
-    T = x.shape[dim]
-    x_prev = torch.cat([x.narrow(dim, 0, 1), x.narrow(dim, 0, T - 1)], dim=dim)
-    x_next = torch.cat([x.narrow(dim, 1, T - 1), x.narrow(dim, T - 1, 1)], dim=dim)
+    x_prev = sp.shift_right(x, axis=dim)  # clamped at the global edges only
+    x_next = sp.shift_left(x, axis=dim)
     phases = []
     for wp, wc, wn in phase_weights(scale):
         if wp:

@@ -31,6 +31,7 @@ is what the port runs.
 from __future__ import annotations
 
 import argparse
+import ctypes
 from pathlib import Path
 
 import numpy as np
@@ -48,6 +49,17 @@ SHAPES = ((750, 2250, (1, 2)), (250, 750, (2, 3)))
 TOL = 1e-4
 TOL_BF16 = 2.0 ** -6
 ITERS = 20
+# the entry point of tools/attention_bf16_mma.cu: q, k, v, bias, table, out;
+# B, H, T, n, D; the nine strides; scale; stream (the port's kernels also take
+# kp, prev_k, prev_v, left_edge and kp's strides: _port_args below)
+_ARGTYPES_MMA = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9 +
+                  [ctypes.c_float, ctypes.c_void_p])
+
+
+def _port_args(q, k, v, bias, table, out, B, H, T, n, D, strides):
+    """The port kernels' arguments up to the scale, without the
+    previous-window operands."""
+    return (q, k, v, None, None, None, bias, table, out, B, H, T, n, D, 0, *strides, 0, 0, 0)
 
 # (name, substitutions, computes the attention)
 VARIANTS = (
@@ -68,7 +80,7 @@ VARIANTS = (
 # the bf16 kernel the port runs (csrc/local_attention_bf16.cu, the TMA route),
 # its alternatives and ablations
 SOURCE_BF16 = _build.CSRC_DIR / "local_attention_bf16.cu"
-_NO_TILE_BF16 = (("  return (p.n + it.i0 + rows - (it.w == 0 ? p.n : 0) + kKeys - 1) / kKeys;",
+_NO_TILE_BF16 = (("  return (p.n + it.i0 + rows - key_begin(p, it) + kKeys - 1) / kKeys;",
                   "  return 0 * rows;"),)
 VARIANTS_BF16 = (
     ("TMA + wgmma, 2 consumer warpgroups on 128-row items, 4-stage ring, ex2 softmax", (), True),
@@ -175,9 +187,9 @@ def main(argv=None) -> int:
         line = f"n={n} T={T}:"
         for i, ((name, _, exact), (lib, _)) in enumerate(zip(VARIANTS, libs)):
             def call(lib=lib):
-                err = lib.l3ac_local_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
-                                               table.data_ptr(), out.data_ptr(), B, H, T, n, D,
-                                               *strides, D ** -0.5, stream)
+                err = lib.l3ac_local_attention(
+                    *_port_args(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, table.data_ptr(),
+                                out.data_ptr(), B, H, T, n, D, strides), D ** -0.5, stream)
                 if err:
                     raise RuntimeError(f"attention_variants [{i}]: CUDA error {err}")
             call()
@@ -202,7 +214,7 @@ def main_bf16(dev: torch.device) -> int:
     # kernel's signature), ptxas entry at D = 32 with the table)
     groups = [(SOURCE_BF16, VARIANTS_BF16, "l3ac_local_attention_bf16", la._ARGTYPES_BF16,
                la.ROUTE_CODE["tma"], "attention_bf16_kernelILi2ELi2ELi0E"),
-              (SOURCE_PR12, VARIANTS_PR12, "l3ac_local_attention_bf16", la._ARGTYPES, None,
+              (SOURCE_PR12, VARIANTS_PR12, "l3ac_local_attention_bf16", _ARGTYPES_MMA, None,
                "attention_bf16_kernelILi2ELi2EEE")]
     names, libs = [], []
     for source, variants, symbol, argtypes, route, entry in groups:
@@ -233,8 +245,10 @@ def main_bf16(dev: torch.device) -> int:
             tab = table if route is None else prepared  # the PR 12 kernel reads the bf16 table
 
             def call(fn=fn, extra=extra, tab=tab):
-                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, tab.data_ptr(),
-                         out.data_ptr(), B, H, T, n, D, *strides, scale, *extra, stream)
+                args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), None, tab.data_ptr(),
+                        out.data_ptr(), B, H, T, n, D, strides)
+                err = fn(*(_port_args(*args) if extra else args[:-1] + tuple(strides)), scale,
+                         *extra, stream)
                 if err:
                     raise RuntimeError(f"attention_variants bf16 [{i}]: CUDA error {err}")
             call()
@@ -307,10 +321,11 @@ def main_c4(dev: torch.device, sass_dir: Path | None) -> int:
                     for i, (lib, _) in enumerate(built):
                         out = torch.full((Bc, T, Hc, D), float("nan"), device=dev, dtype=bf)
                         err = lib.l3ac_local_attention_bf16(
-                            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            None if bias is None else bias.data_ptr(),
-                            None if tab is None else tab.data_ptr(), out.data_ptr(), Bc, Hc, T,
-                            n, D, *strides, scale, la.ROUTE_CODE[route], stream)
+                            *_port_args(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                        None if bias is None else bias.data_ptr(),
+                                        None if tab is None else tab.data_ptr(), out.data_ptr(),
+                                        Bc, Hc, T, n, D, strides),
+                            scale, la.ROUTE_CODE[route], stream)
                         if err:
                             raise RuntimeError(f"attention_variants c4 [{i}]: CUDA error {err}")
                         torch.cuda.synchronize()
@@ -349,10 +364,10 @@ def main_c4(dev: torch.device, sass_dir: Path | None) -> int:
                 continue
 
             def call(lib=lib):
-                err = lib.l3ac_local_attention_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                                    None, tab.data_ptr(), out.data_ptr(), B, Hc,
-                                                    T, n, D, *strides, scale,
-                                                    la.ROUTE_CODE["tma"], stream)
+                err = lib.l3ac_local_attention_bf16(
+                    *_port_args(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, tab.data_ptr(),
+                                out.data_ptr(), B, Hc, T, n, D, strides),
+                    scale, la.ROUTE_CODE["tma"], stream)
                 if err:
                     raise RuntimeError(f"attention_variants c4 [{i}]: CUDA error {err}")
             line += f" [{i}] {time_ms(call, dev, ITERS):.4f}"

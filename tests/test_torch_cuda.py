@@ -1228,3 +1228,50 @@ def test_debug_training_step_on_the_card(dev):
     gpu.to(torch.bfloat16)
     with pytest.raises(TypeError, match="float32 only"):
         train.loss_fn(gpu, torch.from_numpy(audio).to(dev).bfloat16())
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("mode", ["kp", "prev_k, left_edge 0", "prev_k, left_edge 1",
+                                  "kp + prev_k"])
+@pytest.mark.parametrize("dtype,n,W,view", [
+    (dt, n, W, view) for dt in ("fp32", "bf16")
+    for n, W, view in ((100, 3, "proj"), (250, 2, "proj"), (16, 3, "contig"), (100, 2, "proj+4"))
+    if not (dt == "fp32" and view == "proj+4")])   # an 8-byte offset is a bf16 route
+def test_local_attention_previous_window_operands(bf16_products, dtype, D, mode, n, W, view):
+    """Both attention kernels with JAX's previous-window operands: ``kp`` (the
+    rotary path's previous-role keys, a view like k), ``prev_k`` / ``prev_v``
+    (window 0's previous block) with ``left_edge`` 0 and 1, and both at
+    once; on the model's head views of one projection, contiguous operands,
+    and (bf16) a projection at an 8-byte offset, the cp.async route; n = 100
+    and 250 put a key tile across the previous / current boundary. Held
+    against the plain version at phase 3's tolerances; the launches counted
+    in ``ROUTES`` under "kp" / "prev_k"."""
+    from l3ac_tpu_torch.ops.attention import rotary_operands
+    from l3ac_tpu_torch.ops.kernels import local_attention as la
+    dev = bf16_products
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    rng = np.random.default_rng([n, W, D, len(mode)])
+    B, H, T = 2, 3, n * W
+    if view == "contig":
+        q, k, v = (_t(rng, (B, H, T, D), 1.0, dev).to(dt) for _ in range(3))
+    else:
+        off = 4 if view == "proj+4" else 0
+        buf = _t(rng, (off + B * T * 3 * H * D,), 1.0, dev).to(dt)
+        q, k, v = (c.view(B, T, H, D).permute(0, 2, 1, 3)
+                   for c in buf[off:].view(B, T, 3 * H * D).chunk(3, dim=-1))
+    table = _t(rng, (2 * n, H), 1.0, dev).to(dt)
+    kw = {}
+    if "kp" in mode:
+        q, k, kw["kp"] = rotary_operands(q, k, n)
+    if "prev_k" in mode:
+        kw["prev_k"], kw["prev_v"] = (_t(rng, (B, H, n, D), 1.0, dev).to(dt) for _ in range(2))
+        kw["left_edge"] = int(mode.endswith("1"))
+    before = dict(la.ROUTES)
+    got = la.local_attention(q, k, v, window_size=n, bias_table=table, **kw)
+    assert la.ROUTES["kp"] - before["kp"] == int("kp" in kw)
+    assert la.ROUTES["prev_k"] - before["prev_k"] == int("prev_k" in kw)
+    if dtype == "bf16":
+        route = "cp_async" if view == "proj+4" else "tma"
+        assert la.ROUTES[route] - before[route] == 1
+    want = la.local_attention_plain(q, k, v, window_size=n, bias_table=table, **kw)
+    (_check_bf16 if dtype == "bf16" else _check)(got, want)

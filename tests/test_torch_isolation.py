@@ -33,7 +33,10 @@ def test_import_pulls_in_no_jax():
             "l3ac_tpu_torch.utils.metrics, l3ac_tpu_torch.__main__, "
             "l3ac_tpu_torch.train, l3ac_tpu_torch.trainer, l3ac_tpu_torch.ops.droppath, "
             "l3ac_tpu_torch.utils.debug, l3ac_tpu_torch.grad_check, "
-            "l3ac_tpu_torch.ops.kernels.autograd; "
+            "l3ac_tpu_torch.ops.kernels.autograd, l3ac_tpu_torch.parallel.mesh, "
+            "l3ac_tpu_torch.parallel.distributed, l3ac_tpu_torch.parallel.sp, "
+            "l3ac_tpu_torch.parallel.halo, l3ac_tpu_torch.ops.codebook, "
+            "l3ac_tpu_torch.models.codec; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'l3ac_tpu' or m.startswith('l3ac_tpu.')]; "
             "assert not bad, bad; print('clean')")
@@ -123,3 +126,40 @@ def test_new_entry_points_raise_without_cuda(tmp_path):
     out = subprocess.run(cmd + ["--device", "cpu"], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0 and (tmp_path / "out.npz").exists(), out.stderr
+
+
+def test_sp_and_codebook_entry_points_run_where_asked(tmp_path):
+    """``encode_sp`` on a default model raises here (its device is CUDA);
+    with a CPU model in a gloo process group (of one) it runs, as does
+    ``nearest_codes`` on CPU tensors. In a subprocess, so that no process
+    group outlives the test."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the default device is then usable")
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    code = (
+        "import sys, torch\n"
+        "from l3ac_tpu_torch.models import codec as fc\n"
+        "from l3ac_tpu_torch.models.zoo import get_model\n"
+        "from l3ac_tpu_torch.ops.codebook import nearest_codes\n"
+        "from l3ac_tpu_torch.parallel import distributed, mesh\n"
+        "try:\n"
+        "    fc.encode_sp(get_model('debug'), torch.zeros(1, 384), mesh.make_mesh())\n"
+        "    sys.exit('no error')\n"
+        "except RuntimeError as e:\n"
+        "    assert 'CUDA is not available' in str(e), e\n"
+        f"distributed.initialize('tcp://localhost:{port}', 1, 0, backend='gloo')\n"
+        "m = get_model('debug', device='cpu')\n"
+        "q, idx = fc.encode_sp(m, torch.zeros(1, fc.sp_time_quantum(m.codec.mc)),\n"
+        "                      distributed.multihost_mesh(sp=1))\n"
+        "assert torch.distributed.get_backend() == 'gloo'\n"
+        "assert q.device.type == 'cpu' and idx.shape == (1, 16)\n"
+        "i, d = nearest_codes(torch.zeros(3, 6), torch.eye(6))\n"
+        "assert i.device.type == 'cpu' and i.tolist() == [0, 0, 0]\n"
+        "distributed.barrier()\n"
+        "print('ran')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0 and "ran" in out.stdout, out.stderr
