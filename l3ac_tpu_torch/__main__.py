@@ -6,14 +6,20 @@
     python -m l3ac_tpu_torch encode in.wav tokens.npz --model 1kbps [--pretrained]
     python -m l3ac_tpu_torch decode tokens.npz out.wav
     python -m l3ac_tpu_torch train  --config debug --steps 20 [--ckpt-dir d --save-every k --resume]
+        [--dp 1 --sp 1 --tp 2 --coordinator tcp://localhost:29500 --num-processes 2
+         --process-id R --backend gloo]
 
 Tokens are stored as an ``.npz`` with the FSQ indices, the model name and
 the original sample count (so decode crops exactly), as the JAX CLI writes
 them. WAV I/O is PCM16 mono at the model's sample rate.
 
 The models run on the card; ``--device cpu`` runs the plain path. ``train``
-runs ``trainer.train`` on one device (``--dp`` / ``--sp`` / ``--tp`` above 1
-raise: ROADMAP A11).
+runs ``trainer.train`` on one device, or with ``--dp`` / ``--sp`` / ``--tp``
+on a mesh of dp * sp * tp processes, one per rank, each started with the
+same arguments and its own ``--process-id`` (``--coordinator``,
+``--num-processes`` and ``--backend`` go to
+``parallel.distributed.initialize``; ``--coordinator env://`` takes
+``torchrun``'s environment instead).
 ``--pretrained`` reads the released checkpoints from ``config.model_path``
 and raises when they are not there: nothing is downloaded.
 """
@@ -83,6 +89,16 @@ def cmd_decode(args) -> int:
 def cmd_train(args) -> int:
     from .trainer import train
 
+    if args.dp * args.sp * args.tp > 1:
+        import torch.distributed as dist
+
+        from .parallel import distributed
+        if args.coordinator == "env://":
+            if not dist.is_initialized():
+                dist.init_process_group(args.backend, init_method="env://")
+        else:
+            distributed.initialize(args.coordinator, args.num_processes, args.process_id,
+                                   backend=args.backend)
     train(args.config, steps=args.steps, batch=args.batch,
           seconds=args.seconds, tokens=args.tokens, dp=args.dp, sp=args.sp,
           tp=args.tp, lr=args.lr, spectral=args.spectral,
@@ -119,8 +135,8 @@ def main(argv=None) -> int:
     model_args(p, None, "override the model recorded in the token file")
 
     p = sub.add_parser(
-        "train", help="train on one device with Adam + spectral loss, "
-                      "checkpoints and --resume restart")
+        "train", help="train on one device or a (dp, sp, tp) mesh with Adam + spectral "
+                      "loss, checkpoints and --resume restart")
     p.add_argument("--config", default="debug")
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--batch", type=int, default=4)
@@ -129,9 +145,17 @@ def main(argv=None) -> int:
                         "default --tokens")
     p.add_argument("--tokens", type=int, default=8,
                    help="clip length in codec tokens (hop multiples)")
-    p.add_argument("--dp", type=int, default=1, help="not ported: above 1 raises")
-    p.add_argument("--sp", type=int, default=1, help="not ported: above 1 raises")
-    p.add_argument("--tp", type=int, default=1, help="not ported: above 1 raises")
+    p.add_argument("--dp", type=int, default=1, help="data-parallel ranks")
+    p.add_argument("--sp", type=int, default=1, help="sequence-parallel ranks")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks")
+    p.add_argument("--coordinator", default=None,
+                   help="a mesh's process-group address, tcp://host:port (or env://: "
+                        "torchrun's environment)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="the mesh's processes (dp * sp * tp)")
+    p.add_argument("--process-id", type=int, default=None, help="this process's rank")
+    p.add_argument("--backend", default="gloo", choices=("gloo", "nccl"),
+                   help="gloo (the CPU, or several ranks on one card) or nccl")
     p.add_argument("--lr", type=float, default=1e-4)
     p.add_argument("--spectral", action="store_true",
                    help="add multi-resolution STFT + log-mel losses")

@@ -90,6 +90,8 @@ struct Args {
   int C, T, K, dil;
   int x_vec;            // T % 4 == 0, x and out 16-byte aligned
   int w1_vec;           // C % 4 == 0, W1 16-byte aligned
+  int H;                // hidden units: 4C, or a tensor-parallel shard of them
+  int partial;          // 1: out = the unit's partial sum, no residual (TP mode)
 };
 
 // Shared-memory regions in floats. Row strides are 4 mod 8 words, so the
@@ -154,7 +156,7 @@ __global__ void __launch_bounds__(kThreads, kNT2 <= 3 ? 3 : kNT2 <= 6 ? 2 : 1)
 narrow_kernel(const Args a) {
   constexpr int kPairs2 = (kNT2 + 1) / 2;
   extern __shared__ __align__(16) float smem[];
-  const int C = a.C, T = a.T, C4 = 4 * C;
+  const int C = a.C, T = a.T, C4 = a.H;
   const Geometry g(C, a.K, a.dil, kPairs2);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int t0 = blockIdx.x * kS;
@@ -399,7 +401,12 @@ narrow_kernel(const Args a) {
   // the residual is read back in batches of kBatch independent loads per
   // thread, issued before any of their stores
   float* ob = a.out + xoff;
-  if (a.x_vec) {  // 16-byte pieces: T and t are multiples of 4
+  if (a.partial) {  // TP mode: the tile as it is, consecutive threads on consecutive t
+    for (int e = tid; e < C * kS; e += kThreads) {
+      const int c = e / kS, j = e % kS;
+      if (t0 + j < T) ob[static_cast<long long>(c) * T + t0 + j] = os[c * kOS + j];
+    }
+  } else if (a.x_vec) {  // 16-byte pieces: T and t are multiples of 4
     const int n = C * (kS / 4);
     for (int e0 = tid; e0 < n; e0 += kBatch * kThreads) {
       float4 xv[kBatch];
@@ -455,23 +462,27 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
 
 }  // namespace
 
-// x, out: (B, C, T), 1 <= C <= 96; dw_w: (C, K); w1_hi / w1_lo: (4C, C) pw1
-// split into TF32; w2_hi / w2_lo: (C, 4C) pw2 with GRN folded, split, 16-byte
-// aligned; b2: (C) folded bias. norm_w / norm_b null: no ChannelNorm; alpha
-// null: exact GELU instead of snake. All fp32 and contiguous, out not aliasing
-// x. Returns the CUDA error code (invalid value for a shape it does not take).
+// x, out: (B, C, T), 1 <= C <= 96; dw_w: (C, K); w1_hi / w1_lo: (H, C) pw1
+// split into TF32; b1, alpha: (H); w2_hi / w2_lo: (C, H) pw2 with GRN folded,
+// split, 16-byte aligned; b2: (C) folded bias. H: the hidden units, 4C, or in
+// the tensor-parallel mode (partial 1) a rank's shard of them, a multiple of
+// 4 (zero-padded by the wrapper); partial 1 writes the shard's sum without
+// the residual. norm_w / norm_b null: no ChannelNorm; alpha null: exact GELU
+// instead of snake. All fp32 and contiguous, out not aliasing x. Returns the
+// CUDA error code (invalid value for a shape it does not take).
 extern "C" int l3ac_conv_unit_narrow(const float* x, float* out, const float* dw_w,
                                      const float* dw_b, const float* norm_w,
                                      const float* norm_b, const float* w1_hi,
                                      const float* w1_lo, const float* b1, const float* alpha,
                                      const float* w2_hi, const float* w2_lo, const float* b2,
-                                     int B, int C, int T, int K, int dil, void* stream) {
+                                     int B, int C, int T, int K, int dil, int H, int partial,
+                                     void* stream) {
   if (B < 1 || B > 65535 || C < 1 || C > 8 * kMaxK8 || T < 1 || K < 1 || K % 2 == 0 ||
-      dil < 1 || !aligned16(w2_hi) || !aligned16(w2_lo))
+      dil < 1 || H < 4 || H % 4 != 0 || !aligned16(w2_hi) || !aligned16(w2_lo))
     return cudaErrorInvalidValue;
   const Args a{x, out, dw_w, dw_b, norm_w, norm_b, w1_hi, w1_lo, b1, alpha, w2_hi, w2_lo, b2,
                C, T, K, dil, T % 4 == 0 && aligned16(x) && aligned16(out),
-               C % 4 == 0 && aligned16(w1_hi) && aligned16(w1_lo)};
+               C % 4 == 0 && aligned16(w1_hi) && aligned16(w1_lo), H, partial != 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((C + 7) / 8) {
     case 1: return launch<1>(a, B, s);

@@ -82,6 +82,7 @@ struct Args {
   int halo, sp;      // the conv's halo; the staged halo (a multiple of 8, <= round8(halo))
   int xw, rs;        // staged columns kS + 2 sp; a stage row's stride, xw + 8
   int fast;          // x and out 16-byte aligned: cp.async staging, 16-byte stores
+  float* part;       // tensor-parallel mode: (B, C, T) fp32, the shard's sum, no residual
 };
 
 // The prepared buffer's regions in 16-byte units, as narrow_pack lays them
@@ -340,6 +341,22 @@ __global__ void __launch_bounds__(kThreads, kP <= 3 ? 2 : 1) narrow_bf16_kernel(
         }
     }
 
+    if (a.part != nullptr) {  // TP mode: sum + b2' in fp32, unrounded, no residual
+#pragma unroll
+      for (int n = 0; n < 2 * kP; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * n + 2 * t + e;
+          if (c >= C) continue;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int tt = t0 + 16 * warp + g + 8 * r;
+            if (tt < T) a.part[fb + static_cast<long long>(c) * T + tt] = acc[n][2 * r + e] + b2[c];
+          }
+        }
+      continue;  // the stage is not written: the next tile's barrier suffices
+    }
+
     // 3. out = bf16(x + (sum + b2')) over the staged x, then stored
     __syncthreads();  // every warp's depthwise reads of this stage are done
 #pragma unroll
@@ -416,23 +433,26 @@ cudaError_t launch_at(Args a, cudaStream_t stream) {
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-int steps_for(int C) { return (4 * C + kStep - 1) / kStep; }
+int steps_for(int H) { return (H + kStep - 1) / kStep; }
 
 }  // namespace
 
 // x, out: (B, C, T) bf16, 1 <= C <= 96, out not aliasing x; pk: narrow_pack's
 // buffer (16-byte aligned; the wrapper checks its size) for this unit, its K
-// taps, with (norm) or without ChannelNorm, snake or (snake 0) exact GELU.
-// Returns the CUDA error code (invalid value for a shape it does not take).
+// taps, with (norm) or without ChannelNorm, snake or (snake 0) exact GELU, and
+// H hidden units (4C, or a tensor-parallel shard of them). part non-null: the
+// tensor-parallel mode, the shard's fp32 sum without the residual into part
+// (B, C, T), out unused. Returns the CUDA error code (invalid value for a
+// shape it does not take).
 extern "C" int l3ac_conv_unit_narrow_bf16(const void* x, void* out, const void* pk, int B, int C,
-                                          int T, int K, int dil, int norm, int snake,
-                                          void* stream) {
-  if (B < 1 || C < 1 || C > kMaxC || T < 1 || K < 1 || K % 2 == 0 || dil < 1 ||
+                                          int T, int K, int dil, int norm, int snake, int H,
+                                          float* part, void* stream) {
+  if (B < 1 || C < 1 || C > kMaxC || T < 1 || K < 1 || K % 2 == 0 || dil < 1 || H < 1 ||
       !aligned16(pk) || static_cast<long long>(B) * C * T >= (1LL << 40))
     return cudaErrorInvalidValue;
   Args a{static_cast<const bf16*>(x), static_cast<bf16*>(out), static_cast<const uint4*>(pk),
-         B, C, T, K, dil, norm, snake, steps_for(C), (K - 1) * dil / 2, 0, 0, 0,
-         aligned16(x) && aligned16(out)};
+         B, C, T, K, dil, norm, snake, steps_for(H), (K - 1) * dil / 2, 0, 0, 0,
+         aligned16(x) && (part != nullptr || aligned16(out)), part};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((C + 15) / 16) {
     case 1: return launch_at<1>(a, s);

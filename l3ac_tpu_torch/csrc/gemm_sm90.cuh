@@ -96,7 +96,9 @@ constexpr int kThreads = 384;         // warpgroup 0 loads, 1 and 2 compute
 constexpr int kConsumers = 2;
 constexpr size_t kMaxSmem = 232448;   // per block (227 KB)
 
-enum class Epi { kBias, kSnake, kGelu, kResidual };
+// kPartial: y = acc + b into the fp32 out32, unrounded (a tensor-parallel
+// rank's share of a product, summed over the ranks before it is rounded)
+enum class Epi { kBias, kSnake, kGelu, kResidual, kPartial };
 enum class Route { kTma = 0, kCpAsync = 1 };
 
 // kBN output columns per tile; a ring of kStages; kCoop: both consumer
@@ -142,6 +144,7 @@ struct Params {
   const float* alpha;       // (N) snake
   const bf16* res;          // (M, N) residual
   bf16* out;                // (M, N)
+  float* out32;             // (M, N) fp32, kPartial
   int M, N, K;
   int vec_out;              // N even, out and res 4-byte aligned: bf16 pairs
   int vec_a, vec_b;         // cp.async route: 16-byte copies of A / bf16 B rows
@@ -300,7 +303,10 @@ __device__ __forceinline__ void epilogue(float (&acc)[Cfg::kAcc], const Params& 
           v0 += __uint_as_float(rv << 16);
           v1 += __uint_as_float(rv & 0xffff0000u);
         }
-        *reinterpret_cast<uint32_t*>(p.out + o) = ptx::bf16x2_rn(v0, v1);
+        if constexpr (kEpi == Epi::kPartial)
+          *reinterpret_cast<float2*>(p.out32 + o) = make_float2(v0, v1);
+        else
+          *reinterpret_cast<uint32_t*>(p.out + o) = ptx::bf16x2_rn(v0, v1);
       }
     }
     return;
@@ -335,13 +341,17 @@ __device__ __forceinline__ void epilogue(float (&acc)[Cfg::kAcc], const Params& 
           v[0] += __uint_as_float(rv << 16);
           v[1] += __uint_as_float(rv & 0xffff0000u);
         }
-        *reinterpret_cast<uint32_t*>(p.out + o) = ptx::bf16x2_rn(v[0], v[1]);
+        if constexpr (kEpi == Epi::kPartial)
+          *reinterpret_cast<float2*>(p.out32 + o) = make_float2(v[0], v[1]);
+        else
+          *reinterpret_cast<uint32_t*>(p.out + o) = ptx::bf16x2_rn(v[0], v[1]);
       } else {
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           if (i == 1 && !two) continue;
           if constexpr (kEpi == Epi::kResidual) v[i] += bf16_bits(p.res, o + i);
-          p.out[o + i] = __float2bfloat16_rn(v[i]);
+          if constexpr (kEpi == Epi::kPartial) p.out32[o + i] = v[i];
+          else p.out[o + i] = __float2bfloat16_rn(v[i]);
         }
       }
     }
@@ -587,9 +597,12 @@ template <class Cfg, Epi kEpi>
 cudaError_t launch(Params p, Route route, const void* b_map, bool persistent, cudaStream_t s) {
   const void* b = Cfg::kInt8 ? static_cast<const void*>(p.b_q) : static_cast<const void*>(p.b);
   if (p.M < 1 || p.N < 1 || p.K < 1 || b == nullptr || (Cfg::kInt8 && p.scale == nullptr) ||
-      (kEpi == Epi::kSnake && p.alpha == nullptr) || (kEpi == Epi::kResidual && p.res == nullptr))
+      (kEpi == Epi::kSnake && p.alpha == nullptr) || (kEpi == Epi::kResidual && p.res == nullptr) ||
+      (kEpi == Epi::kPartial && p.out32 == nullptr))
     return cudaErrorInvalidValue;
-  p.vec_out = p.N % 2 == 0 && aligned(p.out, 4) && (p.res == nullptr || aligned(p.res, 4));
+  p.vec_out = kEpi == Epi::kPartial
+                  ? p.N % 2 == 0 && aligned(p.out32, 8)
+                  : p.N % 2 == 0 && aligned(p.out, 4) && (p.res == nullptr || aligned(p.res, 4));
   p.vec_a = p.K % 8 == 0 && aligned(p.a, 16);
   p.vec_b = !Cfg::kInt8 && p.K % 8 == 0 && aligned(p.b, 16);
   CUtensorMap ma, mb;

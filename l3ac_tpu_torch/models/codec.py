@@ -13,8 +13,16 @@ exchanges exactly the halo it needs (``parallel.sp``), so the result equals
 the single-device run to float tolerance and the FSQ indices exactly. The dp
 axis (``batch_axis``) needs no exchange: each dp row of ranks runs its own
 streams.
+
+Tensor parallelism composes with both on the same mesh: a codec put onto
+its shards (``parallel.tp.shard_codec(codec, mesh)``) runs its split pairs
+inside ``parallel.tp.tensor_parallel``, which the three ``*_sp`` entry
+points enter when the mesh's tp axis has more than one rank (with sp = 1
+they are the tensor-parallel entry points: each rank passes the whole
+stream).
 """
 
+import contextlib
 import math
 
 import torch
@@ -23,7 +31,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops.droppath import split
-from ..parallel import sp
+from ..parallel import sp, tp
 from . import local_transformer as lt
 from .decoder import Decoder
 from .encoder import Encoder
@@ -157,10 +165,36 @@ def _sp_call(model, mesh, axis_name: str, batch_axis: str | None, local_len: int
         raise KeyError(f"mesh has no axis {axis_name!r}")
     if batch_axis is not None and (batch_axis not in mesh.shape or batch_axis == axis_name):
         raise KeyError(f"batch_axis {batch_axis!r} is not another axis of the mesh")
+    if not codec.mc.en_coder_dynamic_pos:
+        # JAX's SP entry points assert it at any sp size (its attention
+        # under sequence_parallel); with tp alone, run inside
+        # tp.tensor_parallel(mesh) instead
+        raise NotImplementedError("rotary position embeddings are not supported under "
+                                  "sequence parallelism (as in JAX)")
     n_sp = mesh.shape[axis_name]
-    _check_sp_len(local_len * n_sp, codec.mc, n_sp, what, per_shard)
-    with torch.inference_mode(), sp.sequence_parallel(mesh, axis_name):
+    if n_sp > 1:  # one shard (tensor parallelism alone) takes any length the call takes
+        _check_sp_len(local_len * n_sp, codec.mc, n_sp, what, per_shard)
+    with torch.inference_mode(), sp_scope(mesh, axis_name), tp_scope(codec, mesh):
         return fn(codec)
+
+
+def sp_scope(mesh, axis_name: str = "sp"):
+    """``sp.sequence_parallel(mesh)`` where the axis has more than one rank
+    (one rank runs the monolithic ops, any length)."""
+    if mesh.shape[axis_name] == 1:
+        return contextlib.nullcontext()
+    return sp.sequence_parallel(mesh, axis_name)
+
+
+def tp_scope(codec, mesh):
+    """``tp.tensor_parallel(mesh)`` for a codec that holds tensor-parallel
+    shards (a codec without them runs whole on every tp rank); raises when
+    the codec's shards do not match the mesh."""
+    shard = getattr(codec, "tp_shard", None)
+    want = (mesh.coords[tp.AXIS], mesh.shape[tp.AXIS])
+    if shard is not None and tuple(shard) != want:
+        raise ValueError(f"the codec holds tp shard {shard}, the mesh gives {want}")
+    return tp.tensor_parallel(mesh) if shard is not None else contextlib.nullcontext()
 
 
 def encode_sp(model, audio: torch.Tensor, mesh, *, axis_name: str = "sp",

@@ -28,6 +28,14 @@ Sequence parallelism: under ``parallel.sp`` the unit fetches its
 3 * dilation halo frames from the neighbour shards (:func:`sp_halos`) and
 hands them to its kernel as JAX's ``lh`` / ``rh``.
 
+Tensor parallelism: a unit that ``parallel.tp.shard_codec`` put onto its
+shard (``tp_shard``: (rank, size)) holds 4C / size hidden units and runs,
+inside ``parallel.tp.tensor_parallel``, its kernel's TP operand mode (the
+depthwise conv and the norm in full, the hidden shard, an fp32 share with no
+residual and no pw2 bias); the shares are summed over the tp group, then the
+pw2 bias and the residual are added once, in fp32, and the sum is rounded
+to the unit's dtype once.
+
 LegacyUnit: snake -> conv k7 at dilation d -> snake -> conv k1, residual
 outside. It holds the weights of one unit of the decoder's legacy tail, which
 runs as one kernel with its plain version beside it
@@ -44,7 +52,7 @@ from ..ops.kernels.conv_unit import (ConvUnitWeights, PreparedWeights, cached_pr
                                      unit_body)
 from ..ops.norms import EPS
 from ..ops.quantized import Int8Linear
-from ..parallel import sp
+from ..parallel import sp, tp
 from ..utils import init as pinit
 
 
@@ -137,6 +145,8 @@ class ConvUnit(nn.Module):
         int8 = isinstance(self.pw1, Int8Linear)
         halos = sp_halos(x, axis=1 if channels_last else 2, dilation=self.dilation,
                          kernel_size=self.dw.kernel_size[0])
+        if getattr(self, "tp_shard", None) is not None:
+            return self._forward_tp(x, channels_last, drop, halos)
         if channels_last and int8:
             # JAX conv_unit_apply's unfused body: elementwise steps in plain
             # PyTorch, pw1 / pw2 as modules (int8_matmul), the exact GRN
@@ -155,6 +165,26 @@ class ConvUnit(nn.Module):
         if rate > 0.0 and generator is not None:
             return x + drop_path(out - x, rate, generator)
         return out
+
+    def _forward_tp(self, x: torch.Tensor, channels_last: bool,
+                    drop: tuple[float, torch.Generator | None], halos: dict) -> torch.Tensor:
+        """The unit's tensor-parallel shard (``parallel.tp``): the replicated
+        operands enter through ``copy_to_tp``, the shares leave through
+        ``reduce_from_tp``."""
+        tp.context("ConvUnit", self.tp_shard)
+        w = self.kernel_weights()
+        rep = tp.copy_to_tp
+        w = w._replace(dw_w=rep(w.dw_w), dw_b=rep(w.dw_b), norm_w=rep(w.norm_w),
+                       norm_b=rep(w.norm_b))
+        halos = {k: rep(v) for k, v in halos.items()}
+        fn = conv_unit if channels_last else conv_unit_ct
+        share = fn(rep(x), w, dilation=self.dilation, partial=True, **halos)
+        b2 = self.pw2.bias.float()
+        y = tp.reduce_from_tp(share) + (b2 if channels_last else b2[:, None])
+        rate, generator = drop
+        if rate > 0.0 and generator is not None:
+            y = drop_path(y, rate, generator)
+        return (x.float() + y).to(x.dtype) if x.dtype != y.dtype else x + y
 
 
 def sp_halos(x: torch.Tensor, *, axis: int, dilation: int = 1, kernel_size: int = 7) -> dict:

@@ -23,6 +23,18 @@ left shard's last K / V window as the kernel's ``prev_k`` / ``prev_v``, the
 globally first shard masks it (``left_edge``), and a shard's length must be
 a window multiple (JAX asserts both). Rotary under SP raises, as JAX asserts.
 
+Tensor parallelism (``parallel.tp``): an Attention that
+``parallel.tp.shard_codec`` split (``tp_shard``: (rank, size), where
+heads % size == 0) holds its heads' rows of q, k and v and their columns of
+the out-projection, runs the kernel on its heads with their columns of the
+stack's position table (the kernel's ``head_offset`` mode), and sums the
+out-projection's shares over the tp group; a split FeedForward
+(ff_inner % size == 0) holds the same rows of both GEGLU halves of ``w1`` and
+their columns of ``w2``. The normalized input and the table enter through
+``copy_to_tp``; the second product of a split pair is an fp32 share (its
+bf16 operands are exact in fp32), the shares are summed in fp32 and rounded
+to the model dtype once, where the single-device product rounds.
+
 Activations are channels-last (B, T, C). In a bf16 model the linears are
 bf16 ``torch.matmul`` products, as in the JAX package, the norms follow
 ``ops.norms``' bf16 rule, and the position-bias table is in bf16.
@@ -40,7 +52,7 @@ from ..ops import conv1d_strided_matmul, geglu, layer_norm, upsample_linear
 from ..ops.attention import dynamic_position_table, rotary_operands
 from ..ops.kernels.local_attention import local_attention
 from ..ops.norms import LAYER_NORM_EPS
-from ..parallel import sp
+from ..parallel import sp, tp
 from ..utils import init as pinit
 from .layers import ChannelNorm
 
@@ -109,11 +121,18 @@ class Attention(nn.Module):
         (B, T, heads, dim_head) output merges them as a view."""
         B, T, _ = x.shape
         tc = self.tc
+        shard = getattr(self, "tp_shard", None)
         h = layer_norm(x, self.norm.weight, self.norm.bias)
+        n_heads, tp_extra = tc.heads, {}
+        if shard is not None:
+            tp.context("Attention", shard)
+            n_heads = tc.heads // shard[1]
+            h, bias_table = tp.copy_to_tp(h), tp.copy_to_tp(bias_table)
+            tp_extra = {"head_offset": shard[0] * n_heads}
         q, k, v = self.qkv(h).chunk(3, dim=-1)
 
         def heads(t):
-            return t.view(B, T, tc.heads, tc.dim_head).permute(0, 2, 1, 3)
+            return t.view(B, T, n_heads, tc.dim_head).permute(0, 2, 1, 3)
 
         n = tc.window_size
         qh, kh, vh = heads(q), heads(k), heads(v)
@@ -127,9 +146,10 @@ class Attention(nn.Module):
             # the left shard's last K / V window, one exchange for both
             (pk, _), (pv, _) = sp.halo_blocks_many([kh, vh], n, 0, axis=2)
             extra = {"prev_k": pk, "prev_v": pv, "left_edge": sp.edge_flags()[0]}
-        out = local_attention(qh, kh, vh, window_size=n, bias_table=bias_table, **extra)
-        out = out.permute(0, 2, 1, 3).reshape(B, T, tc.inner_dim)
-        return self.out(out)
+        out = local_attention(qh, kh, vh, window_size=n, bias_table=bias_table, **extra,
+                              **tp_extra)
+        out = out.permute(0, 2, 1, 3).reshape(B, T, n_heads * tc.dim_head)
+        return self.out(out) if shard is None else _sum_shares(self.out, out, x.dtype)
 
 
 class FeedForward(nn.Module):
@@ -140,8 +160,20 @@ class FeedForward(nn.Module):
         self.w2 = nn.Linear(tc.ff_inner, tc.dim, bias=False, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shard = getattr(self, "tp_shard", None)
         h = layer_norm(x, self.norm.weight, self.norm.bias)
-        return self.w2(geglu(self.w1(h)))
+        if shard is None:
+            return self.w2(geglu(self.w1(h)))
+        tp.context("FeedForward", shard)
+        return _sum_shares(self.w2, geglu(self.w1(tp.copy_to_tp(h))), x.dtype)
+
+
+def _sum_shares(lin: nn.Linear, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A split pair's second product (no bias) as an fp32 share (a bf16
+    model's operands are exact in fp32, so the share is its products' fp32
+    sum, unrounded), summed over the tp group and rounded once to ``dtype``:
+    the single-device bf16 product's rounding point."""
+    return tp.reduce_from_tp(F.linear(h.float(), lin.weight.float())).to(dtype)
 
 
 class Layer(nn.Module):

@@ -11,12 +11,53 @@ port draws the units' masks one after another from one generator: the forward
 order is fixed, so the masks are a function of the generator's seed alone.
 :func:`split` derives child generators from a parent's seed, as
 ``jax.random.split`` derives keys from a key.
+
+A sharded batch (the sharded train step's dp rows and sp time block,
+:func:`sharded_batch`) draws every random tensor at the whole batch's shape
+and keeps its own block (:func:`rand_block`), so each rank's masks and noise
+are those a single device draws for the same rows and frames.
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import numpy as np
 import torch
+
+# (dp index, dp size, sp index, sp size) of the active sharded batch, or None
+_BATCH: list[tuple[int, int, int, int] | None] = [None]
+
+
+@contextmanager
+def sharded_batch(mesh):
+    """Random draws inside this block take this rank's (dp, sp) block of the
+    whole batch's draw."""
+    prev = _BATCH[0]
+    _BATCH[0] = (mesh.coords["dp"], mesh.shape["dp"], mesh.coords["sp"], mesh.shape["sp"])
+    try:
+        yield
+    finally:
+        _BATCH[0] = prev
+
+
+def rand_block(shape: tuple, generator: torch.Generator, device,
+               time_dim: int | None = None) -> torch.Tensor:
+    """``torch.rand(shape)`` from ``generator``; inside :func:`sharded_batch`
+    this rank's block (batch on axis 0, time on ``time_dim``) of the draw at
+    the whole batch's shape."""
+    if _BATCH[0] is None:
+        return torch.rand(shape, generator=generator, device=device)
+    di, dn, si, sn = _BATCH[0]
+    full = list(shape)
+    full[0] *= dn
+    if time_dim is not None:
+        full[time_dim] *= sn
+    u = torch.rand(full, generator=generator, device=device)
+    u = u.narrow(0, di * shape[0], shape[0])
+    if time_dim is not None:
+        u = u.narrow(time_dim, si * shape[time_dim], shape[time_dim])
+    return u
 
 
 def drop_path(delta: torch.Tensor, drop_rate: float,
@@ -28,7 +69,7 @@ def drop_path(delta: torch.Tensor, drop_rate: float,
         return delta
     keep = 1.0 - drop_rate
     shape = (delta.shape[0],) + (1,) * (delta.dim() - 1)
-    u = torch.rand(shape, generator=generator, device=delta.device)
+    u = rand_block(shape, generator, delta.device)
     mask = (u < keep).to(delta.dtype) / keep
     return delta * mask
 

@@ -17,6 +17,8 @@ import math
 
 import torch
 
+from .droppath import rand_block
+
 
 @functools.lru_cache(maxsize=None)
 def _levels(levels: tuple[int, ...], device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -62,8 +64,8 @@ def quantize_ste(z: torch.Tensor, levels: tuple[int, ...], *, noise_rate: float 
     act_z = (torch.tanh(z.float()) + 1.0) / 2.0
     q_act = act_z + (torch.round(act_z * (lv - 1.0)) / (lv - 1.0) - act_z).detach()
     if noise_rate > 0.0 and generator is not None:
-        mask = torch.rand(act_z.shape, generator=generator, device=z.device) <= noise_rate
-        noise = (torch.rand(act_z.shape, generator=generator, device=z.device) - 0.5) / lv
+        mask = rand_block(act_z.shape, generator, z.device, time_dim=1) <= noise_rate
+        noise = (rand_block(act_z.shape, generator, z.device, time_dim=1) - 0.5) / lv
         q_act = torch.where(mask, act_z + noise, q_act)
     q_z = q_act * 2.0 - 1.0
     _, indices, li = quantize(z.detach(), levels)

@@ -37,9 +37,15 @@ LAUNCHES: dict[str, int] = {"first_block": 0, "conv_unit_ct": 0,
                             "conv_unit_stages": 0}
 
 
+# the launches of the tensor-parallel operand modes (``parallel.tp``), also
+# counted in LAUNCHES
+TP_LAUNCHES: dict[str, int] = {"conv_unit_ct": 0, "conv_unit": 0, "local_attention": 0}
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, TP_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 # the activation dtypes of the codec's kernels: an fp32 and a bf16 variant each

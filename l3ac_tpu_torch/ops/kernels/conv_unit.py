@@ -48,6 +48,31 @@ prepared once per weight set (:class:`PreparedBf16`); the plain version
 The two tensor-core kernels take their product weights prepared once per
 weight set (:func:`prepared_weights`).
 
+Widths above ``NARROW_MAX_C``: ``conv_unit_ct`` routes a (B, C, T) unit
+wider than the narrow kernel onto the channels-last kernels (the JAX
+``conv_unit_ct`` has no width limit: its tile budget scales with C,
+``l3ac_tpu/ops/pallas/conv_unit.py:170-177``): x and its halos transposed
+to (B, T, C), ``conv_unit``'s kernel of x's dtype (C % 64 == 0 in fp32,
+C % 8 == 0 in bf16), the result transposed back. It is a route of the
+shape rule (:func:`admits`), counted in ``ROUTES["channels_last"]``
+(``ROUTES["narrow"]`` counts the narrow kernel's launches), not a fallback.
+
+Tensor-parallel operand mode (``partial=True``, ``parallel.tp``): the unit's
+weights hold a rank's shard of the hidden axis, H = 4C / tp units (pw1's
+rows and bias, alpha, GRN's gamma / beta, pw2's columns), and the result is
+the shard's share of the unit's sum, ``W2'_r h_r + W2_r beta_r`` in fp32,
+with no residual and no pw2 bias: the caller sums the shares over the ranks
+and adds the bias and the residual once, a bf16 unit in fp32 with one
+rounding of the sum (JAX's rounding point, ``conv_unit.py:139``). The bias
+is added after the sum, not by rank 0's share, so that its gradient is the
+same on every rank, as every replicated parameter's is. Every kernel takes
+the hidden width as a parameter; a shard's prepared operands are
+zero-padded to a multiple of ``TP_HIDDEN_MULTIPLE`` hidden units (a zero pw1
+row with zero bias, alpha 1, a zero column of W2': exact). The fold stays
+exact once summed: ``fold_grn`` of each shard without b2. The plain
+versions take the same mode; their exact GRN sums its norm over the tp group
+(``ops.norms.grn``). ``K.TP_LAUNCHES`` counts these launches.
+
 GRN fold: the reference's GRN norm is a per-batch scalar ``n = g / (g + eps)``
 with ``g`` the L2 norm of the whole (4C, T) hidden activation, so
 ``1 - n <= 1e-8 / g``. The kernels take ``n = 1`` and fold GRN into pw2, as
@@ -85,6 +110,10 @@ TC_MAX_C = 1024    # conv_unit, tensor-core route: conv_unit_tc.cu's 32 channels
 TC_MULTIPLE = 64   # conv_unit at C % 64 == 0 runs conv_unit_tc.cu, other C conv_unit.cu
 BF16_MULTIPLE = 8  # bf16 conv_unit: conv_unit_tc.cu's bf16 path at every C % 8 == 0
 NARROW_MAX_C = 96  # conv_unit_ct: conv_unit_narrow.cu's 12 n8 tiles of the second product
+TP_HIDDEN_MULTIPLE = 8  # a TP shard's hidden units padded to this (W2' rows of 16 / 32 bytes)
+# conv_unit_ct's launches by kernel: the narrow kernel, or the channels-last
+# kernels above NARROW_MAX_C
+ROUTES: dict[str, int] = {"narrow": 0, "channels_last": 0}
 
 
 class ConvUnitWeights(NamedTuple):
@@ -122,14 +151,15 @@ def _t(h: torch.Tensor | None, channel_dim: int) -> torch.Tensor | None:
 
 def unit_body(x: torch.Tensor, w: ConvUnitWeights, pw1: Callable, pw2: Callable, *,
               channel_dim: int, dilation: int = 1, lh: torch.Tensor | None = None,
-              rh: torch.Tensor | None = None) -> torch.Tensor:
+              rh: torch.Tensor | None = None, partial: bool = False) -> torch.Tensor:
     """The unit's step chain without the residual: depthwise conv ->
     ChannelNorm -> ``pw1`` -> snake or exact GELU -> exact GRN -> ``pw2``, on
     x (B, C, T) (``channel_dim`` 1) or (B, T, C) (2). The two products are
     callables over that layout; of ``w`` only the other weights are read.
     ``lh`` / ``rh``: SP halo blocks in x's layout, 3 * dilation frames, in
     place of the conv's zero padding (GRN's norm is then summed over the sp
-    group by ``ops.norms.grn``)."""
+    group by ``ops.norms.grn``). ``partial``: ``w`` holds a tensor-parallel
+    shard of the hidden axis, and GRN's norm is summed over the tp group."""
     xt = x if channel_dim == 1 else x.transpose(1, 2)
     y = _depthwise(xt, w.dw_w, w.dw_b, dilation, _t(lh, channel_dim), _t(rh, channel_dim))
     y = y if channel_dim == 1 else y.transpose(1, 2)
@@ -140,32 +170,49 @@ def unit_body(x: torch.Tensor, w: ConvUnitWeights, pw1: Callable, pw2: Callable,
         y = snake(y, w.alpha[:, None] if channel_dim == 1 else w.alpha)
     else:
         y = gelu(y)
-    return pw2(grn(y, w.grn_gamma, w.grn_beta, dim=channel_dim))
+    return pw2(grn(y, w.grn_gamma, w.grn_beta, dim=channel_dim, hidden_split=partial))
 
 
 def conv_unit_plain(x: torch.Tensor, w: ConvUnitWeights, *, channel_dim: int,
                     dilation: int = 1, lh: torch.Tensor | None = None,
-                    rh: torch.Tensor | None = None) -> torch.Tensor:
+                    rh: torch.Tensor | None = None, partial: bool = False) -> torch.Tensor:
     """The residual unit in plain PyTorch, with the exact GRN. ``channel_dim``
     is 1 for (B, C, T) and 2 for (B, T, C); ``lh`` / ``rh`` as
-    :func:`unit_body` takes them."""
+    :func:`unit_body` takes them. ``partial``: the tensor-parallel mode (the
+    shard's share: no residual, no pw2 bias)."""
     xt = x if channel_dim == 1 else x.transpose(1, 2)
+    b2 = 0.0 if partial else w.pw2_b[:, None]
     y = unit_body(xt, w,
                   lambda h: torch.einsum("oc,bct->bot", w.pw1_w, h) + w.pw1_b[:, None],
-                  lambda h: torch.einsum("oc,bct->bot", w.pw2_w, h) + w.pw2_b[:, None],
+                  lambda h: torch.einsum("oc,bct->bot", w.pw2_w, h) + b2,
                   channel_dim=1, dilation=dilation, lh=_t(lh, channel_dim),
-                  rh=_t(rh, channel_dim))
-    out = xt + y
+                  rh=_t(rh, channel_dim), partial=partial)
+    out = y if partial else xt + y
     return out if channel_dim == 1 else out.transpose(1, 2)
 
 
-def fold_grn(w: ConvUnitWeights) -> tuple[torch.Tensor, torch.Tensor]:
+def fold_grn(w: ConvUnitWeights, with_bias: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """(W2' (4C, C), b2' (C,)): pw2 with GRN (n = 1) folded in, fp32 (from
-    bf16 parameters too)."""
+    bf16 parameters too). ``with_bias=False``: b2' without pw2's bias, a
+    tensor-parallel shard's share ``W2_r beta_r``."""
     w2t = w.pw2_w.float().t()                                  # (4C, C)
     w2f = (w2t * (1.0 + w.grn_gamma.float())[:, None]).contiguous()
-    b2f = (w.pw2_b.float() + w.grn_beta.float() @ w2t).contiguous()
+    b2f = w.grn_beta.float() @ w2t
+    b2f = (w.pw2_b.float() + b2f if with_bias else b2f).contiguous()
     return w2f, b2f
+
+
+def pad_hidden(w: ConvUnitWeights, multiple: int = TP_HIDDEN_MULTIPLE) -> ConvUnitWeights:
+    """``w`` with its hidden axis zero-padded to a multiple of ``multiple``
+    units (pw1 rows and bias 0, alpha 1, gamma and beta 0, pw2 columns 0),
+    which leaves the unit's function as it is; ``w`` itself where it fits."""
+    pad = (-w.pw1_w.shape[0]) % multiple
+    if not pad:
+        return w
+    z = lambda v, fill=0.0: None if v is None else F.pad(v, (0, pad), value=fill)
+    return w._replace(pw1_w=F.pad(w.pw1_w, (0, 0, 0, pad)), pw1_b=z(w.pw1_b),
+                      alpha=z(w.alpha, 1.0), grn_gamma=z(w.grn_gamma),
+                      grn_beta=z(w.grn_beta), pw2_w=F.pad(w.pw2_w, (0, pad)))
 
 
 class PreparedBf16(NamedTuple):
@@ -184,11 +231,14 @@ class PreparedBf16(NamedTuple):
     narrow: torch.Tensor | None = None  # uint8, narrow_pack of the fields above
 
 
-def prepare_bf16(w: ConvUnitWeights) -> PreparedBf16:
-    """:class:`PreparedBf16` from a bf16 unit's weights."""
+def prepare_bf16(w: ConvUnitWeights, partial: bool = False) -> PreparedBf16:
+    """:class:`PreparedBf16` from a bf16 unit's weights; ``partial``: of a
+    tensor-parallel shard (:func:`pad_hidden`, b2' without pw2's bias)."""
     f = lambda t: None if t is None else t.detach().float().contiguous()
     with torch.no_grad():
-        w2f, b2f = fold_grn(w)
+        if partial:
+            w = pad_hidden(w)
+        w2f, b2f = fold_grn(w, with_bias=not partial)
         p = PreparedBf16(f(w.dw_w[:, 0, :]), f(w.dw_b), f(w.norm_w), f(w.norm_b),
                          w.pw1_w.detach().bfloat16().contiguous(), f(w.pw1_b), f(w.alpha),
                          w2f.t().contiguous().bfloat16(), b2f)
@@ -198,15 +248,16 @@ def prepare_bf16(w: ConvUnitWeights) -> PreparedBf16:
 NARROW_STEP = 32  # conv_unit_narrow_bf16.cu: hidden units a step (kStep)
 
 
-def narrow_shape(C: int) -> tuple[int, int]:
-    """(kP, steps) of the narrow bf16 kernel at C channels: k16 steps of pw1
-    (n8 pairs of pw2), and hidden steps of NARROW_STEP units."""
-    return -(-C // 16), -(-4 * C // NARROW_STEP)
+def narrow_shape(C: int, H: int | None = None) -> tuple[int, int]:
+    """(kP, steps) of the narrow bf16 kernel at C channels and H hidden
+    units (default 4C): k16 steps of pw1 (n8 pairs of pw2), and hidden steps
+    of NARROW_STEP units."""
+    return -(-C // 16), -(-(4 * C if H is None else H) // NARROW_STEP)
 
 
-def narrow_packed_bytes(C: int, K: int) -> int:
+def narrow_packed_bytes(C: int, K: int, H: int | None = None) -> int:
     """The bytes of :func:`narrow_pack`'s buffer (the kernel's ``Packed``)."""
-    kP, steps = narrow_shape(C)
+    kP, steps = narrow_shape(C, H)
     return 2 * 2 * (steps * NARROW_STEP) * (16 * kP) + 16 * steps * NARROW_STEP + \
         4 * (K + 4) * 16 * kP
 
@@ -228,19 +279,20 @@ def narrow_pack(p: PreparedBf16) -> torch.Tensor:
     - fp32 (K + 4, 16 kP): the depthwise taps (K, C) transposed, then dw_b,
       norm_w, norm_b (zero without norm) and b2', zero past C."""
     C, K = p.dw.shape
-    kP, steps = narrow_shape(C)
+    Hu = p.w1.shape[0]                                          # hidden units: 4C or a shard
+    kP, steps = narrow_shape(C, Hu)
     Cp, H = 16 * kP, NARROW_STEP * steps
     w1 = p.w1.new_zeros(H, Cp)
-    w1[:4 * C, :C] = p.w1
+    w1[:Hu, :C] = p.w1
     f1 = w1.view(2 * steps, 2, 8, kP, 2, 4, 2).permute(0, 3, 2, 5, 1, 4, 6)
     w2 = p.w2.new_zeros(Cp, H)
-    w2[:C, :4 * C] = p.w2
+    w2[:C, :Hu] = p.w2
     f2 = w2.view(kP, 2, 8, 2 * steps, 2, 4, 2).permute(3, 0, 2, 5, 1, 4, 6)
     alpha = p.b1.new_ones(H)
     if p.alpha is not None:
-        alpha[:4 * C] = p.alpha
+        alpha[:Hu] = p.alpha
     d = alpha + EPS
-    hv = torch.stack([F.pad(p.b1, (0, H - 4 * C)), alpha, d, 1.0 / d], 1)
+    hv = torch.stack([F.pad(p.b1, (0, H - Hu)), alpha, d, 1.0 / d], 1)
     cv = p.b1.new_zeros(K + 4, Cp)
     cv[:K, :C] = p.dw.t()
     for i, v in enumerate((p.dw_b, p.norm_w, p.norm_b, p.b2)):
@@ -253,12 +305,14 @@ def narrow_pack(p: PreparedBf16) -> torch.Tensor:
 
 def conv_unit_plain_bf16(x: torch.Tensor, w: ConvUnitWeights | PreparedBf16, *,
                          channel_dim: int, dilation: int = 1, lh: torch.Tensor | None = None,
-                         rh: torch.Tensor | None = None) -> torch.Tensor:
+                         rh: torch.Tensor | None = None, partial: bool = False) -> torch.Tensor:
     """The bf16 kernels' function in plain PyTorch, rounding where they do:
     fp32 depthwise conv, norm and activation, bf16 product operands with
     fp32 sums, GRN folded, the residual added in fp32 and rounded once.
-    ``lh`` / ``rh`` as :func:`unit_body` takes them."""
-    p = w if isinstance(w, PreparedBf16) else prepare_bf16(w)
+    ``lh`` / ``rh`` as :func:`unit_body` takes them. ``partial``: the
+    tensor-parallel mode, the shard's fp32 share (unrounded; no residual, no
+    pw2 bias) from a shard's weights (or their ``prepare_bf16(w, True)``)."""
+    p = w if isinstance(w, PreparedBf16) else prepare_bf16(w, partial)
     xt = (x if channel_dim == 1 else x.transpose(1, 2)).float()
     lh, rh = (None if h is None else _t(h, channel_dim).float() for h in (lh, rh))
     y = _depthwise(xt, p.dw[:, None, :], p.dw_b, dilation, lh, rh)
@@ -267,28 +321,49 @@ def conv_unit_plain_bf16(x: torch.Tensor, w: ConvUnitWeights | PreparedBf16, *,
     h = torch.einsum("oc,bct->bot", p.w1.float(), y.bfloat16().float()) + p.b1[:, None]
     h = snake(h, p.alpha[:, None]) if p.alpha is not None else gelu(h)
     y = torch.einsum("oc,bct->bot", p.w2.float(), h.bfloat16().float()) + p.b2[:, None]
+    if partial:
+        return y if channel_dim == 1 else y.transpose(1, 2)
     out = (xt + y).to(x.dtype)
     return out if channel_dim == 1 else out.transpose(1, 2)
 
 
 class PreparedWeights(NamedTuple):
-    """The tensor-core kernels' product operands, fp32 on the weights' device."""
+    """The tensor-core kernels' product operands, fp32 on the weights'
+    device. A tensor-parallel shard's (``partial``) are of the hidden axis
+    padded by :func:`pad_hidden`, and carry the padded pw1 bias and alpha,
+    which the kernels then take in place of the unit's own."""
     b2: torch.Tensor      # (C,) b2' (fold_grn)
     w1_hi: torch.Tensor   # (4C, C) pw1 split into TF32 (split_tf32)
     w1_lo: torch.Tensor
     w2_hi: torch.Tensor   # (C, 4C) W2': pw2 with GRN folded (fold_grn, transposed), split
     w2_lo: torch.Tensor
+    b1: torch.Tensor | None = None     # (H,) a shard's padded pw1 bias; None: the unit's
+    alpha: torch.Tensor | None = None  # (H,) a shard's padded snake alpha (None under GELU)
+
+    def hidden_vectors(self, w: ConvUnitWeights) -> tuple:
+        """(b1, alpha) as the kernels take them: a shard's padded ones, else
+        the unit's own."""
+        return (w.pw1_b, w.alpha) if self.b1 is None else (self.b1, self.alpha)
 
 
-def prepare_weights(w: ConvUnitWeights) -> PreparedWeights | PreparedBf16:
+def prepare_weights(w: ConvUnitWeights, partial: bool = False
+                    ) -> PreparedWeights | PreparedBf16:
     """W1 and W2' in K-major (nn.Linear) layout, split into TF32 hi / lo, and
     b2'. pw1 is K-major already; W2' is ``fold_grn``'s (4C, C) result
-    transposed. A bf16 unit's operands are :func:`prepare_bf16`'s."""
+    transposed. A bf16 unit's operands are :func:`prepare_bf16`'s.
+    ``partial``: a tensor-parallel shard's (:func:`pad_hidden`, b2' without
+    pw2's bias, the padded b1 and alpha kept)."""
     if w.pw1_w.dtype == torch.bfloat16:
-        return prepare_bf16(w)
+        return prepare_bf16(w, partial)
     with torch.no_grad():
-        w2f, b2f = fold_grn(w)
-        return PreparedWeights(b2f, *split_tf32(w.pw1_w), *split_tf32(w2f.t().contiguous()))
+        if partial:
+            w = pad_hidden(w)
+        w2f, b2f = fold_grn(w, with_bias=not partial)
+        p = PreparedWeights(b2f, *split_tf32(w.pw1_w), *split_tf32(w2f.t().contiguous()))
+        if not partial:
+            return p
+        f = lambda t: None if t is None else t.detach().float().contiguous()
+        return p._replace(b1=f(w.pw1_b), alpha=f(w.alpha))
 
 
 # id(owner) -> ((data_ptr, _version) of each source, weak references to the
@@ -298,20 +373,21 @@ _PREPARED: dict[int, tuple] = {}
 
 
 def cached_prepare(owner: torch.Tensor, src: tuple[torch.Tensor, ...],
-                   build: Callable[[], PreparedWeights], store: dict | None = None
-                   ) -> PreparedWeights:
+                   build: Callable[[], PreparedWeights], store: dict | None = None,
+                   mode: object = None) -> PreparedWeights:
     """``build()``, cached under ``owner`` in ``store`` (default: the
     prepared weights' own dict) and rebuilt whenever a tensor of
     ``src`` is another object or has changed in place (``load_state_dict``,
     ``mul_``, ...: each bumps its ``_version``) or has another dtype (a model
-    moved with ``.to(torch.bfloat16)``), so no stale weight is used.
+    moved with ``.to(torch.bfloat16)``), or ``mode`` (what ``build`` makes of
+    the same sources) differs, so no stale weight is used.
     A source that is an inference tensor has no version counter, and its
     in-place changes cannot be seen: such a set is built on every call and
     never cached."""
     if any(t.is_inference() for t in src):
         return build()
     store = _PREPARED if store is None else store
-    key = tuple((t.data_ptr(), t._version, t.dtype) for t in src)
+    key = (mode, *((t.data_ptr(), t._version, t.dtype) for t in src))
     slot = id(owner)
     hit = store.get(slot)
     if hit is not None and hit[0] == key and all(r() is t for r, t in zip(hit[1], src)):
@@ -323,22 +399,32 @@ def cached_prepare(owner: torch.Tensor, src: tuple[torch.Tensor, ...],
     return prep
 
 
-def prepared_weights(w: ConvUnitWeights) -> PreparedWeights | PreparedBf16:
+def prepared_weights(w: ConvUnitWeights, partial: bool = False
+                     ) -> PreparedWeights | PreparedBf16:
     """:func:`prepare_weights`, cached on its sources by
     :func:`cached_prepare`: pw1_w, pw2_w, pw2_b, grn_gamma, grn_beta, and for
-    a bf16 unit every other weight too (:class:`PreparedBf16` holds them)."""
+    a bf16 unit or a TP shard (``partial``) every other weight too."""
     src = ((w.pw1_w, w.pw2_w, w.pw2_b, w.grn_gamma, w.grn_beta)
-           if w.pw1_w.dtype != torch.bfloat16 else tuple(t for t in w if t is not None))
-    return cached_prepare(w.pw1_w, src, lambda: prepare_weights(w))
+           if w.pw1_w.dtype != torch.bfloat16 and not partial
+           else tuple(t for t in w if t is not None))
+    return cached_prepare(w.pw1_w, src, lambda: prepare_weights(w, partial), mode=partial)
 
 
-def admits(name: str, C: int, dtype: torch.dtype = torch.float32) -> str | None:
+def admits(name: str, C: int, dtype: torch.dtype = torch.float32,
+           partial: bool = False) -> str | None:
     """Why the CUDA route of ``name`` (``"conv_unit"`` or ``"conv_unit_ct"``)
-    does not take width C in ``dtype``, or None when it does. The launch
-    raises with this reason."""
+    does not take width C in ``dtype`` (``partial``: in the tensor-parallel
+    operand mode), or None when it does. The launch raises with this reason.
+    ``conv_unit_ct`` above ``NARROW_MAX_C`` takes ``conv_unit``'s rule (the
+    channels-last route)."""
     if name == "conv_unit_ct":
-        if not 1 <= C <= NARROW_MAX_C:
-            return f"conv_unit_ct: C = {C} outside 1..{NARROW_MAX_C}"
+        if 1 <= C <= NARROW_MAX_C:
+            return None
+        mult = BF16_MULTIPLE if dtype == torch.bfloat16 else TC_MULTIPLE
+        if C < 1 or C % mult or C > TC_MAX_C:
+            return (f"conv_unit_ct: C = {C} outside 1..{NARROW_MAX_C} (the narrow kernel), and "
+                    f"the channels-last route above it takes {dtype} C a multiple of {mult} "
+                    f"up to {TC_MAX_C}")
         return None
     if C % TC_MULTIPLE == 0 or (dtype == torch.bfloat16 and C % BF16_MULTIPLE == 0):
         return None if 1 <= C <= TC_MAX_C else \
@@ -346,15 +432,21 @@ def admits(name: str, C: int, dtype: torch.dtype = torch.float32) -> str | None:
     if dtype == torch.bfloat16:
         return (f"conv_unit: bf16 runs on the tensor-core route only, C a multiple of "
                 f"{BF16_MULTIPLE}; got C = {C}")
+    if partial:
+        return (f"conv_unit: the tensor-parallel mode runs on the tensor-core route, C a "
+                f"multiple of {TC_MULTIPLE}; got C = {C} (SIMT route)")
     return None if 1 <= C <= MAX_C else f"conv_unit: C = {C} outside 1..{MAX_C} (SIMT route)"
 
 
 def _check_weights(w: ConvUnitWeights, C: int, name: str, max_c: int = MAX_C) -> int:
+    """The kernel size; raises on shapes that do not match C (the products'
+    where ``w`` holds them)."""
     ksz = w.dw_w.shape[-1]
     if not 1 <= C <= max_c:
         raise ValueError(f"{name}: C = {C} outside 1..{max_c}")
-    if w.dw_w.shape != (C, 1, ksz) or ksz % 2 == 0 or \
-            w.pw1_w.shape != (4 * C, C) or w.pw2_w.shape != (C, 4 * C):
+    H = w.pw1_b.shape[0]
+    if w.dw_w.shape != (C, 1, ksz) or ksz % 2 == 0 or (w.pw1_w is not None and (
+            w.pw1_w.shape != (H, C) or w.pw2_w.shape != (C, H))):
         raise ValueError(f"{name}: weight shapes do not match C = {C}")
     if (w.norm_w is None) != (w.norm_b is None):
         raise ValueError(f"{name}: norm weight and bias go together")
@@ -373,6 +465,8 @@ def conv_unit_simt(x: torch.Tensor, w: ConvUnitWeights, dilation: int = 1, *,
     B = x.shape[0]
     C, T = (x.shape[2], x.shape[1]) if channels_last else (x.shape[1], x.shape[2])
     ksz = _check_weights(w, C, name)
+    if w.pw1_w.shape[0] != 4 * C:
+        raise ValueError(f"{name}: the SIMT kernel takes 4C hidden units")
     dw = w.dw_w[:, 0, :].contiguous()                          # (C, K)
     w1t = w.pw1_w.t().contiguous()                             # (C, 4C)
     w2f, b2f = fold_grn(w)
@@ -393,68 +487,81 @@ def conv_unit_simt(x: torch.Tensor, w: ConvUnitWeights, dilation: int = 1, *,
     return out
 
 
-_TC_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_TC_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
-def _launch_tc(x: torch.Tensor, w: ConvUnitWeights, dilation: int) -> torch.Tensor:
-    """``csrc/conv_unit_tc.cu`` on (B, T, C), C a multiple of TC_MULTIPLE."""
+def _launch_tc(x: torch.Tensor, w: ConvUnitWeights, dilation: int, *,
+               p: PreparedWeights, partial: bool = False) -> torch.Tensor:
+    """``csrc/conv_unit_tc.cu`` on (B, T, C), C a multiple of TC_MULTIPLE,
+    the products from ``p``; ``partial``: the TP mode, the shard's fp32
+    share."""
     B, T, C = x.shape
     ksz = _check_weights(w, C, "conv_unit", TC_MAX_C)
-    p = prepared_weights(w)
+    H = p.w1_hi.shape[0]
+    if p.w1_hi.shape != (H, C) or p.w2_hi.shape != (C, H) or (H != 4 * C and not partial):
+        raise ValueError(f"conv_unit: prepared weight shapes do not match C = {C}")
+    b1, alpha = p.hidden_vectors(w)
     dw = w.dw_w[:, 0, :]                                       # (C, K), a view
-    ops = {"x": x, "dw": dw, "dw_b": w.dw_b, "norm_w": w.norm_w, "norm_b": w.norm_b,
-           "pw1_b": w.pw1_b, "alpha": w.alpha, **p._asdict()}
+    ops = {**p._asdict(), "x": x, "dw": dw, "dw_b": w.dw_b, "norm_w": w.norm_w,
+           "norm_b": w.norm_b, "pw1_b": b1, "alpha": alpha}
     K.check_cuda(ops, x.device)
     out = torch.empty_like(x)
     a = torch.empty(B * T, C, device=x.device)
-    h = torch.empty(B * T, 4 * C, device=x.device)
+    h = torch.empty(B * T, H, device=x.device)
     fn = _build.function("l3ac_conv_unit_tc", _TC_ARGTYPES)
     err = fn(x.data_ptr(), out.data_ptr(), a.data_ptr(), h.data_ptr(), dw.data_ptr(),
              w.dw_b.data_ptr(), _build.ptr(w.norm_w), _build.ptr(w.norm_b),
-             p.w1_hi.data_ptr(), p.w1_lo.data_ptr(), w.pw1_b.data_ptr(), _build.ptr(w.alpha),
+             p.w1_hi.data_ptr(), p.w1_lo.data_ptr(), b1.data_ptr(), _build.ptr(alpha),
              p.w2_hi.data_ptr(), p.w2_lo.data_ptr(), p.b2.data_ptr(), B, T, C, ksz, dilation,
-             _build.stream_ptr())
+             H, int(partial), _build.stream_ptr())
     _build.check(err, "conv_unit")
     return out
 
 
-_NARROW_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_NARROW_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def _launch_narrow(x: torch.Tensor, w: ConvUnitWeights, p: PreparedWeights,
-                   dilation: int) -> torch.Tensor:
+                   dilation: int, partial: bool = False) -> torch.Tensor:
     """``csrc/conv_unit_narrow.cu`` on (B, C, T), C <= NARROW_MAX_C; the
-    products from ``p``, the other weights from ``w``."""
+    products from ``p``, the other weights from ``w`` (a TP shard's padded
+    b1 and alpha from ``p``); ``partial``: the TP mode."""
     B, C, T = x.shape
     ksz = w.dw_w.shape[-1]
+    H = p.w1_hi.shape[0]
+    b1, alpha = p.hidden_vectors(w)
     if not 1 <= C <= NARROW_MAX_C:
         raise ValueError(f"conv_unit_ct: C = {C} outside 1..{NARROW_MAX_C}")
-    if w.dw_w.shape != (C, 1, ksz) or ksz % 2 == 0 or w.pw1_b.shape != (4 * C,) or \
-            p.w1_hi.shape != (4 * C, C) or p.w2_hi.shape != (C, 4 * C):
+    if w.dw_w.shape != (C, 1, ksz) or ksz % 2 == 0 or b1.shape != (H,) or \
+            p.w1_hi.shape != (H, C) or p.w2_hi.shape != (C, H) or (H != 4 * C and not partial):
         raise ValueError(f"conv_unit_ct: weight shapes do not match C = {C}")
     if (w.norm_w is None) != (w.norm_b is None):
         raise ValueError("conv_unit_ct: norm weight and bias go together")
     dw = w.dw_w[:, 0, :]                                       # (C, K), a view
-    ops = {"x": x, "dw": dw, "dw_b": w.dw_b, "norm_w": w.norm_w, "norm_b": w.norm_b,
-           "pw1_b": w.pw1_b, "alpha": w.alpha, **p._asdict()}
+    ops = {**p._asdict(), "x": x, "dw": dw, "dw_b": w.dw_b, "norm_w": w.norm_w,
+           "norm_b": w.norm_b, "pw1_b": b1, "alpha": alpha}
     K.check_cuda(ops, x.device)
     out = torch.empty_like(x)
     fn = _build.function("l3ac_conv_unit_narrow", _NARROW_ARGTYPES)
     err = fn(x.data_ptr(), out.data_ptr(), dw.data_ptr(), w.dw_b.data_ptr(),
              _build.ptr(w.norm_w), _build.ptr(w.norm_b), p.w1_hi.data_ptr(), p.w1_lo.data_ptr(),
-             w.pw1_b.data_ptr(), _build.ptr(w.alpha), p.w2_hi.data_ptr(), p.w2_lo.data_ptr(),
-             p.b2.data_ptr(), B, C, T, ksz, dilation, _build.stream_ptr())
+             b1.data_ptr(), _build.ptr(alpha), p.w2_hi.data_ptr(), p.w2_lo.data_ptr(),
+             p.b2.data_ptr(), B, C, T, ksz, dilation, H, int(partial), _build.stream_ptr())
     _build.check(err, "conv_unit_ct")
     return out
 
 
-_TC_BF16_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_TC_BF16_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 +
+                     [ctypes.c_void_p, ctypes.c_void_p])
 
 
-def _check_bf16(x: torch.Tensor, p: PreparedBf16, C: int, name: str) -> int:
+def _check_bf16(x: torch.Tensor, p: PreparedBf16, C: int, name: str,
+                partial: bool = False) -> int:
     ksz = p.dw.shape[-1]
-    if p.dw.shape != (C, ksz) or ksz % 2 == 0 or p.w1.shape != (4 * C, C) or \
-            p.w2.shape != (C, 4 * C) or p.b1.shape != (4 * C,) or p.b2.shape != (C,):
+    H = p.w1.shape[0]
+    if p.dw.shape != (C, ksz) or ksz % 2 == 0 or p.w1.shape != (H, C) or \
+            p.w2.shape != (C, H) or p.b1.shape != (H,) or p.b2.shape != (C,) or \
+            (H != 4 * C and not partial):
         raise ValueError(f"{name}: bf16 weight shapes do not match C = {C}")
     if (p.norm_w is None) != (p.norm_b is None):
         raise ValueError(f"{name}: norm weight and bias go together")
@@ -464,30 +571,36 @@ def _check_bf16(x: torch.Tensor, p: PreparedBf16, C: int, name: str) -> int:
     return ksz
 
 
-_NARROW_BF16_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_NARROW_BF16_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 +
+                         [ctypes.c_void_p, ctypes.c_void_p])
 
 
-def call_narrow_bf16(fn: Callable, x: torch.Tensor, out: torch.Tensor, p: PreparedBf16,
-                     dilation: int) -> int:
+def call_narrow_bf16(fn: Callable, x: torch.Tensor, out: torch.Tensor | None, p: PreparedBf16,
+                     dilation: int, part: torch.Tensor | None = None) -> int:
     """``fn`` (``l3ac_conv_unit_narrow_bf16`` or a variant of it) on x, out
-    (B, C, T) with p's narrow buffer; returns its CUDA error code."""
+    (B, C, T) with p's narrow buffer (``part``: the TP mode's fp32 output,
+    then ``out`` is unused); returns its CUDA error code."""
     B, C, T = x.shape
-    return fn(x.data_ptr(), out.data_ptr(), p.narrow.data_ptr(), B, C, T, p.dw.shape[-1],
-              dilation, int(p.norm_w is not None), int(p.alpha is not None), _build.stream_ptr())
+    return fn(x.data_ptr(), _build.ptr(out), p.narrow.data_ptr(), B, C, T, p.dw.shape[-1],
+              dilation, int(p.norm_w is not None), int(p.alpha is not None), p.w1.shape[0],
+              _build.ptr(part), _build.stream_ptr())
 
 
 def _launch_bf16(x: torch.Tensor, p: PreparedBf16, dilation: int, *,
-                 channels_last: bool) -> torch.Tensor:
+                 channels_last: bool, partial: bool = False) -> torch.Tensor:
     """The bf16 kernels: ``csrc/conv_unit_narrow_bf16.cu`` on (B, C, T), the
-    bf16 path of ``csrc/conv_unit_tc.cu`` on (B, T, C)."""
+    bf16 path of ``csrc/conv_unit_tc.cu`` on (B, T, C); ``partial``: the TP
+    mode, an fp32 result."""
     name = "conv_unit" if channels_last else "conv_unit_ct"
     B = x.shape[0]
     C, T = (x.shape[2], x.shape[1]) if channels_last else (x.shape[1], x.shape[2])
-    why = admits(name, C, torch.bfloat16)
+    why = admits(name, C, torch.bfloat16, partial)
     if why is not None:
         raise ValueError(why)
-    ksz = _check_bf16(x, p, C, name)
-    out = torch.empty_like(x)
+    ksz = _check_bf16(x, p, C, name, partial)
+    H = p.w1.shape[0]
+    out = torch.empty(x.shape, device=x.device, dtype=torch.float32 if partial else x.dtype)
+    part = out if partial else None
     if channels_last:
         vec = (p.dw.data_ptr(), p.dw_b.data_ptr(), _build.ptr(p.norm_w), _build.ptr(p.norm_b),
                p.w1.data_ptr(), p.b1.data_ptr(), _build.ptr(p.alpha), p.w2.data_ptr(),
@@ -496,39 +609,42 @@ def _launch_bf16(x: torch.Tensor, p: PreparedBf16, dilation: int, *,
             raise ValueError("conv_unit: bf16 x must be 16-byte aligned")
         M = B * T
         a = torch.empty(M, C, device=x.device, dtype=torch.bfloat16)
-        h = torch.empty(M, 4 * C, device=x.device, dtype=torch.bfloat16)
-        r1 = gemm_sm90.route_for(M, 4 * C, C, int8=False, a_ptr=a.data_ptr(),
+        h = torch.empty(M, H, device=x.device, dtype=torch.bfloat16)
+        r1 = gemm_sm90.route_for(M, H, C, int8=False, a_ptr=a.data_ptr(),
                                  b_ptr=p.w1.data_ptr())
-        r2 = gemm_sm90.route_for(M, C, 4 * C, int8=False, a_ptr=h.data_ptr(),
+        r2 = gemm_sm90.route_for(M, C, H, int8=False, a_ptr=h.data_ptr(),
                                  b_ptr=p.w2.data_ptr())
         # the maps stay referenced until the launch has copied them
         maps = [gemm_sm90.weight_map(w) if r == "tma" else None
                 for w, r in ((p.w1, r1), (p.w2, r2))]
         fn = _build.function("l3ac_conv_unit_tc_bf16", _TC_BF16_ARGTYPES)
-        err = fn(x.data_ptr(), out.data_ptr(), a.data_ptr(), h.data_ptr(), *vec[:5],
-                 gemm_sm90.map_ptr(maps[0]), *vec[5:8], gemm_sm90.map_ptr(maps[1]), vec[8],
-                 B, T, C, ksz, dilation, gemm_sm90.ROUTE_CODE[r1], gemm_sm90.ROUTE_CODE[r2],
-                 _build.stream_ptr())
+        err = fn(x.data_ptr(), None if partial else out.data_ptr(), a.data_ptr(), h.data_ptr(),
+                 *vec[:5], gemm_sm90.map_ptr(maps[0]), *vec[5:8], gemm_sm90.map_ptr(maps[1]),
+                 vec[8], B, T, C, ksz, dilation, gemm_sm90.ROUTE_CODE[r1],
+                 gemm_sm90.ROUTE_CODE[r2], H, _build.ptr(part), _build.stream_ptr())
         _build.check(err, name)
         gemm_sm90.ROUTES[r1] += 1
         gemm_sm90.ROUTES[r2] += 1
         return out
     else:
-        if p.narrow is None or p.narrow.shape != (narrow_packed_bytes(C, ksz),):
+        if p.narrow is None or p.narrow.shape != (narrow_packed_bytes(C, ksz, H),):
             raise ValueError(f"{name}: the prepared narrow buffer does not match C = {C}, "
-                             f"K = {ksz}")
+                             f"K = {ksz}, H = {H}")
         K.check_cuda({"narrow": p.narrow}, x.device, dtype=torch.uint8)
         err = call_narrow_bf16(_build.function("l3ac_conv_unit_narrow_bf16",
-                                               _NARROW_BF16_ARGTYPES), x, out, p, dilation)
+                                               _NARROW_BF16_ARGTYPES),
+                               x, None if partial else out, p, dilation, part)
     _build.check(err, name)
     return out
 
 
-def _plain(channel_dim: int, dilation: int) -> Callable:
-    """The fp32 plain version over the flattened inputs (x, *ConvUnitWeights):
-    what a training backward differentiates (``autograd.call``)."""
-    return lambda x, *ws: conv_unit_plain(x, ConvUnitWeights(*ws), channel_dim=channel_dim,
-                                          dilation=dilation)
+def _plain(channel_dim: int, dilation: int, partial: bool) -> Callable:
+    """The fp32 plain version over the flattened inputs (x, lh, rh,
+    *ConvUnitWeights): what a training backward differentiates
+    (``autograd.call``), with a gradient for the halo blocks too."""
+    return lambda x, lh, rh, *ws: conv_unit_plain(
+        x, ConvUnitWeights(*ws), channel_dim=channel_dim, dilation=dilation, lh=lh, rh=rh,
+        partial=partial)
 
 
 def _check_trainable(x: torch.Tensor, w: ConvUnitWeights, name: str) -> None:
@@ -537,71 +653,108 @@ def _check_trainable(x: torch.Tensor, w: ConvUnitWeights, name: str) -> None:
                         "no int8 model); run them under torch.inference_mode()")
 
 
+def _count(name: str, partial: bool) -> None:
+    K.LAUNCHES[name] += 1
+    if partial:
+        K.TP_LAUNCHES[name] += 1
+
+
 def conv_unit_ct(x: torch.Tensor, w: ConvUnitWeights, *, dilation: int = 1,
                  prepared: Callable[[], PreparedWeights | PreparedBf16] | None = None,
-                 lh: torch.Tensor | None = None, rh: torch.Tensor | None = None
-                 ) -> torch.Tensor:
+                 lh: torch.Tensor | None = None, rh: torch.Tensor | None = None,
+                 partial: bool = False) -> torch.Tensor:
     """Residual ConvUnit on (B, C, T), fp32 or bf16. On CUDA the narrow
-    tensor-core kernel of x's dtype at C <= NARROW_MAX_C (raises above), its
+    tensor-core kernel of x's dtype at C <= NARROW_MAX_C, above it the
+    channels-last kernels on the transposed x (:func:`admits`), their
     operands from ``prepared()`` when given (then ``w`` may leave pw1_w /
     pw2_w out), else from :func:`prepared_weights`; under autograd through
     ``autograd.call`` (the backward differentiates the plain version on
-    ``w``, which then holds the dense weights). Plain on the CPU, from
-    ``w``'s dense weights. ``lh`` / ``rh``: JAX's SP halo blocks (B, C,
-    3 * dilation), zeros where missing; the kernel runs on the staged
-    ``[lh | x | rh]``."""
+    ``w``, which then holds the dense weights, and on the halos). Plain on
+    the CPU, from ``w``'s dense weights. ``lh`` / ``rh``: JAX's SP halo
+    blocks (B, C, 3 * dilation), zeros where missing; the kernel runs on the
+    staged ``[lh | x | rh]``. ``partial``: the tensor-parallel operand mode
+    (``w`` a shard; the fp32 share without residual and pw2 bias)."""
     K.check_input(x, "conv_unit_ct x", ndim=3, dtype=K.DTYPES)
     bf16 = x.dtype == torch.bfloat16
     if not K.route(x, "conv_unit_ct"):
         if bf16:
-            return conv_unit_plain_bf16(x, w, channel_dim=1, dilation=dilation, lh=lh, rh=rh)
-        return conv_unit_plain(x, w, channel_dim=1, dilation=dilation, lh=lh, rh=rh)
-    why = admits("conv_unit_ct", x.shape[1], x.dtype)
+            return conv_unit_plain_bf16(x, w, channel_dim=1, dilation=dilation, lh=lh, rh=rh,
+                                        partial=partial)
+        return conv_unit_plain(x, w, channel_dim=1, dilation=dilation, lh=lh, rh=rh,
+                               partial=partial)
+    C = x.shape[1]
+    why = admits("conv_unit_ct", C, x.dtype, partial)
     if why is not None:
         raise ValueError(why)
     _check_trainable(x, w, "conv_unit_ct")
-    p = prepared() if prepared is not None else prepared_weights(w)
+    if C > NARROW_MAX_C:
+        # the channels-last route: x and the halos transposed, conv_unit's kernels
+        tr = lambda t: None if t is None else t.transpose(1, 2).contiguous()
+        out = _channels_last(tr(x), w, dilation, tr(lh), tr(rh), partial,
+                             None if partial else prepared).transpose(1, 2).contiguous()
+        ROUTES["channels_last"] += 1
+        _count("conv_unit_ct", partial)
+        return out
+    if prepared is not None and not partial:
+        p = prepared()
+    else:
+        p = prepared_weights(w, partial)
     if bf16 != isinstance(p, PreparedBf16):
         raise TypeError(f"conv_unit_ct: x is {x.dtype} but the unit's weights are not")
     if bf16:
-        run = lambda x: _launch_bf16(x, p, dilation, channels_last=False)
+        run = lambda x: _launch_bf16(x, p, dilation, channels_last=False, partial=partial)
+    elif partial:
+        run = lambda x: _launch_narrow(x, w, p, dilation, partial=True)
     else:
         run = lambda x: _launch_narrow(x, w, p, dilation)
     # on [lh | x | rh], the halo frames' outputs cropped: exact, as the kernel
     # folds GRN (no reduction over time) and pads only at its buffer's ends
     launch = lambda: K.halo_call(run, x, lh, rh, axis=2, out_axis=2)
-    out = autograd.call("conv_unit_ct", launch, _plain(1, dilation), x, *w)
-    K.LAUNCHES["conv_unit_ct"] += 1
+    out = autograd.call("conv_unit_ct", launch, _plain(1, dilation, partial), x, lh, rh, *w)
+    ROUTES["narrow"] += 1
+    _count("conv_unit_ct", partial)
     return out
 
 
 def conv_unit(x: torch.Tensor, w: ConvUnitWeights, *, dilation: int = 1,
-              lh: torch.Tensor | None = None, rh: torch.Tensor | None = None) -> torch.Tensor:
+              lh: torch.Tensor | None = None, rh: torch.Tensor | None = None,
+              partial: bool = False) -> torch.Tensor:
     """Residual ConvUnit on (B, T, C), fp32 or bf16. On CUDA: the tensor-core
     path when C is a multiple of TC_MULTIPLE (bf16: of BF16_MULTIPLE), else
     (fp32 only) the SIMT kernel; one count either way; under autograd through
     ``autograd.call``. Plain on CPU. ``lh`` / ``rh``: SP halo blocks (B,
-    3 * dilation, C), staged as :func:`conv_unit_ct` stages them."""
+    3 * dilation, C), staged as :func:`conv_unit_ct` stages them.
+    ``partial``: the tensor-parallel operand mode (tensor-core route only)."""
     K.check_input(x, "conv_unit x", ndim=3, dtype=K.DTYPES)
-    bf16 = x.dtype == torch.bfloat16
     if not K.route(x, "conv_unit"):
-        if bf16:
-            return conv_unit_plain_bf16(x, w, channel_dim=2, dilation=dilation, lh=lh, rh=rh)
-        return conv_unit_plain(x, w, channel_dim=2, dilation=dilation, lh=lh, rh=rh)
-    why = admits("conv_unit", x.shape[2], x.dtype)
+        plain = conv_unit_plain_bf16 if x.dtype == torch.bfloat16 else conv_unit_plain
+        return plain(x, w, channel_dim=2, dilation=dilation, lh=lh, rh=rh, partial=partial)
+    out = _channels_last(x, w, dilation, lh, rh, partial, None)
+    _count("conv_unit", partial)
+    return out
+
+
+def _channels_last(x: torch.Tensor, w: ConvUnitWeights, dilation: int, lh, rh, partial: bool,
+                   prepared: Callable[[], PreparedWeights | PreparedBf16] | None
+                   ) -> torch.Tensor:
+    """:func:`conv_unit`'s launch on a CUDA (B, T, C) x, uncounted; also
+    :func:`conv_unit_ct`'s route above NARROW_MAX_C (``prepared`` as it
+    takes them)."""
+    bf16 = x.dtype == torch.bfloat16
+    why = admits("conv_unit", x.shape[2], x.dtype, partial)
     if why is not None:
         raise ValueError(why)
     _check_trainable(x, w, "conv_unit")
+    tc = bf16 or x.shape[2] % TC_MULTIPLE == 0
+    p = (prepared() if prepared is not None else prepared_weights(w, partial)) if tc else None
+    if tc and bf16 != isinstance(p, PreparedBf16):
+        raise TypeError(f"conv_unit: x is {x.dtype} but the unit's weights are not")
     if bf16:
-        p = prepared_weights(w)
-        if not isinstance(p, PreparedBf16):
-            raise TypeError("conv_unit: x is bf16 but the unit's weights are not")
-        run = lambda x: _launch_bf16(x, p, dilation, channels_last=True)
-    elif x.shape[2] % TC_MULTIPLE == 0:
-        run = lambda x: _launch_tc(x, w, dilation)
+        run = lambda x: _launch_bf16(x, p, dilation, channels_last=True, partial=partial)
+    elif tc:
+        tp_kw = {"partial": True} if partial else {}
+        run = lambda x: _launch_tc(x, w, dilation, p=p, **tp_kw)
     else:
         run = lambda x: conv_unit_simt(x, w, dilation, channels_last=True)
     launch = lambda: K.halo_call(run, x, lh, rh, axis=1, out_axis=1)
-    out = autograd.call("conv_unit", launch, _plain(2, dilation), x, *w)
-    K.LAUNCHES["conv_unit"] += 1
-    return out
+    return autograd.call("conv_unit", launch, _plain(2, dilation, partial), x, lh, rh, *w)

@@ -324,5 +324,6 @@ def first_block(x: torch.Tensor, w: FirstBlockWeights | PreparedStem, *,
     return autograd.call(
         "first_block",
         lambda: K.halo_call(lambda b: _launch(b, w), x, lh, rh, edges, axis=1, out_axis=2),
-        lambda x, *ws: first_block_plain(x, FirstBlockWeights(*ws), lh=lh, rh=rh, edges=edges),
-        x, *weights)
+        lambda x, lh, rh, *ws: first_block_plain(x, FirstBlockWeights(*ws), lh=lh, rh=rh,
+                                                 edges=edges),
+        x, lh, rh, *weights)

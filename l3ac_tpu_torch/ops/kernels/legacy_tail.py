@@ -305,16 +305,25 @@ def _call(x0: torch.Tensor, x1: torch.Tensor | None, w: TailWeights | PreparedTa
     """The launch through ``autograd.call``: under autograd the backward
     differentiates the plain tail on the weights (``w``'s own, or a
     PreparedTail's, which a trainer builds from the live parameters)."""
-    def plain(x0, x1, *ws):
-        tw = TailWeights(*ws)
+    pair = x1 is not None
+    flat = lambda h: (tuple(h) if h is not None else (None, None)) if pair else (h,)
+    halos = (*flat(lh), *flat(rh))
+
+    def plain(x0, x1, *rest):
+        n = len(halos) // 2
+        hl, hr = rest[:n], rest[n:2 * n]
+        tw = TailWeights(*rest[2 * n:])
+        unflat = lambda h: (None if h[0] is None else h) if pair else h[0]
         return _staged(lambda a, b: legacy_tail_plain(a if b is None else interleave([a, b], 2),
-                                                      tw), x0, x1, lh, rh, edges)
+                                                      tw), x0, x1, unflat(hl), unflat(hr), edges)
 
     def launch():
         return _staged(lambda a, b: _launch(a, b, w, a.shape[2] * (1 if b is None else 2), name),
                        x0, x1, lh, rh, edges)
 
-    return autograd.call(name, launch, plain, x0, x1, *_plain_weights(w))
+    # the halos are inputs too: under SP training their gradient goes back
+    # to the neighbours (parallel.sp)
+    return autograd.call(name, launch, plain, x0, x1, *halos, *_plain_weights(w))
 
 
 def legacy_tail_poly_ct(x0: torch.Tensor, x1: torch.Tensor,

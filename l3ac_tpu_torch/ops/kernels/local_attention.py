@@ -56,6 +56,14 @@ rounds the normalized P where this kernel rounds 2^(x - m) with the running
 max m and divides at the end, and its exp is exact where ex2.approx is
 within 2 ulp: P differs by fp32 ulps before its rounding to bf16.
 
+Tensor-parallel mode (``head_offset``, ``parallel.tp``): q, k, v hold a
+rank's heads, H = heads / tp of them, views of the rank's qkv shard (its
+T stride 3 H D); the bias table (or the full bias) is the model's whole
+one, and the heads [head_offset, head_offset + H) of it apply. The fp32
+kernel reads the rank's columns as a contiguous (2n, H) copy (2n H floats a
+call), the bf16 kernel its rows of the prepared (heads, 2n) table in place.
+``K.TP_LAUNCHES["local_attention"]`` counts these launches.
+
 Routes of the bf16 kernel (:func:`route_for`, a shape and alignment rule,
 never a fallback): ``"tma"`` where every B / H / T stride of q, k, v is a
 multiple of 8 elements and their data 16-byte aligned (TMA loads from 4-D
@@ -183,7 +191,8 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window_size: int, bias: torch.Tensor | None = None,
                     bias_table: torch.Tensor | None = None, kp: torch.Tensor | None = None,
                     prev_k: torch.Tensor | None = None, prev_v: torch.Tensor | None = None,
-                    left_edge: int | None = None) -> torch.Tensor:
+                    left_edge: int | None = None,
+                    head_offset: int | None = None) -> torch.Tensor:
     """q, k, v: (B, H, T, D) views, T a multiple of window_size; bias
     (H, n, 2n), or bias_table (2n, H), or neither. Returns (B, H, T, D), on
     CUDA a permuted view of a (B, T, H, D) tensor. Kernel on CUDA (under
@@ -197,7 +206,8 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``prev_v`` (B, H, n, D) contiguous, window 0's previous half (SP: the
     left shard's last window); ``left_edge`` 1 masks that half all the same
     (the globally first shard). Without ``prev_k`` window 0's previous half
-    is masked, as before."""
+    is masked, as before. ``head_offset``: the tensor-parallel mode (q, k, v
+    the heads [head_offset, head_offset + H) of the bias or table given)."""
     for name, t in (("q", q), ("k", k), ("v", v), ("kp", kp), ("prev_k", prev_k),
                     ("prev_v", prev_v)):
         if t is not None:
@@ -207,7 +217,22 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if (prev_k is None) != (prev_v is None):
         raise ValueError("local_attention: prev_k and prev_v go together")
     edge = 0 if left_edge is None else int(left_edge)
-    if not K.route(q, "local_attention"):
+    cuda = K.route(q, "local_attention")
+    full_table = None
+    if head_offset is not None:
+        h0, h1 = head_offset, head_offset + q.shape[1]
+        for name, t, ax in (("bias", bias, 0), ("bias_table", bias_table, 1)):
+            if t is not None and t.shape[ax] < h1:
+                raise ValueError(f"local_attention: {name} has {t.shape[ax]} heads, the "
+                                 f"shard reads heads {h0}..{h1 - 1}")
+        bias = None if bias is None else bias[h0:h1].contiguous()  # rows: a view
+        if bias_table is not None and cuda and q.dtype == torch.bfloat16:
+            # the bf16 kernel reads the prepared table's rows of these heads
+            # in place (and bf16 never differentiates through ``plain``)
+            full_table = bias_table
+        elif bias_table is not None:
+            bias_table = bias_table[:, h0:h1].contiguous()
+    if not cuda:
         return local_attention_plain(q, k, v, window_size=window_size, bias=bias,
                                      bias_table=bias_table, kp=kp, prev_k=prev_k,
                                      prev_v=prev_v, left_edge=edge)
@@ -223,7 +248,7 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if bias is not None and bias.shape != (H, n, 2 * n):
         raise ValueError(f"local_attention: bias {tuple(bias.shape)} is not "
                          f"{(H, n, 2 * n)}")
-    if bias_table is not None and bias_table.shape != (2 * n, H):
+    if full_table is None and bias_table is not None and bias_table.shape != (2 * n, H):
         raise ValueError(f"local_attention: bias_table {tuple(bias_table.shape)} is not "
                          f"{(2 * n, H)}")
     K.check_cuda({"bias": bias, "bias_table": bias_table, "prev_k": prev_k, "prev_v": prev_v},
@@ -246,6 +271,9 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     extra = {} if prev is None and not edge else {"prev": prev, "left_edge": edge}
 
+    if full_table is not None:
+        extra["table_rows"] = (full_table, head_offset)
+
     def launch():
         return _launch(q, k, v, bias, bias_table, n, ptrs, strides, **extra)
 
@@ -261,16 +289,20 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         ROUTES["kp"] += 1
     if prev_k is not None:
         ROUTES["prev_k"] += 1
+    if head_offset is not None:
+        K.TP_LAUNCHES["local_attention"] += 1
     return out.permute(0, 2, 1, 3)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor | None,
             bias_table: torch.Tensor | None, n: int, ptrs: list[int], strides: list[int],
-            prev: list[int] | None = None, left_edge: int = 0) -> torch.Tensor:
+            prev: list[int] | None = None, left_edge: int = 0,
+            table_rows: tuple[torch.Tensor, int] | None = None) -> torch.Tensor:
     """The kernel of q's dtype on operands :func:`local_attention` checked
     (``ptrs`` / ``strides`` of q, k, v and kp when given; ``prev`` the
     addresses of prev_k and prev_v, contiguous (B, H, n, D), or None) ->
-    (B, T, H, D)."""
+    (B, T, H, D). ``table_rows``: the TP mode's (whole table, first head),
+    whose prepared rows the bf16 kernel reads in place."""
     B, H, T, D = q.shape
     out = torch.empty((B, T, H, D), device=q.device, dtype=q.dtype)
     pk, pv = prev if prev is not None else (None, None)
@@ -281,7 +313,11 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tenso
         prev_strides = [H * n * D if B > 1 else 0, n * D if H > 1 else 0, D] * 2 \
             if prev is not None else []
         route = route_for(strides + prev_strides, ptrs + list(prev or []))
-        table = None if bias_table is None else prepared_table(bias_table)
+        if table_rows is not None:
+            full, h0 = table_rows
+            table = prepared_table(full)[h0:h0 + H]
+        else:
+            table = None if bias_table is None else prepared_table(bias_table)
         fn = _build.function("l3ac_local_attention_bf16", _ARGTYPES_BF16)
         err = fn(*args, _build.ptr(bias), _build.ptr(table), out.data_ptr(), B, H, T, n, D,
                  left_edge, *strides[:9], *kp_strides, _bf16_scale(D), ROUTE_CODE[route],

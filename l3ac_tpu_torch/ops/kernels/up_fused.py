@@ -348,12 +348,14 @@ def _call(x: torch.Tensor, w: UpWeights, scale: int, *, channels_last: bool,
                            out_axis=-1 if phase_split else halo["out_axis"],
                            scale=1 if phase_split else scale)
 
-    def plain(x, *ws):
+    def plain(x, lh, rh, *ws):
         out = up_fused_plain(x, UpWeights(*ws), scale=scale, channel_dim=cd,
                              phase_split=phase_split, lh=lh, rh=rh, edges=edges)
         return torch.stack(out) if phase_split else out
 
-    out = autograd.call(name, launch, plain, x, *w)
+    # the halos are inputs too: under SP training their gradient goes back
+    # to the neighbours (parallel.sp)
+    out = autograd.call(name, launch, plain, x, lh, rh, *w)
     return tuple(out.unbind(0)) if phase_split else out
 
 

@@ -18,12 +18,14 @@ fp32 input takes exactly the fp32 steps.
 
 Under sequence parallelism (``parallel.sp``) GRN's norm and the instance
 norm's moments are summed over the sp group, the instance norm's in JAX's
-one-pass form.
+one-pass form. GRN of a tensor-parallel shard of the hidden axis
+(``hidden_split``, ``parallel.tp``) sums its norm over the tp group too. Both
+sums are differentiable (``parallel.comm.psum``).
 """
 
 import torch
 
-from ..parallel import sp
+from ..parallel import sp, tp
 
 EPS = 1e-8
 LAYER_NORM_EPS = 1e-5
@@ -57,9 +59,14 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 def grn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-        eps: float = EPS, dim: int = -1) -> torch.Tensor:
+        eps: float = EPS, dim: int = -1, hidden_split: bool = False) -> torch.Tensor:
+    """``hidden_split``: x is this rank's tensor-parallel shard of the hidden
+    axis, and the norm is taken over the whole axis."""
     xs = _stat(x)
-    g = torch.sqrt(sp.psum_if_active((xs * xs).sum(dim=tuple(range(1, x.dim())), keepdim=True)))
+    s = (xs * xs).sum(dim=tuple(range(1, x.dim())), keepdim=True)
+    if hidden_split:
+        s = tp.psum_if_active(s)
+    g = torch.sqrt(sp.psum_if_active(s))
     n = (g / (g + eps)).to(x.dtype)
     return _along(gamma, x, dim) * (x * n) + _along(beta, x, dim) + x
 

@@ -3,7 +3,8 @@
 Axes as in the JAX package:
 - ``dp``: data parallel, independent audio streams;
 - ``sp``: sequence parallel, the time axis sharded with halo exchange;
-- ``tp``: tensor parallel (its sharded modules are not ported yet).
+- ``tp``: tensor parallel, the Megatron pairs of ``parallel.tp`` (split by
+  ``parallel.sharding``).
 
 The world's ranks are laid out row-major over (dp, sp, tp): rank r sits at
 the coordinates ``unravel(r, (dp, sp, tp))``, and the ranks that differ only

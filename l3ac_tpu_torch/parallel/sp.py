@@ -12,7 +12,15 @@ So the sharded result equals the single-device one to float tolerance, and
 the FSQ indices equal it exactly.
 
 The context is plain Python state that ``models.codec.encode_sp`` and its
-siblings enter around one call; it is not a switch a user sets.
+siblings (and the sharded train step) enter around one call; it is not a
+switch a user sets.
+
+Training: the halo blocks are differentiable (:class:`_Halos`). The
+backward of an exchange is the exchange of the halos' cotangents the other
+way: each rank sends the cotangent of its left halo back to its left
+neighbour and that of its right halo to its right one, and adds what comes
+back to its own boundary frames' gradients. The reductions over the group
+are differentiable sums (``parallel.comm.psum``).
 
 The exchange (:func:`exchange`) is one collective for both directions: each
 rank writes the blocks it sends into its own row of a zeroed
@@ -33,6 +41,8 @@ from contextlib import contextmanager
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+
+from . import comm
 
 ALIGN = 16  # bytes: each block's offset in the exchange buffer
 
@@ -92,16 +102,21 @@ def reset_stats() -> None:
 
 
 def _all_reduce(buf: torch.Tensor) -> None:
+    """The sum over the active sp group, in place (a hook a timing harness
+    may wrap)."""
     dist.all_reduce(buf, group=_CTX[0].group)
 
 
-def exchange(to_right: list[torch.Tensor | None], to_left: list[torch.Tensor | None]
+def exchange(to_right: list[torch.Tensor | None], to_left: list[torch.Tensor | None],
+             ctx: Context | None = None
              ) -> tuple[list[torch.Tensor | None], list[torch.Tensor | None]]:
     """Every rank sends ``to_right`` to its right neighbour and ``to_left``
     to its left one, in one collective. Returns (the left neighbour's
     ``to_right`` blocks, the right neighbour's ``to_left`` blocks); None on
-    the edge where there is no neighbour, and for a None block."""
-    ctx = _CTX[0]
+    the edge where there is no neighbour, and for a None block. ``ctx``:
+    the group to exchange over (default: the active one). Not
+    differentiable: :func:`halo_blocks_many` is."""
+    ctx = _CTX[0] if ctx is None else ctx
     parts = [t for t in to_right + to_left if t is not None]
     offs, nbytes, total = [], [], 0
     for t in parts:
@@ -117,7 +132,10 @@ def exchange(to_right: list[torch.Tensor | None], to_left: list[torch.Tensor | N
     for t, o, nb in zip(parts, offs, nbytes):
         mine[o:o + nb].copy_(t.contiguous().view(-1).view(torch.uint8))
     if ctx.size > 1:
-        _all_reduce(buf)
+        if ctx is _CTX[0]:
+            _all_reduce(buf)
+        else:
+            dist.all_reduce(buf, group=ctx.group)
     STATS["calls"] += 1
     STATS["bytes"] += total
 
@@ -152,12 +170,20 @@ def _check(x: torch.Tensor, left: int, right: int, axis: int) -> None:
 
 def halo_blocks_many(xs: list[torch.Tensor], left: int, right: int, *, axis: int = 1,
                      fill: float = 0.0) -> list[tuple[torch.Tensor | None, torch.Tensor | None]]:
-    """:func:`halo_blocks` of several tensors in one exchange."""
+    """:func:`halo_blocks` of several tensors in one exchange; differentiable
+    (:class:`_Halos`) where autograd records on them."""
     for x in xs:
         _check(x, left, right, axis)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        flat = iter(_Halos.apply(_CTX[0], left, right, axis, fill, *xs))
+        return [(next(flat) if left else None, next(flat) if right else None) for _ in xs]
+    return _halo_blocks(xs, left, right, axis, fill)
+
+
+def _halo_blocks(xs, left, right, axis, fill, ctx=None):
     tails = [x.narrow(axis, x.shape[axis] - left, left) if left else None for x in xs]
     heads = [x.narrow(axis, 0, right) if right else None for x in xs]
-    got_l, got_r = exchange(tails, heads)
+    got_l, got_r = exchange(tails, heads, ctx)
     out = []
     for tail, head, lh, rh in zip(tails, heads, got_l, got_r):
         if tail is not None and lh is None:
@@ -166,6 +192,42 @@ def halo_blocks_many(xs: list[torch.Tensor], left: int, right: int, *, axis: int
             rh = torch.full(head.shape, fill, dtype=head.dtype, device=head.device)
         out.append((lh, rh))
     return out
+
+
+class _Halos(torch.autograd.Function):
+    """The halo blocks of ``xs`` (edge shards: ``fill``), flattened as
+    (lh, rh) per tensor where the width is not 0. Backward: the cotangents
+    go back the other way in one exchange and are added to the boundary
+    frames they came from; an edge's fill gets none."""
+
+    @staticmethod
+    def forward(ctx, sp_ctx, left, right, axis, fill, *xs):
+        ctx.sp_ctx, ctx.left, ctx.right, ctx.axis = sp_ctx, left, right, axis
+        ctx.shapes, ctx.like = [x.shape for x in xs], (xs[0].dtype, xs[0].device)
+        pairs = _halo_blocks(list(xs), left, right, axis, fill, sp_ctx)
+        return tuple(t for pair in pairs for t in pair if t is not None)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        # (autograd materializes an unused output's cotangent as zeros)
+        left, right, axis = ctx.left, ctx.right, ctx.axis
+        it = iter(grads)
+        g_l, g_r = [], []
+        for _ in ctx.shapes:  # forward's order: each tensor's (lh, rh)
+            g_l.append(next(it) if left else None)
+            g_r.append(next(it) if right else None)
+        # my left halo's cotangent belongs to my left neighbour's tail: send
+        # it left; my right halo's to my right neighbour's head: send it right
+        head_g, tail_g = exchange(g_r, g_l, ctx.sp_ctx)
+        out = []
+        for shape, hg, tg in zip(ctx.shapes, head_g, tail_g):
+            dx = torch.zeros(shape, dtype=ctx.like[0], device=ctx.like[1])
+            if tg is not None:
+                dx.narrow(axis, shape[axis] - left, left).add_(tg)
+            if hg is not None:
+                dx.narrow(axis, 0, right).add_(hg)
+            out.append(dx)
+        return (None, None, None, None, None, *out)
 
 
 def halo_blocks(x: torch.Tensor, left: int, right: int, *, axis: int = 1,
@@ -219,9 +281,13 @@ def shift_right(x: torch.Tensor, *, axis: int = 1) -> torch.Tensor:
     T = x.shape[axis]
     first = x.narrow(axis, 0, 1)
     if active():
-        (recv,), _ = exchange([x.narrow(axis, T - 1, 1)], [])
-        if recv is not None:
-            first = recv
+        lh, _ = halo_blocks(x, 1, 0, axis=axis)
+        if index() > 0:
+            first = lh
+        elif lh.requires_grad:
+            # + the zero fill: exact, and it keeps the exchange in the graph,
+            # so that every rank runs its backward (a collective)
+            first = lh + first
     return torch.cat([first, x.narrow(axis, 0, T - 1)], dim=axis)
 
 
@@ -230,18 +296,23 @@ def shift_left(x: torch.Tensor, *, axis: int = 1) -> torch.Tensor:
     T = x.shape[axis]
     last = x.narrow(axis, T - 1, 1)
     if active():
-        _, (recv,) = exchange([], [x.narrow(axis, 0, 1)])
-        if recv is not None:
-            last = recv
+        _, rh = halo_blocks(x, 0, 1, axis=axis)
+        if index() < size() - 1:
+            last = rh
+        elif rh.requires_grad:
+            last = rh + last  # as in shift_right
     return torch.cat([x.narrow(axis, 1, T - 1), last], dim=axis)
 
 
 def psum_if_active(x: torch.Tensor) -> torch.Tensor:
-    """The sum over the sp group when SP is active (a new tensor), else x."""
+    """The sum over the sp group when SP is active (a new tensor), else x;
+    differentiable (``parallel.comm.psum``: the cotangents summed back)."""
     ctx = _CTX[0]
     if ctx is None or ctx.group is None:
         return x
+    STATS["psum_calls"] += 1
+    if torch.is_grad_enabled() and x.requires_grad:
+        return comm.psum(x, ctx.group, "sp")
     out = x.clone()
     _all_reduce(out)
-    STATS["psum_calls"] += 1
     return out

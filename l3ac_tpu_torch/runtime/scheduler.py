@@ -27,8 +27,19 @@ memory without blocking. Results stay on the device until they are
 collected; then same-shape results are stacked on the device and each stack
 is copied into pinned host memory, with one synchronize for all of them.
 
-The JAX server's data-parallel ``mesh=`` / ``dp_axis=`` serving comes with
-the port's parallelism (ROADMAP A11).
+Data-parallel serving (``mesh=`` / ``dp_axis=``, ``l3ac_tpu/runtime/
+scheduler.py:262-289,678-694``): a ``parallel.mesh`` mesh over
+``torch.distributed`` whose ``dp_axis`` has dp ranks. Every rank runs the
+same host loop in lockstep, with the same submissions and the same models
+(replicated), and a step packs ``rows_per_step = batch_size * dp`` rows.
+Each program's rows (a palette size, so a multiple of dp; padded with zero
+rows, which keeps the grouping by valid length, so tokens still equal
+``extract_unit``'s) are cut into dp equal slices and each rank runs its
+own. Results are all-gathered over dp once per stacked shape group at
+collection (JAX's one ``process_allgather`` per group; an exact all-reduce
+of an int32 buffer, ``parallel.comm.gather_raw``), so every rank's framers
+see every row. ``save_state`` / ``restore_state`` work as on one device,
+into a server over the same mesh.
 """
 
 from __future__ import annotations
@@ -42,6 +53,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from ..parallel import comm
 
 
 class PyFramer:
@@ -273,10 +286,19 @@ class CodecServer:
     MAX_WAVE_LOG2 = 3
 
     def __init__(self, models: dict, *, chunk_seconds: float = 5.0, batch_size: int = 8,
-                 use_native: bool | None = None, aging_steps: int = 8,
-                 pcm16_output: bool = False):
+                 use_native: bool | None = None, aging_steps: int = 8, mesh=None,
+                 dp_axis: str = "dp", pcm16_output: bool = False):
+        """``mesh``: a ``parallel.mesh`` mesh with a ``dp_axis``: data-parallel
+        serving (the module's notes); every rank constructs the server and
+        calls it alike."""
         self.pcm16_output = pcm16_output
         self.batch_size = batch_size
+        self.mesh = mesh
+        self._dp = mesh.shape[dp_axis] if mesh is not None else 1
+        self._dp_index = mesh.coords[dp_axis] if mesh is not None else 0
+        self._dp_group = mesh.group(dp_axis) if mesh is not None else None
+        self._dp_axis = dp_axis
+        self.rows_per_step = batch_size * self._dp
         self.aging_steps = aging_steps
         self.use_native = use_native
         self.lanes: dict[str, _Lane] = {}
@@ -304,7 +326,7 @@ class CodecServer:
             host_cast = torch.bfloat16 if model.dtype == torch.bfloat16 else None
 
             def framer(n, prefix):
-                return _make_framer(n, prefix, self.batch_size, use_native)
+                return _make_framer(n, prefix, self.rows_per_step, use_native)
 
             self.lanes[f"{name}:enc"] = _Lane(
                 model=model, framer=framer(chunk_len, hop), hop=hop, kind="enc",
@@ -446,6 +468,9 @@ class CodecServer:
                 x[:n] = out[sel, :v]
                 if lane.kind == "dec_feat":
                     x = x.reshape(P, v // lane.width, lane.width)
+                if self._dp > 1:  # this rank's slice; the rows come back at collection
+                    share = P // self._dp
+                    x = x[self._dp_index * share:(self._dp_index + 1) * share]
                 t1 = time.perf_counter()
                 xd = self._upload(lane, x)
                 t2 = time.perf_counter()
@@ -455,9 +480,10 @@ class CodecServer:
                 self.stats["t_upload"] += t2 - t1
                 self.stats["t_dispatch"] += t3 - t2
                 self.stats["programs"] += 1
-                if lane.kind != "enc" and n < P:
+                if lane.kind != "enc" and n < P and self._dp == 1:
                     # tokens are small and keep one shape per length; audio
-                    # pad rows are not fetched
+                    # pad rows are not fetched (with dp the slices are
+                    # gathered whole, and the pad rows skipped at the scatter)
                     res = res[:n]
                 self._inflight.append((lane, res, sids[sel].copy(), cids[sel].copy(),
                                        valid[sel].copy()))
@@ -465,15 +491,15 @@ class CodecServer:
 
     # -- wave drain: continuous batching at drain granularity -------------
     def _wave_sizes(self, n: int) -> list[int]:
-        """Split ``n`` rows into palette program sizes (``batch_size * 2^k``,
-        k <= MAX_WAVE_LOG2), preferring one padded program: a call's host
-        cost grows with the number of programs, not with pad rows."""
-        cap = self.batch_size << self.MAX_WAVE_LOG2
+        """Split ``n`` rows into palette program sizes (``rows_per_step *
+        2^k``, k <= MAX_WAVE_LOG2), preferring one padded program: a call's
+        host cost grows with the number of programs, not with pad rows."""
+        cap = self.rows_per_step << self.MAX_WAVE_LOG2
         out = []
         while n > cap:
             out.append(cap)
             n -= cap
-        p = self.batch_size
+        p = self.rows_per_step
         while p < n:
             p <<= 1
         out.append(p)
@@ -530,6 +556,9 @@ class CodecServer:
             arrs = [self._inflight[i][1] for i in idxs]
             s = arrs[0] if len(arrs) == 1 else torch.stack(arrs)
             self.stats["programs"] += int(len(arrs) > 1)
+            if self._dp > 1:  # every rank's slice of each program's rows
+                s = torch.cat(comm.gather_raw(s, self._dp_group, self._dp_index, self._dp,
+                                              self._dp_axis), dim=int(len(arrs) > 1))
             if s.device.type == "cuda":
                 host = torch.empty(s.shape, dtype=s.dtype, pin_memory=True)
                 host.copy_(s, non_blocking=True)
@@ -613,7 +642,8 @@ class CodecServer:
         self._collect()                 # in-flight results first
         arrays: dict[str, np.ndarray] = {}
         meta = {"next_handle": self._next_handle, "steps": self._steps,
-                "batch_size": self.batch_size, "chunk_seconds": self._chunk_seconds,
+                "batch_size": self.batch_size, "rows_per_step": self.rows_per_step,
+                "chunk_seconds": self._chunk_seconds,
                 "lanes": {}, "streams": {}}
         for name, lane in self.lanes.items():
             meta["lanes"][name] = {"last_served": lane.last_served,
@@ -640,8 +670,9 @@ class CodecServer:
             if set(meta["lanes"]) != set(self.lanes):
                 raise ValueError(f"lane mismatch: saved {sorted(meta['lanes'])} vs "
                                  f"constructed {sorted(self.lanes)}")
-            if meta["batch_size"] != self.batch_size:
-                raise ValueError("batch_size mismatch")
+            if meta["batch_size"] != self.batch_size or \
+                    meta.get("rows_per_step", self.batch_size) != self.rows_per_step:
+                raise ValueError("batch_size mismatch (or another dp)")
             self._next_handle = meta["next_handle"]
             self._steps = meta["steps"]
             for name, lm in meta["lanes"].items():

@@ -172,7 +172,7 @@ def main(argv=None) -> int:
                     w.norm_w.data_ptr(), w.norm_b.data_ptr(), q.w1_hi.data_ptr(),
                     q.w1_lo.data_ptr(), w.pw1_b.data_ptr(), w.alpha.data_ptr(),
                     q.w2_hi.data_ptr(), q.w2_lo.data_ptr(), q.b2.data_ptr(), B, C, T, 7, 1,
-                    stream)
+                    4 * C, 0, stream)
                 if err:
                     raise RuntimeError(f"narrow_variants [{i}]: CUDA error {err}")
             call()

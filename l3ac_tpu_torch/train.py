@@ -17,9 +17,35 @@ plain versions on the CPU; on the CPU the gradients equal JAX's
 
 ``make_train_step`` is JAX's single-device step (plain SGD, or an
 optimizer: the trainer's ``torch.optim.Adam``, optax.adam's defaults);
-``spectral`` is taken here as the sharded step and the trainer take it. The
-sharded step (``make_sharded_train_step``) comes with parallelism (ROADMAP
-A11).
+``spectral`` is taken here as the sharded step and the trainer take it.
+
+``make_sharded_train_step`` is JAX's step over a (dp, sp, tp) mesh
+(``l3ac_tpu/train.py:153-199``), on ``torch.distributed``. Every rank is
+handed the whole batch (the feeds are functions of (seed, step)) and takes
+its block:
+
+- dp: B / dp rows. Each rank's loss is its rows' mean, and the gradients
+  are averaged over dp in one all-reduce of a flat buffer a step: JAX's
+  loss mean over the dp-sharded batch.
+- sp: a time block of T / sp samples, T a multiple of
+  ``models.codec.sp_time_quantum(mc) * sp``. The model runs on the block
+  with every halo exchanged (``parallel.sp``, differentiable: the halos'
+  cotangents go back to their neighbours), the kernels' halo and
+  previous-window operands get their gradients, the reductions over time
+  are differentiable sums, and the loss is taken on the output gathered
+  along sp (``parallel.comm.gather_cat``): every rank of the group computes
+  the same loss, and the gather's backward hands each its own slice
+  unreduced. Every gradient is then summed over sp (each rank holds its
+  block's share).
+- tp: the codec's Megatron pairs (``parallel.tp``); a split parameter's
+  gradient is whole on its rank, a replicated one's the same on every rank.
+
+The forward and the backward run inside the sp and tp contexts, so the
+plain versions that the kernels' backward recomputes exchange and reduce
+as the forward did. The random draws (drop-path masks, FSQ noise) are
+taken at the whole batch's shape and cut to the rank's block
+(``ops.droppath.sharded_batch``), so a sharded step sees the noise a single
+device sees.
 """
 
 from __future__ import annotations
@@ -31,7 +57,9 @@ from collections.abc import Callable
 import numpy as np
 import torch
 
-from .models.codec import Codec
+from .models.codec import Codec, sp_scope, sp_time_quantum, tp_scope
+from .ops.droppath import sharded_batch
+from .parallel import comm, tp
 
 # (n_fft, hop) pairs of the multi-resolution STFT loss (l3ac_tpu/train.py:68)
 STFT_RESOLUTIONS = ((512, 128), (1024, 256), (2048, 512))
@@ -118,10 +146,15 @@ def loss_fn(codec: Codec, audio: torch.Tensor, generator: torch.Generator | None
     ``loss``. ``generator``: FSQ's noise and, with ``drop_path_rate > 0``,
     stochastic depth (``Codec.forward``)."""
     out = codec(audio, training=True, generator=generator, drop_path_rate=drop_path_rate)
-    y = out["generated_audio"]
+    return _losses(out["generated_audio"], audio, out["commit_loss"], spectral)
+
+
+def _losses(y: torch.Tensor, audio: torch.Tensor, commit: torch.Tensor,
+            spectral: bool) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """(loss, metrics) of the output ``y`` against ``audio``."""
     wav_l2 = torch.mean((y - audio) ** 2)
     wav_l1 = torch.mean(torch.abs(y - audio))
-    loss = wav_l2 + 0.1 * wav_l1 + out["commit_loss"]
+    loss = wav_l2 + 0.1 * wav_l1 + commit
     metrics = {"wav_l2": wav_l2, "wav_l1": wav_l1}
     if spectral:
         sl = stft_loss(y, audio)
@@ -162,3 +195,92 @@ def make_train_step(codec: Codec, lr: float = 1e-4,
         return {k: v.detach() for k, v in metrics.items()}
 
     return step
+
+
+def _block(audio: torch.Tensor, mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """(this rank's dp rows of the whole batch, their sp time block)."""
+    B, T = audio.shape
+    dp, n_sp = mesh.shape["dp"], mesh.shape["sp"]
+    if B % dp:
+        raise ValueError(f"batch {B} is not divisible by dp = {dp}")
+    rows = audio.narrow(0, mesh.coords["dp"] * (B // dp), B // dp)
+    L = T // n_sp
+    return rows, rows.narrow(1, mesh.coords["sp"] * L, L).contiguous()
+
+
+def sharded_loss_fn(codec: Codec, audio: torch.Tensor, mesh,
+                    generator: torch.Generator | None = None, spectral: bool = False,
+                    drop_path_rate: float = 0.0
+                    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """(loss, metrics) of this rank's block of the whole batch ``audio``
+    (B, T) on ``mesh``, the output gathered along sp (the same on every rank
+    of a dp row); run it inside the sp and tp contexts (the step does)."""
+    rows, block = _block(audio, mesh)
+    out = codec(block, training=True, generator=generator, drop_path_rate=drop_path_rate)
+    y = comm.gather_cat(out["generated_audio"], mesh.group("sp"), mesh.coords["sp"],
+                        mesh.shape["sp"], dim=1, axis="sp")
+    return _losses(y, rows, out["commit_loss"], spectral)
+
+
+def make_sharded_train_step(mesh, codec: Codec, lr: float = 1e-4,
+                            optimizer: torch.optim.Optimizer | None = None,
+                            spectral: bool = False, drop_path_rate: float = 0.0) -> Callable:
+    """A train step over the (dp, sp, tp) ``mesh`` (``torch.distributed``,
+    one process per rank): ``step(audio, generator=None) -> metrics``, where
+    ``audio`` is the whole (B, T) batch, the same on every rank; the metrics
+    are the whole batch's (averaged over dp). ``codec``: this rank's codec,
+    put onto its tp shards (``parallel.tp.shard_codec``; done here when the
+    step gets no optimizer, else it must be done before the optimizer is
+    made over its parameters). With ``optimizer`` its ``step()``, else plain
+    SGD at ``lr``. ``generator`` as in :func:`loss_fn`, the same seed on
+    every rank."""
+    if mesh.shape["tp"] > 1 and getattr(codec, "tp_shard", None) is None:
+        if optimizer is not None:
+            raise ValueError("make_sharded_train_step: put the codec onto its tp shards "
+                             "(parallel.tp.shard_codec) before making the optimizer")
+        tp.shard_codec(codec, mesh)
+    quantum = sp_time_quantum(codec.mc) * mesh.shape["sp"]
+    dp = mesh.shape["dp"]
+    params = list(codec.parameters())
+
+    def step(audio: torch.Tensor, generator: torch.Generator | None = None) -> dict:
+        if mesh.shape["sp"] > 1 and audio.shape[-1] % quantum:
+            raise ValueError(f"sp = {mesh.shape['sp']}: the clip length {audio.shape[-1]} must "
+                             f"be a multiple of {quantum} samples")
+        for p in params:
+            p.grad = None
+        with sp_scope(mesh), tp_scope(codec, mesh), sharded_batch(mesh):
+            loss, metrics = sharded_loss_fn(codec, audio, mesh, generator, spectral,
+                                            drop_path_rate)
+            loss.backward()
+        names = list(metrics)
+        values = _sync_grads(params, mesh,
+                             torch.stack([metrics[k].detach().float() for k in names]))
+        if optimizer is None:
+            sgd_update(codec, lr)
+        else:
+            optimizer.step()
+        return {k: values[i] for i, k in enumerate(names)}
+
+    return step
+
+
+def _sync_grads(params: list, mesh, metrics: torch.Tensor) -> torch.Tensor:
+    """Every gradient summed over sp, then it and the metrics averaged over
+    dp: one flat buffer per axis. Returns the averaged metrics."""
+    dp, n_sp = mesh.shape["dp"], mesh.shape["sp"]
+    if n_sp == 1 and dp == 1:
+        return metrics
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    comm.all_reduce_(flat, mesh.group("sp"), "sp")
+    flat = torch.cat([flat, metrics.to(flat.device)])
+    if dp > 1:
+        comm.all_reduce_(flat, mesh.group("dp"), "dp")
+        flat /= dp
+    off = 0
+    for p, g in zip(params, grads):
+        n = g.numel()
+        p.grad = flat[off:off + n].view_as(p).clone()
+        off += n
+    return flat[off:]

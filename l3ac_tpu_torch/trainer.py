@@ -1,5 +1,5 @@
 """The training loop: ``python -m l3ac_tpu_torch train``
-(``l3ac_tpu/trainer.py``), on one device.
+(``l3ac_tpu/trainer.py``), on one device or on a (dp, sp, tp) mesh.
 
 Joins the train step (``train.make_train_step``), ``torch.optim.Adam`` with
 optax.adam's defaults (b1 0.9, b2 0.999, eps 1e-8), the spectral losses and
@@ -30,7 +30,21 @@ run killed while saving leaves no partial ``step_*`` directory. ``latest()``
 resolves the newest; ``resume`` restores params, moments and step, and
 continues.
 
-Not ported: the (dp, sp, tp) mesh (ROADMAP A11): anything but 1 raises.
+On a mesh (``dp`` / ``sp`` / ``tp`` not all 1): every rank of an initialized
+``torch.distributed`` world of dp * sp * tp processes calls :func:`train`
+with the same arguments (``parallel.distributed.initialize``, ``torchrun``
+with an ``initialize`` of its own, or the tests' spawned ranks). The codec is
+put onto its tp shards, the step is ``train.make_sharded_train_step`` (the
+whole batch is drawn on every rank from (seed, step), each rank takes its
+block), and a checkpoint is ``runtime.checkpoint.save_sharded``'s directory
+(params and the Adam moments, each tp shard written once), which
+``load_sharded`` restores onto any tp::
+
+    ckpt_dir/step_00000012/index.json, shard_<i>.npz   # step in the index's meta
+
+The contracts stay JAX's: the (seed, step) feeds, resume from the newest
+checkpoint, and the final-save rule. A mesh run keeps the JAX trainer's
+return keys; its ``codec`` holds this rank's shards.
 """
 
 from __future__ import annotations
@@ -108,6 +122,39 @@ def latest(ckpt_dir: str | Path) -> tuple[int, Path] | None:
             if best is None or k > best[0]:
                 best = (k, d)
     return best
+
+
+def _moments(codec, optimizer: torch.optim.Optimizer) -> dict[str, dict]:
+    """Adam's moments by parameter name ({"exp_avg": {...}, "exp_avg_sq":
+    {...}}), zeros for a parameter with no state yet."""
+    out = {"exp_avg": {}, "exp_avg_sq": {}}
+    for name, p in codec.named_parameters():
+        state = optimizer.state.get(p) or {}
+        for k in out:
+            out[k][name] = state[k].detach() if k in state else torch.zeros_like(p.detach())
+    return out
+
+
+def _save_sharded(ckpt_dir: Path, step: int, codec, optimizer, mesh) -> Path:
+    from .runtime.checkpoint import save_sharded
+    params = {n: p.detach() for n, p in codec.named_parameters()}
+    return save_sharded(ckpt_dir / f"step_{step:08d}", params, codec.mc, mesh,
+                        moments=_moments(codec, optimizer), meta={"step": step})
+
+
+def _restore_sharded(path: Path, codec, optimizer, mesh) -> int:
+    from .runtime.checkpoint import load_sharded
+    sd, moments, meta = load_sharded(path, codec.mc, mesh=mesh, with_moments=True)
+    codec.load_state_dict(sd)
+    step = int(meta["step"])
+    state = {}
+    for i, (name, p) in enumerate(codec.named_parameters()):
+        state[i] = {"step": torch.tensor(float(step)), "exp_avg": moments["exp_avg"][name],
+                    "exp_avg_sq": moments["exp_avg_sq"][name]}
+    sd_opt = optimizer.state_dict()
+    sd_opt["state"] = state
+    optimizer.load_state_dict(sd_opt)
+    return step
 
 
 def _save(ckpt_dir: Path, step: int, codec, optimizer: torch.optim.Optimizer) -> Path:
@@ -199,9 +246,10 @@ def train(config: str = "debug", *, steps: int = 20, batch: int = 4,
           save_every: int = 0, resume: bool = False,
           log_every: int = 1, log=print, device=None,
           state_dict: dict | None = None) -> dict:
-    """Run ``steps`` Adam train steps of ``config`` on one device; returns
-    {"codec", "optimizer", "step", "metrics"} (the last step's metrics as
-    floats).
+    """Run ``steps`` Adam train steps of ``config`` on one device, or on a
+    (``dp``, ``sp``, ``tp``) mesh from every rank of an initialized
+    ``torch.distributed`` world; returns {"codec", "optimizer", "step",
+    "metrics"} (the last step's metrics as floats).
 
     ``seconds`` or ``tokens`` sets the clip length (rounded down to a hop
     multiple, at least one hop). The initial weights are drawn from ``seed``
@@ -213,14 +261,18 @@ def train(config: str = "debug", *, steps: int = 20, batch: int = 4,
     writes a checkpoint every k steps into ``ckpt_dir``; ``resume`` restores
     the newest and continues with the same data and generators. ``device``:
     the card by default (raises without CUDA), ``"cpu"`` for the plain path.
+    On a mesh ``batch`` must divide by dp and, with sp > 1, the clip length
+    by ``models.codec.sp_time_quantum(mc) * sp``.
     """
-    if (dp, sp, tp) != (1, 1, 1):
-        raise NotImplementedError(
-            f"train: dp = {dp}, sp = {sp}, tp = {tp}: the port trains on one device; the "
-            "(dp, sp, tp) mesh comes with parallelism (ROADMAP A11)")
     from .config import get_config
     from .models.zoo import _resolve_device
-    from .train import make_train_step
+    from .parallel import tp as ptp
+    from .parallel.mesh import make_mesh
+    from .train import make_sharded_train_step, make_train_step
+
+    mesh = make_mesh(dp, sp, tp) if (dp, sp, tp) != (1, 1, 1) else None
+    if batch % dp:
+        raise ValueError(f"batch {batch} not divisible by dp {dp}")
 
     dev = _resolve_device(device)
     cfg = get_config(config)
@@ -233,10 +285,20 @@ def train(config: str = "debug", *, steps: int = 20, batch: int = 4,
 
     with torch.inference_mode(False), _fp32_deterministic():
         codec = build_codec(config, dev, seed, state_dict)
+        if mesh is not None:
+            ptp.shard_codec(codec, mesh)
         # torch's defaults are optax.adam's: b1 0.9, b2 0.999, eps 1e-8
         optimizer = torch.optim.Adam(codec.parameters(), lr=lr)
-        step_fn = make_train_step(codec, lr=lr, optimizer=optimizer,
-                                  drop_path_rate=drop_path_rate, spectral=spectral)
+        if mesh is None:
+            step_fn = make_train_step(codec, lr=lr, optimizer=optimizer,
+                                      drop_path_rate=drop_path_rate, spectral=spectral)
+            save = lambda s: _save(ckpt_path, s, codec, optimizer)
+        else:
+            step_fn = make_sharded_train_step(mesh, codec, lr=lr, optimizer=optimizer,
+                                              spectral=spectral, drop_path_rate=drop_path_rate)
+            save = lambda s: _save_sharded(ckpt_path, s, codec, optimizer, mesh)
+            if mesh.rank != 0:
+                log = lambda *a, **k: None  # one log, from rank 0
 
         start = 0
         if resume:
@@ -244,7 +306,8 @@ def train(config: str = "debug", *, steps: int = 20, batch: int = 4,
             if found is None:
                 log(f"--resume: no checkpoint under {ckpt_dir}, starting fresh")
             else:
-                start = _restore(found[1], codec, optimizer)
+                start = (_restore(found[1], codec, optimizer) if mesh is None
+                         else _restore_sharded(found[1], codec, optimizer, mesh))
                 log(f"resumed from {found[1]} at step {start}")
 
         data = (WavDirAudio(wav_dir, batch, samples, cfg.sample_rate, seed)
@@ -264,12 +327,12 @@ def train(config: str = "debug", *, steps: int = 20, batch: int = 4,
                 log(f"step {step + 1}/{steps}  loss {m['loss']:.5f}  "
                     f"wav_l2 {m['wav_l2']:.5f}  ({dt:.1f}s)")
             if ckpt_path and save_every and (step + 1) % save_every == 0:
-                log(f"saved {_save(ckpt_path, step + 1, codec, optimizer)}")
+                log(f"saved {save(step + 1)}")
         # final save only if the loop advanced past the last periodic save; a
         # resume whose checkpoint is already at or past `steps` writes nothing
         # and reports the real step (l3ac_tpu/trainer.py:246-253)
         final_step = max(start, steps)
         if ckpt_path and save_every and steps > start and steps % save_every:
-            log(f"saved {_save(ckpt_path, steps, codec, optimizer)}")
+            log(f"saved {save(steps)}")
     return {"codec": codec, "optimizer": optimizer, "step": final_step,
             "metrics": {k: float(v) for k, v in metrics.items()}}

@@ -129,8 +129,10 @@ def test_cli_train_and_the_mesh_flags(tmp_path, capsys):
                  "--spectral"]) == 0
     assert "step 2/2" in capsys.readouterr().out
     assert trainer.latest(tmp_path)[0] == 2
+    # a mesh runs in every rank of a torch.distributed world (the 4-rank
+    # runs: tests/test_torch_sharded_train.py); without one it says so
     for flag in ("--dp", "--sp", "--tp"):
-        with pytest.raises(NotImplementedError, match="A11"):
+        with pytest.raises(RuntimeError, match="torch.distributed"):
             main(["train", "--steps", "1", "--device", "cpu", flag, "2"])
 
 
