@@ -55,7 +55,8 @@
 // Widths: up to Cout = 64 one block computes every output channel; above,
 // Cout is padded to 64-channel tiles and the grid's third axis walks them,
 // each block staging only its tile's W2 fragments (the rest of the work, the
-// pools and product 1, is redone per tile), up to Cout = 256.
+// pools and product 1, is redone per tile), at any Cout the grid's 65535
+// tiles of its third axis hold (ROADMAP C3: the JAX stem takes any Cout).
 //
 // bf16 stems run csrc/first_block_bf16.cu; this file's former bf16 kernel
 // is tools/first_block_bf16_mma.cu.
@@ -94,7 +95,6 @@ constexpr int kPasses = 3;                     // TF32 passes per product step
 constexpr int kMinBlocks = 5;                  // blocks per SM the registers are budgeted for
 constexpr int kCapNT = 3;                      // ... up to Cout 8 kCapNT (above, less fits)
 constexpr int kMaxNT = 8;                      // output n8 tiles per block: 64 channels
-constexpr int kMaxCout = 256;
 
 // The shared-memory image, in 32-bit words. The weights are
 // first_block.py:pack's buffer (first_block.py:sections) for this block's
@@ -410,8 +410,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 
 int launch_cout(const void* x, const float* w, void* out, int B, int T, int Cout,
                 void* stream) {
-  if (Cout < 1 || Cout > kMaxCout || B < 1 || B > 65535 || T < 1 ||
-      reinterpret_cast<uintptr_t>(w) % 16 != 0)
+  if (Cout < 1 || B < 1 || B > 65535 || T < 1 || reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+      (Cout + 8 * kMaxNT - 1) / (8 * kMaxNT) > 65535)
     return cudaErrorInvalidValue;
   const int nt = (Cout + 7) / 8;
   const Args a{x, w, out, B, T, Cout, nt <= kMaxNT ? nt : (nt + kMaxNT - 1) / kMaxNT * kMaxNT};
@@ -431,7 +431,7 @@ int launch_cout(const void* x, const float* w, void* out, int B, int T, int Cout
 }  // namespace
 
 // x: (B, T) audio; w: first_block.py:pack's buffer for Cout, 16-byte
-// aligned; out: (B, Cout, T). All fp32 and contiguous; 1 <= Cout <= 256.
+// aligned; out: (B, Cout, T). All fp32 and contiguous; Cout >= 1.
 // Returns the CUDA error code.
 extern "C" int l3ac_first_block(const float* x, const float* w, float* out, int B, int T,
                                 int Cout, void* stream) {

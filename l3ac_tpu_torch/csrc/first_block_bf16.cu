@@ -77,7 +77,7 @@ constexpr int kALen = kTile + 6;               // pooled signal incl. the k7 hal
 constexpr int kMKS = kALen + 2 * kMaxP;        // a max pool incl. its avg pool's halo
 constexpr int kMid = 80;
 constexpr int kMaxNT = 8;                      // output n8 tiles at a time: 64 channels
-constexpr int kMaxCout = 256;
+constexpr int kMaxCout = 256;                  // output channels a launch; wider: chunks of 256
 
 // Ablations (tools/first_block_variants.py --bf16 turns one off at a time):
 // kPools the trend pools, kBranch the branch convs, kProducts both mma
@@ -91,10 +91,11 @@ constexpr bool kCompute = true, kGeluVote = true;
 struct Args {
   const bf16* x;     // (B, T)
   const float* w;    // first_block.py:pack of a bf16 stem
-  bf16* out;         // (B, Cout, T)
+  bf16* out;         // (B, ldc, T): this launch's Cout channels of ldc
   int B, T, Cout;
   int NT;            // n8 tiles of the packed W2: padded Cout / 8
   int tiles;         // tiles per batch row; the grid is B tiles
+  int ldc;           // channels of the output tensor (Cout, or the whole stem's above kMaxCout)
 };
 
 // The shared-memory image in 32-bit words: first_block.py:pack's buffer
@@ -328,7 +329,7 @@ __global__ void __launch_bounds__(kThreads) first_block_bf16_kernel(const Args a
           const int r = m0 + g + 8 * (e >> 1);
           const float v = fmaf(wx[c], (e >> 1) ? xb8 : xa, acc[nt][e] + b2[c]);
           if (c < a.Cout && t0 + r < T && (kStores || v == -1234.5f))
-            a.out[(static_cast<long long>(b) * a.Cout + c) * T + t0 + r] = __float2bfloat16_rn(v);
+            a.out[(static_cast<long long>(b) * a.ldc + c) * T + t0 + r] = __float2bfloat16_rn(v);
         }
     }
   }
@@ -357,25 +358,35 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 
 // x: (B, T) bf16 audio; w: first_block.py:pack's buffer of a bf16 stem with
 // Cout outputs, 16-byte aligned; out: (B, Cout, T) bf16. Contiguous;
-// 1 <= Cout <= 256. Returns the CUDA error code.
+// Cout >= 1: above kMaxCout (ROADMAP C3) the channels run in chunks of
+// kMaxCout, one launch each, whose packs first_block.py:pack concatenates
+// (each chunk's pack a multiple of 16 bytes). Returns the CUDA error code.
 extern "C" int l3ac_first_block_bf16(const void* x, const float* w, void* out, int B, int T,
                                      int Cout, void* stream) {
-  if (Cout < 1 || Cout > kMaxCout || B < 1 || T < 1 || reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+  if (Cout < 1 || B < 1 || T < 1 || reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
       static_cast<long long>(B) * ((T + kTile - 1) / kTile) > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  const int nt = (Cout + 7) / 8;
-  const int NT = nt <= kMaxNT ? nt : (nt + kMaxNT - 1) / kMaxNT * kMaxNT;  // pack's padding
-  const int tiles = (T + kTile - 1) / kTile;
-  const Args a{static_cast<const bf16*>(x), w, static_cast<bf16*>(out), B, T, Cout, NT, tiles};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (NT <= kMaxNT ? NT : kMaxNT) {
-    case 1: return launch<1>(a, s);
-    case 2: return launch<2>(a, s);
-    case 3: return launch<3>(a, s);
-    case 4: return launch<4>(a, s);
-    case 5: return launch<5>(a, s);
-    case 6: return launch<6>(a, s);
-    case 7: return launch<7>(a, s);
-    default: return launch<8>(a, s);
+  const int tiles = (T + kTile - 1) / kTile;
+  for (int c0 = 0; c0 < Cout; c0 += kMaxCout) {
+    const int cout = Cout - c0 < kMaxCout ? Cout - c0 : kMaxCout;
+    const int nt = (cout + 7) / 8;
+    const int NT = nt <= kMaxNT ? nt : (nt + kMaxNT - 1) / kMaxNT * kMaxNT;  // pack's padding
+    const Args a{static_cast<const bf16*>(x), w, static_cast<bf16*>(out) + static_cast<long long>(c0) * T,
+                 B, T, cout, NT, tiles, Cout};
+    cudaError_t err;
+    switch (NT <= kMaxNT ? NT : kMaxNT) {
+      case 1: err = launch<1>(a, s); break;
+      case 2: err = launch<2>(a, s); break;
+      case 3: err = launch<3>(a, s); break;
+      case 4: err = launch<4>(a, s); break;
+      case 5: err = launch<5>(a, s); break;
+      case 6: err = launch<6>(a, s); break;
+      case 7: err = launch<7>(a, s); break;
+      default: err = launch<8>(a, s); break;
+    }
+    if (err != cudaSuccess) return err;
+    w += Layout(NT).weights;  // the next chunk's pack
   }
+  return cudaSuccess;
 }

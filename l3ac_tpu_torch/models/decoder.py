@@ -49,7 +49,7 @@ from ..ops.kernels import autograd
 from ..ops.kernels.conv_unit import ConvUnitWeights, cached_prepare, conv_unit_plain
 from ..ops.kernels.legacy_tail import (DILATIONS, HALO, PHALO, PreparedTail, TailWeights,
                                        legacy_tail_ct, legacy_tail_plain, legacy_tail_poly_ct,
-                                       pack)
+                                       pack, route_for)
 from ..ops.kernels.up_fused import UpPrepared, UpWeights, up_fused, up_fused_ct
 from ..parallel import sp
 from ..utils import init as pinit
@@ -148,7 +148,9 @@ class Decoder(nn.Module):
         def build() -> PreparedTail:
             with torch.no_grad():
                 w = self.tail_weights()
-                return PreparedTail(w, pack(w))
+                # the general route (legacy_tail.route_for) reads the weights as they are
+                tc = route_for(w.ao.shape[0]) == "tc"
+                return PreparedTail(w, pack(w) if tc else w.ao.new_empty(0))
 
         return cached_prepare(self.tail_alpha, src, build)
 

@@ -228,6 +228,41 @@ class LocalTrans(nn.Module):
         return x[:, :T] if pad else x
 
 
+class UpTransV1(nn.Module):
+    """The token upsampler UpTransV1 (``l3ac_tpu/models/local_transformer.py:
+    init_up_trans_v1`` / ``up_trans_v1_apply``; reference
+    ``l3ac/local_trans.py:97-111``): ``rate - 1`` learned tokens interleaved
+    after every input token, ``stack([x, tok_1, ..., tok_{rate-1}], dim=2)
+    .reshape(B, T * rate, C)``, then a :class:`LocalTrans` whose
+    ``window_size`` is the post-interleave window. No released config
+    selects it (they all take UpTransV2's linear upsample, as the JAX package
+    does); it is part of the component surface. On the card its stack runs
+    the ``local_attention`` kernel at that window, once per layer; the
+    interleave is a torch op, as it is jnp in JAX."""
+
+    def __init__(self, tc: TransConfig, rate: int, device=None):
+        super().__init__()
+        if rate < 1 or tc.window_size % rate:
+            raise ValueError(f"UpTransV1: the window {tc.window_size} is not a multiple of the "
+                             f"rate {rate} (JAX asserts it)")
+        self.rate = rate
+        self.tokens = nn.Parameter(torch.empty(rate - 1, tc.dim, device=device))
+        self.trans = LocalTrans(tc, device=device)
+
+    def init_weights(self, gen: torch.Generator) -> None:
+        pinit.normal_(self.tokens, gen)  # torch.randn(1, 1, C) per learned token
+        self.trans.init_weights(gen)
+
+    def attach_bias_cache(self) -> None:
+        self.trans.attach_bias_cache()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, T, C) -> (B, T * rate, C)."""
+        B, T, C = x.shape
+        cols = [x] + [self.tokens[i].to(x.dtype).expand(B, T, C) for i in range(self.rate - 1)]
+        return self.trans(torch.stack(cols, dim=2).reshape(B, T * self.rate, C))
+
+
 def plain_encoder_config(mc) -> TransConfig:
     # reference: LocalEncoder(depth=1)
     return TransConfig(dim=mc.feature_dim, depth=1,

@@ -20,10 +20,23 @@ with three kernels, chosen by a shape rule, never by a retry:
   other C (``debug``'s 16). ``conv_unit_simt`` also runs it on (B, C, T),
   where it is only timed beside the narrow kernel.
 
-Widths: ``conv_unit`` takes C <= ``TC_MAX_C`` (1024) on the tensor-core
-route and C <= ``MAX_C`` (512) on the SIMT route; ``conv_unit_ct`` C <=
-``NARROW_MAX_C``. :func:`admits` is the one shape rule, for the launch and
-for a walk of a model.
+Widths: every C >= 1, as the JAX kernels take (their tile budget scales
+with C, ``l3ac_tpu/ops/pallas/conv_unit.py:170-177``; ROADMAP C3).
+:func:`route_for` is the one shape rule, for the launch and for a walk of a
+model (:func:`admits` refuses only C < 1). The fast routes above take
+``conv_unit`` at C % 64 == 0 up to ``TC_MAX_C`` (1024) on the tensor cores
+(bf16: C % 8 == 0), the rest of fp32 up to ``MAX_C`` (512) on the SIMT
+kernel, and ``conv_unit_ct`` up to ``NARROW_MAX_C`` on the narrow kernels.
+Every other width (fp32 C > 512 not a multiple of 64, any C > 1024, bf16
+C % 8 != 0, the TP mode off the tensor-core widths) runs the general route
+of ``csrc/general.cu``: a depthwise conv + ChannelNorm pass of one block per
+row looping over C (the statistics in a first pass), then both products on
+its tiled SIMT GEMM (fp32 sums, exact fp32 or bf16 operands) with the
+activation, the residual or the TP share in their epilogues, from the same
+prepared operands (fp32: the TF32 hi + lo of :class:`PreparedWeights`, whose
+sum is the weight within 2^-21 relative; bf16: :class:`PreparedBf16`),
+rounding where the bf16 plain version does. ``ROUTES["general"]`` counts its
+launches (of both wrappers).
 
 bf16 (the encode half of ROADMAP A6): both wrappers take bf16 x with a bf16
 unit. ``conv_unit_ct`` runs ``csrc/conv_unit_narrow_bf16.cu`` (a persistent
@@ -54,7 +67,7 @@ wider than the narrow kernel onto the channels-last kernels (the JAX
 ``l3ac_tpu/ops/pallas/conv_unit.py:170-177``): x and its halos transposed
 to (B, T, C), ``conv_unit``'s kernel of x's dtype (C % 64 == 0 in fp32,
 C % 8 == 0 in bf16), the result transposed back. It is a route of the
-shape rule (:func:`admits`), counted in ``ROUTES["channels_last"]``
+shape rule (:func:`route_for`), counted in ``ROUTES["channels_last"]``
 (``ROUTES["narrow"]`` counts the narrow kernel's launches), not a fallback.
 
 Tensor-parallel operand mode (``partial=True``, ``parallel.tp``): the unit's
@@ -113,7 +126,7 @@ NARROW_MAX_C = 96  # conv_unit_ct: conv_unit_narrow.cu's 12 n8 tiles of the seco
 TP_HIDDEN_MULTIPLE = 8  # a TP shard's hidden units padded to this (W2' rows of 16 / 32 bytes)
 # conv_unit_ct's launches by kernel: the narrow kernel, or the channels-last
 # kernels above NARROW_MAX_C
-ROUTES: dict[str, int] = {"narrow": 0, "channels_last": 0}
+ROUTES: dict[str, int] = {"narrow": 0, "channels_last": 0, "general": 0}
 
 
 class ConvUnitWeights(NamedTuple):
@@ -414,28 +427,27 @@ def admits(name: str, C: int, dtype: torch.dtype = torch.float32,
            partial: bool = False) -> str | None:
     """Why the CUDA route of ``name`` (``"conv_unit"`` or ``"conv_unit_ct"``)
     does not take width C in ``dtype`` (``partial``: in the tensor-parallel
-    operand mode), or None when it does. The launch raises with this reason.
-    ``conv_unit_ct`` above ``NARROW_MAX_C`` takes ``conv_unit``'s rule (the
-    channels-last route)."""
-    if name == "conv_unit_ct":
-        if 1 <= C <= NARROW_MAX_C:
-            return None
-        mult = BF16_MULTIPLE if dtype == torch.bfloat16 else TC_MULTIPLE
-        if C < 1 or C % mult or C > TC_MAX_C:
-            return (f"conv_unit_ct: C = {C} outside 1..{NARROW_MAX_C} (the narrow kernel), and "
-                    f"the channels-last route above it takes {dtype} C a multiple of {mult} "
-                    f"up to {TC_MAX_C}")
-        return None
-    if C % TC_MULTIPLE == 0 or (dtype == torch.bfloat16 and C % BF16_MULTIPLE == 0):
-        return None if 1 <= C <= TC_MAX_C else \
-            f"conv_unit: C = {C} outside 1..{TC_MAX_C} (tensor-core route)"
-    if dtype == torch.bfloat16:
-        return (f"conv_unit: bf16 runs on the tensor-core route only, C a multiple of "
-                f"{BF16_MULTIPLE}; got C = {C}")
-    if partial:
-        return (f"conv_unit: the tensor-parallel mode runs on the tensor-core route, C a "
-                f"multiple of {TC_MULTIPLE}; got C = {C} (SIMT route)")
-    return None if 1 <= C <= MAX_C else f"conv_unit: C = {C} outside 1..{MAX_C} (SIMT route)"
+    operand mode), or None when it does: every C >= 1 (:func:`route_for`
+    names the kernel). The launch raises with this reason."""
+    return None if C >= 1 else f"{name}: C = {C} is not a width (C >= 1)"
+
+
+def route_for(name: str, C: int, dtype: torch.dtype = torch.float32,
+              partial: bool = False) -> str:
+    """The kernel that runs width C: ``"narrow"`` (``conv_unit_ct`` up to
+    NARROW_MAX_C), ``"tc"`` (the tensor-core kernels: fp32 C % 64 == 0, bf16
+    C % 8 == 0, up to TC_MAX_C), ``"simt"`` (fp32 up to MAX_C, not in the TP
+    mode) or ``"general"`` (``csrc/general.cu``: every other C).
+    ``conv_unit_ct`` above NARROW_MAX_C runs on the transposed x, by
+    ``conv_unit``'s rule (the channels-last route)."""
+    if name == "conv_unit_ct" and C <= NARROW_MAX_C:
+        return "narrow"
+    mult = BF16_MULTIPLE if dtype == torch.bfloat16 else TC_MULTIPLE
+    if C % mult == 0 and C <= TC_MAX_C:
+        return "tc"
+    if dtype != torch.bfloat16 and not partial and C <= MAX_C:
+        return "simt"
+    return "general"
 
 
 def _check_weights(w: ConvUnitWeights, C: int, name: str, max_c: int = MAX_C) -> int:
@@ -638,6 +650,81 @@ def _launch_bf16(x: torch.Tensor, p: PreparedBf16, dilation: int, *,
     return out
 
 
+_GEMM_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2 +
+                  [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2 +
+                  [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p] +
+                  [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong] +
+                  [ctypes.c_int] * 2 + [ctypes.c_void_p])
+_DW_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 6 +
+                [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p])
+ACT_NONE, ACT_SNAKE, ACT_GELU = 0, 1, 2
+
+
+def general_gemm(a: torch.Tensor, a_map: tuple[int, int, int, int], b: torch.Tensor,
+                 b_lo: torch.Tensor | None, bias: torch.Tensor | None, out: torch.Tensor,
+                 o_map: tuple[int, int, int, int], M: int, *, alpha: torch.Tensor | None = None,
+                 act: int = ACT_NONE, res: torch.Tensor | None = None,
+                 round_mid: bool = False) -> None:
+    """``csrc/general.cu``'s product, out = act(A B^T + bias) (+ res): A's
+    row m at ``a[(m // rows) sb + (m % rows) st]`` with ``a_map = (rows, sb,
+    st, sk)`` (sk the stride of K), B (N, K) contiguous (plus ``b_lo``, fp32,
+    where B is a TF32 hi / lo pair), out and res at ``o_map = (rows, sb, st,
+    sn)``; fp32 sums, bf16 or fp32 operands and output. Counts nothing."""
+    N, Kd = b.shape
+    bf = lambda t: int(t.dtype == torch.bfloat16)
+    fn = _build.function("l3ac_general_gemm", _GEMM_ARGTYPES)
+    err = fn(a.data_ptr(), a_map[1], a_map[2], a_map[3], a_map[0], bf(a), b.data_ptr(),
+             _build.ptr(b_lo), bf(b), _build.ptr(bias), _build.ptr(alpha), act, _build.ptr(res),
+             0 if res is None else bf(res), int(round_mid), out.data_ptr(), o_map[1], o_map[2],
+             o_map[3], o_map[0], bf(out), M, N, Kd, _build.stream_ptr())
+    _build.check(err, "general gemm")
+
+
+def _launch_general(x: torch.Tensor, w: ConvUnitWeights, p: PreparedWeights | PreparedBf16,
+                    dilation: int, partial: bool, name: str) -> torch.Tensor:
+    """The general route (``csrc/general.cu``) on (B, T, C) x of any C: the
+    depthwise conv + ChannelNorm pass into a (B T, C) buffer of x's dtype,
+    pw1 with the activation into (B T, H), pw2 with the residual (TP mode:
+    the fp32 share, no residual). Operands from ``p`` (bf16: every one;
+    fp32: the products and a TP shard's padded b1 / alpha, the rest from
+    ``w``)."""
+    B, T, C = x.shape
+    bf16 = isinstance(p, PreparedBf16)
+    if bf16 != (x.dtype == torch.bfloat16):
+        raise TypeError(f"{name}: x is {x.dtype} but the unit's weights are not")
+    if bf16:
+        dw, dw_b, nw, nb = p.dw, p.dw_b, p.norm_w, p.norm_b
+        w1, w1_lo, w2, w2_lo, b1, alpha, b2 = p.w1, None, p.w2, None, p.b1, p.alpha, p.b2
+        ksz = _check_bf16(x, p, C, name, partial)
+    else:
+        ksz = _check_weights(w, C, name, max_c=C)
+        dw, dw_b, nw, nb = w.dw_w[:, 0, :], w.dw_b, w.norm_w, w.norm_b
+        w1, w1_lo, w2, w2_lo, b2 = p.w1_hi, p.w1_lo, p.w2_hi, p.w2_lo, p.b2
+        b1, alpha = p.hidden_vectors(w)
+    H = w1.shape[0]
+    if w1.shape != (H, C) or w2.shape != (C, H) or b1.shape != (H,) or \
+            (H != 4 * C and not partial):
+        raise ValueError(f"{name}: prepared weight shapes do not match C = {C}")
+    K.check_cuda({"x": x, "w1": w1, "w2": w2}, x.device, dtype=x.dtype)
+    K.check_cuda({"dw": dw, "dw_b": dw_b, "norm_w": nw, "norm_b": nb, "w1_lo": w1_lo,
+                  "w2_lo": w2_lo, "b1": b1, "alpha": alpha, "b2": b2}, x.device)
+    M = B * T
+    a = torch.empty(M, C, device=x.device, dtype=x.dtype)
+    h = torch.empty(M, H, device=x.device, dtype=x.dtype)
+    out = torch.empty(x.shape, device=x.device, dtype=torch.float32 if partial else x.dtype)
+    fn = _build.function("l3ac_general_dw_norm", _DW_ARGTYPES)
+    err = fn(x.data_ptr(), T * C, C, 1, int(bf16), B, T, C, ksz, dilation, dw.data_ptr(),
+             dw_b.data_ptr(), _build.ptr(nw), _build.ptr(nb), a.data_ptr(), int(bf16),
+             _build.stream_ptr())
+    _build.check(err, name)
+    flat = lambda n: (M, 0, n, 1)
+    general_gemm(a, flat(C), w1, w1_lo, b1, h, flat(H), M, alpha=alpha,
+                 act=ACT_SNAKE if alpha is not None else ACT_GELU)
+    general_gemm(h, flat(H), w2, w2_lo, b2, out, flat(C), M,
+                 res=None if partial else x)
+    return out
+
+
 def _plain(channel_dim: int, dilation: int, partial: bool) -> Callable:
     """The fp32 plain version over the flattened inputs (x, lh, rh,
     *ConvUnitWeights): what a training backward differentiates
@@ -665,7 +752,7 @@ def conv_unit_ct(x: torch.Tensor, w: ConvUnitWeights, *, dilation: int = 1,
                  partial: bool = False) -> torch.Tensor:
     """Residual ConvUnit on (B, C, T), fp32 or bf16. On CUDA the narrow
     tensor-core kernel of x's dtype at C <= NARROW_MAX_C, above it the
-    channels-last kernels on the transposed x (:func:`admits`), their
+    channels-last kernels on the transposed x (:func:`route_for`), their
     operands from ``prepared()`` when given (then ``w`` may leave pw1_w /
     pw2_w out), else from :func:`prepared_weights`; under autograd through
     ``autograd.call`` (the backward differentiates the plain version on
@@ -719,12 +806,13 @@ def conv_unit_ct(x: torch.Tensor, w: ConvUnitWeights, *, dilation: int = 1,
 def conv_unit(x: torch.Tensor, w: ConvUnitWeights, *, dilation: int = 1,
               lh: torch.Tensor | None = None, rh: torch.Tensor | None = None,
               partial: bool = False) -> torch.Tensor:
-    """Residual ConvUnit on (B, T, C), fp32 or bf16. On CUDA: the tensor-core
-    path when C is a multiple of TC_MULTIPLE (bf16: of BF16_MULTIPLE), else
-    (fp32 only) the SIMT kernel; one count either way; under autograd through
+    """Residual ConvUnit on (B, T, C), fp32 or bf16. On CUDA the kernel
+    :func:`route_for` names (the tensor-core path, the SIMT kernel or the
+    general route); one count either way; under autograd through
     ``autograd.call``. Plain on CPU. ``lh`` / ``rh``: SP halo blocks (B,
     3 * dilation, C), staged as :func:`conv_unit_ct` stages them.
-    ``partial``: the tensor-parallel operand mode (tensor-core route only)."""
+    ``partial``: the tensor-parallel operand mode (the tensor-core or the
+    general route)."""
     K.check_input(x, "conv_unit x", ndim=3, dtype=K.DTYPES)
     if not K.route(x, "conv_unit"):
         plain = conv_unit_plain_bf16 if x.dtype == torch.bfloat16 else conv_unit_plain
@@ -745,16 +833,22 @@ def _channels_last(x: torch.Tensor, w: ConvUnitWeights, dilation: int, lh, rh, p
     if why is not None:
         raise ValueError(why)
     _check_trainable(x, w, "conv_unit")
-    tc = bf16 or x.shape[2] % TC_MULTIPLE == 0
-    p = (prepared() if prepared is not None else prepared_weights(w, partial)) if tc else None
-    if tc and bf16 != isinstance(p, PreparedBf16):
+    route = route_for("conv_unit", x.shape[2], x.dtype, partial)
+    p = (prepared() if prepared is not None else prepared_weights(w, partial)) \
+        if route != "simt" else None
+    if p is not None and bf16 != isinstance(p, PreparedBf16):
         raise TypeError(f"conv_unit: x is {x.dtype} but the unit's weights are not")
-    if bf16:
+    if route == "general":
+        run = lambda x: _launch_general(x, w, p, dilation, partial, "conv_unit")
+    elif bf16:
         run = lambda x: _launch_bf16(x, p, dilation, channels_last=True, partial=partial)
-    elif tc:
+    elif route == "tc":
         tp_kw = {"partial": True} if partial else {}
         run = lambda x: _launch_tc(x, w, dilation, p=p, **tp_kw)
     else:
         run = lambda x: conv_unit_simt(x, w, dilation, channels_last=True)
     launch = lambda: K.halo_call(run, x, lh, rh, axis=1, out_axis=1)
-    return autograd.call("conv_unit", launch, _plain(2, dilation, partial), x, lh, rh, *w)
+    out = autograd.call("conv_unit", launch, _plain(2, dilation, partial), x, lh, rh, *w)
+    if route == "general":
+        ROUTES["general"] += 1
+    return out

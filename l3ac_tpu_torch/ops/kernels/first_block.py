@@ -24,9 +24,13 @@ is replaced or changed in place, never cached for an inference tensor), and
 its parameters. Bound on the H100 and design: the note at the head of
 ``csrc/first_block.cu``.
 
-Widths: 1 <= Cout <= ``MAX_COUT`` (256). Above 64 the output channels are
-padded to a multiple of 64 and each block computes one 64-channel tile of
-them (the grid's third axis), redoing the pools and product 1 per tile.
+Widths: any Cout >= 1, as the JAX stem takes (ROADMAP C3). Above 64 the
+output channels are padded to a multiple of 64 and each block computes one
+64-channel tile of them (the grid's third axis), redoing the pools and
+product 1 per tile. The bf16 kernel stages the whole W2 of a launch in
+shared memory, so above ``BF16_CHUNK`` (256) channels it runs one launch per
+chunk of 256 (its pack the chunks' packs concatenated); ``ROUTES["wide"]``
+counts the stems above 256 channels (both dtypes).
 
 bf16 (the encode half of ROADMAP A6): bf16 audio with a bf16 stem runs
 ``csrc/first_block_bf16.cu``, rounding where
@@ -62,7 +66,10 @@ from .conv_unit import cached_prepare
 from .tc_gemm import split_tf32
 
 POOLS = (1, 5, 11, 21, 45)
-MAX_COUT = 256
+BF16_CHUNK = 256  # csrc/first_block_bf16.cu kMaxCout: output channels a bf16 launch
+# launches of a stem wider than 256 channels (fp32: more tiles of the grid's
+# third axis; bf16: one kernel launch per chunk of BF16_CHUNK channels)
+ROUTES: dict[str, int] = {"wide": 0}
 COUT_TILE = 64   # output channels per block (csrc/first_block.cu kMaxNT n8 tiles)
 TILE = 128        # output columns per tile (csrc/first_block.cu kTile)
 TILE_BF16 = 128   # ... of csrc/first_block_bf16.cu
@@ -156,9 +163,18 @@ def sections(Cout: int, bf16: bool = False) -> dict[str, tuple[int, ...]]:
             "branch_b": (5, 4)}
 
 
+def chunks(Cout: int, bf16: bool) -> list[tuple[int, int]]:
+    """The (first, end) output channels of each launch: one for fp32, chunks
+    of BF16_CHUNK for bf16."""
+    step = BF16_CHUNK if bf16 else Cout
+    return [(c, min(c + step, Cout)) for c in range(0, Cout, step)]
+
+
 def packed_floats(Cout: int, bf16: bool = False) -> int:
-    """The 32-bit words of :func:`pack`'s buffer."""
-    return sum(math.prod(shape) for shape in sections(Cout, bf16).values())
+    """The 32-bit words of :func:`pack`'s buffer (a bf16 stem's: its
+    chunks' packs)."""
+    return sum(math.prod(shape) for c0, c1 in chunks(Cout, bf16)
+               for shape in sections(c1 - c0, bf16).values())
 
 
 def _pairs(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
@@ -208,8 +224,9 @@ def k_slot(br: int, c: int) -> int:
 
 
 def admits(Cout: int) -> str | None:
-    """Why the kernel does not take Cout output channels, or None when it does."""
-    return None if 1 <= Cout <= MAX_COUT else f"the kernel takes 1 <= Cout <= {MAX_COUT}, got {Cout}"
+    """Why the kernel does not take Cout output channels, or None when it
+    does: every Cout >= 1."""
+    return None if Cout >= 1 else f"the kernel takes Cout >= 1, got {Cout}"
 
 
 def _check_shapes(w: FirstBlockWeights, name: str) -> int:
@@ -238,9 +255,15 @@ def pack(w: FirstBlockWeights) -> torch.Tensor:
       8j + 2t and k = t + 4 is 8j + 2t + 1, the permutation that makes
       product 1's accumulator product 2's A fragment;
     - b1 (80); b2 (Cp); W2[:, 80] (Cp), the raw sample's column; the branch
-      convs (5, 4, 7) and their biases (5, 4), in fp32 as they are."""
+      convs (5, 4, 7) and their biases (5, 4), in fp32 as they are.
+
+    A bf16 stem wider than BF16_CHUNK: the packs of its chunks of output
+    channels (:func:`chunks`), concatenated."""
     Cout = _check_shapes(w, "first_block pack")
     Cp = padded_cout(Cout)
+    if w.w1.dtype == torch.bfloat16 and Cout > BF16_CHUNK:
+        return torch.cat([pack(w._replace(w2=w.w2[c0:c1], b2=w.b2[c0:c1]))
+                          for c0, c1 in chunks(Cout, True)])
     if w.w1.dtype == torch.bfloat16:
         with torch.no_grad():
             wf = FirstBlockWeights(*(p.float() for p in w))
@@ -298,6 +321,8 @@ def _launch(x: torch.Tensor, w: FirstBlockWeights | PreparedStem) -> torch.Tenso
     err = fn(x.data_ptr(), wp.data_ptr(), out.data_ptr(), B, T, Cout, _build.stream_ptr())
     _build.check(err, "first_block")
     K.LAUNCHES["first_block"] += 1
+    if Cout > BF16_CHUNK:
+        ROUTES["wide"] += 1
     return out
 
 

@@ -23,9 +23,19 @@ in place, never cached for an inference tensor), and ``models.decoder``
 passes the buffer it cached with its stacked weights. Bound on the H100 and
 design: the note at the head of ``csrc/legacy_tail.cu``.
 
-Widths: C a multiple of 4 up to ``MAX_C`` (64); :func:`admits` is the rule.
-Up to 24 channels the kernel keeps every weight in shared memory; wider, it
-reads the matrices from device memory.
+Widths: every C >= 1, as the JAX kernel takes (its BlockSpecs hold the
+whole C, ``l3ac_tpu/ops/pallas/legacy_tail.py:245``; ROADMAP C3).
+:func:`route_for` is the rule (:func:`admits` refuses only C < 1). The
+tensor-core kernels take C a multiple of 4 up to ``MAX_C`` (64); up to 24
+channels they keep every weight in shared memory, wider they read the
+matrices from device memory. Every other C runs the general route of
+``csrc/general.cu`` (``l3ac_general_tail``): each snake an elementwise pass
+into a scratch buffer (the phase pair and the interleaved input read in
+place), each conv one product of its tiled SIMT GEMM (a k7 conv by im2col
+addresses, the residual, the bf16 roundings and the closing tanh in the
+epilogue), rounding where the bf16 plain version does; its operands are the
+weights as they are and :func:`general_vectors` (cached like the pack).
+``ROUTES`` counts the launches of each route.
 
 bf16 (x bf16 with bf16 weights): ``csrc/legacy_tail_bf16.cu``, one bf16
 tensor-core pass per product (m16n8k16, the k7 conv's taps folded into one K),
@@ -63,15 +73,21 @@ from .tc_gemm import split_tf32
 DILATIONS = (1, 3, 9)
 HALO = 42       # SP halo a side: the receptive field, 3 (1 + 3 + 9) + 3
 PHALO = 21      # ... of each phase of the polyphase input
-MAX_C = 64      # C a multiple of 4 up to this (every released config has 24)
+MAX_C = 64      # the tensor-core kernels: C a multiple of 4 up to this (released: 24)
 ALIGN_C = 4
+ROUTES: dict[str, int] = {"tc": 0, "general": 0}  # launches of either entry point by route
 
 
 def admits(C: int) -> str | None:
-    """Why the kernel does not take C channels, or None when it does."""
-    if not (ALIGN_C <= C <= MAX_C and C % ALIGN_C == 0):
-        return f"the kernel takes C a multiple of {ALIGN_C} up to {MAX_C}, got {C}"
-    return None
+    """Why no kernel takes C channels, or None when one does: every C >= 1
+    (:func:`route_for` names the kernel)."""
+    return None if C >= 1 else f"the kernel takes C >= 1, got {C}"
+
+
+def route_for(C: int) -> str:
+    """``"tc"`` (``csrc/legacy_tail.cu`` / ``legacy_tail_bf16.cu``) for C a
+    multiple of ALIGN_C up to MAX_C, else ``"general"``."""
+    return "tc" if ALIGN_C <= C <= MAX_C and C % ALIGN_C == 0 else "general"
 
 
 class TailWeights(NamedTuple):
@@ -235,6 +251,47 @@ def prepared_tail(w: TailWeights) -> torch.Tensor:
     return cached_prepare(w.w1, tuple(w), lambda: pack(w))
 
 
+def general_vectors(w: TailWeights) -> torch.Tensor:
+    """The general route's fp32 vectors, one buffer: (3, C) a1, b1, a2, b2,
+    then (C) ao and bo (the fp32 values of bf16 parameters)."""
+    with torch.no_grad():
+        return torch.cat([t.float().reshape(-1) for t in (w.a1, w.b1, w.a2, w.b2, w.ao, w.bo)])
+
+
+_GENERAL: dict[int, tuple] = {}
+
+
+def prepared_general(w: TailWeights) -> tuple[torch.Tensor, ...]:
+    """(w1, w2, wo contiguous, :func:`general_vectors`), cached on ``w``'s
+    tensors by ``cached_prepare``."""
+    def build():
+        with torch.no_grad():
+            return (w.w1.contiguous(), w.w2.contiguous(), w.wo.contiguous(), general_vectors(w))
+    return cached_prepare(w.w1, tuple(w), build, store=_GENERAL)
+
+
+_GENERAL_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 8 + \
+    [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def _launch_general(x0: torch.Tensor, x1: torch.Tensor | None, w: TailWeights, T: int,
+                    name: str) -> torch.Tensor:
+    """``csrc/general.cu``'s tail on x0 (and x1: the phase pair), any C."""
+    B, C = x0.shape[:2]
+    _check_shapes(w, C, name)
+    w1, w2, wo, vec = prepared_general(w)
+    K.check_cuda({"x0": x0, "x1": x1, "w1": w1, "w2": w2, "wo": wo}, x0.device, dtype=x0.dtype)
+    K.check_cuda({"vectors": vec}, x0.device)
+    bufs = [torch.empty((B, C, T), device=x0.device, dtype=x0.dtype) for _ in range(3)]
+    out = torch.empty((B, T), device=x0.device, dtype=x0.dtype)
+    fn = _build.function("l3ac_general_tail", _GENERAL_ARGTYPES)
+    err = fn(x0.data_ptr(), _build.ptr(x1), x0.stride(0), x0.stride(1), w1.data_ptr(),
+             w2.data_ptr(), wo.data_ptr(), vec.data_ptr(), *(b.data_ptr() for b in bufs),
+             out.data_ptr(), B, C, T, int(x0.dtype == torch.bfloat16), _build.stream_ptr())
+    _build.check(err, name)
+    return out
+
+
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2 + \
     [ctypes.c_void_p]
 
@@ -248,6 +305,11 @@ def _launch(x0: torch.Tensor, x1: torch.Tensor | None, w: TailWeights | Prepared
     w_dtype = _plain_weights(w).w1.dtype
     if w_dtype != x0.dtype:
         raise TypeError(f"{name}: x is {x0.dtype} but the weights are {w_dtype}")
+    if route_for(C) == "general":
+        out = _launch_general(x0, x1, _plain_weights(w), T, name)
+        K.LAUNCHES[name] += 1
+        ROUTES["general"] += 1
+        return out
     if isinstance(w, PreparedTail):
         wp = w.packed
     else:
@@ -267,6 +329,7 @@ def _launch(x0: torch.Tensor, x1: torch.Tensor | None, w: TailWeights | Prepared
              x0.stride(0), x0.stride(1), _build.stream_ptr())
     _build.check(err, name)
     K.LAUNCHES[name] += 1
+    ROUTES["tc"] += 1
     return out
 
 

@@ -26,9 +26,8 @@ it reads no mask planes. A masked key gets weight 0, as NEG_INF does in the
 plain version.
 
 Heads are read in place: q, k and v may be any (B, H, T, D) views whose last
-dim is contiguous, whose B / H / T strides are multiples of 4 floats and
-whose data is 16-byte aligned (the head split of a (B, T, 3 H D) projection
-is one); the wrapper raises on any other view and never copies. The output
+dim is contiguous (the head split of a (B, T, 3 H D) projection is one); the
+wrapper raises on any other view and never copies. The output
 is written as (B, T, H, D) and returned as its (B, H, T, D) permuted view, so
 the caller's merge of the heads is a view too.
 
@@ -37,9 +36,24 @@ products, online softmax in registers, the table column in shared memory)
 and how P moves between the two products: the note at the head of
 ``csrc/local_attention.cu``. No SDPA, no cuDNN, no cuBLAS.
 
-Head dims: D a multiple of 4 up to ``MAX_HEAD_DIM`` (128), the K loop of
-S = q K^T in steps of 8 (fp32) or 16 (bf16) and O in D / 8 n8 tiles.
-:func:`admits` is the shape rule the launch applies.
+Head dims and views (:func:`fast_takes`, the shape rule the launch
+applies): the two tensor-core kernels take D a multiple of 4 up to
+``MAX_HEAD_DIM`` (128), the K loop of S = q K^T in steps of 8 (fp32) or 16
+(bf16) and O in D / 8 n8 tiles, on views whose B / H / T strides are
+multiples of 4 elements and whose data is 16-byte (fp32) or 8-byte (bf16)
+aligned. Every other head dim and view, as the JAX kernel takes them (its
+BlockSpecs hold the whole D, ``l3ac_tpu/ops/pallas/local_attention.py:
+178-187``), runs the general route of ``csrc/general.cu``
+(``l3ac_general_attention``): one warp per query row, q and O in shared
+memory, the scores of 32 keys at a time by lanes over the head dim and a
+transpose through shared memory, the softmax's max and sum in a first
+pass, P in a second and O by lanes over the head dim, each element loaded
+alone, so any D and any element strides, with the same operands (bias or
+table, ``kp``, ``prev_k`` / ``prev_v``, ``left_edge``, ``head_offset``; the
+TP mode reads a contiguous copy of its heads' table columns in both
+dtypes there) and the plain version's rounding points in bf16 (the
+normalized P rounded to bf16). ``ROUTES["general"]`` counts its launches.
+:func:`admits` refuses only D < 1.
 
 bf16: bf16 q / k / v (and a bias or table in bf16) run
 ``csrc/local_attention_bf16.cu``, designed for the H100: a persistent grid of
@@ -94,30 +108,37 @@ ROUTE_CODE = {"tma": 0, "cp_async": 1}
 # previous-window operands: "kp" (the rotary path's previous-role keys) and
 # "prev_k" (window 0's previous block, the SP path); and the bf16 launches
 # per instantiation (the columns of the padded head dim it runs, :func:`instance_for`)
-ROUTES: dict[str, int] = dict.fromkeys((*ROUTE_CODE, "kp", "prev_k"), 0)
+ROUTES: dict[str, int] = dict.fromkeys((*ROUTE_CODE, "kp", "prev_k", "general"), 0)
 INSTANCES: dict[int, int] = dict.fromkeys((16, 32, 64, 128), 0)
 
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12 +
              [ctypes.c_float, ctypes.c_void_p])
 _ARGTYPES_BF16 = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12 +
                   [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_GENERAL_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 +
+                     [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_float,
+                      ctypes.c_void_p])
 
 
 def _strides(t: torch.Tensor, name: str) -> tuple[list[int], int]:
-    """The B, H, T element strides the kernel takes for a (B, H, T, D) view
-    (0 for a dim of size 1) and its data address; raises on a view it cannot
-    read in place."""
+    """The B, H, T element strides the kernels take for a (B, H, T, D) view
+    (0 for a dim of size 1) and its data address; raises on a view whose
+    last dim is not contiguous (no kernel reads it in place)."""
     st, sh, ptr = t.stride(), t.shape, t.data_ptr()
     if sh[3] > 1 and st[3] != 1:
         raise ValueError(f"local_attention: {name}'s last dim is not contiguous "
                          f"(strides {st}); the kernel does not copy")
-    out = [st[0] if sh[0] > 1 else 0, st[1] if sh[1] > 1 else 0, st[2] if sh[2] > 1 else 0]
-    piece = ALIGN * t.element_size()
-    if out[0] % ALIGN or out[1] % ALIGN or out[2] % ALIGN or ptr % piece:
-        raise ValueError(f"local_attention: {name} (strides {st}, address "
-                         f"{ptr:#x}) is not a view of {piece}-byte aligned rows: "
-                         f"its B / H / T strides must be multiples of {ALIGN}")
-    return out, ptr
+    return [st[0] if sh[0] > 1 else 0, st[1] if sh[1] > 1 else 0, st[2] if sh[2] > 1 else 0], ptr
+
+
+def fast_takes(D: int, strides: list[int], ptrs: list[int], element_size: int) -> bool:
+    """Whether the tensor-core kernel of this dtype takes head dim D on views
+    with these B / H / T element strides and data addresses: D a multiple
+    of ALIGN up to MAX_HEAD_DIM, every stride a multiple of ALIGN and every
+    address aligned to ALIGN elements. Else the general route runs."""
+    piece = ALIGN * element_size
+    return (ALIGN <= D <= MAX_HEAD_DIM and D % ALIGN == 0
+            and all(s % ALIGN == 0 for s in strides) and all(p % piece == 0 for p in ptrs))
 
 
 @functools.lru_cache(maxsize=None)
@@ -127,12 +148,9 @@ def _bf16_scale(D: int) -> float:
 
 
 def admits(D: int) -> str | None:
-    """Why the kernel does not take head dim D, or None when it does."""
-    if not 1 <= D <= MAX_HEAD_DIM:
-        return f"local_attention: the kernel takes D <= {MAX_HEAD_DIM}, got {D}"
-    if D % ALIGN:
-        return f"local_attention: the kernel takes D a multiple of {ALIGN}, got {D}"
-    return None
+    """Why no kernel takes head dim D, or None when one does: every D >= 1
+    (:func:`fast_takes` names the kernel)."""
+    return None if D >= 1 else f"local_attention: the kernel takes D >= 1, got {D}"
 
 
 def route_for(strides: list[int], ptrs: list[int]) -> str:
@@ -268,11 +286,20 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     prev = None
     if prev_k is not None:
         prev = [_strides(t, name)[1] for name, t in (("prev_k", prev_k), ("prev_v", prev_v))]
+    prev_strides = [H * n * D if B > 1 else 0, n * D if H > 1 else 0, D] * 2 \
+        if prev is not None else []
+    general = not fast_takes(D, strides + prev_strides, ptrs + list(prev or []),
+                             q.element_size())
 
     extra = {} if prev is None and not edge else {"prev": prev, "left_edge": edge}
 
     if full_table is not None:
-        extra["table_rows"] = (full_table, head_offset)
+        if general:  # the general kernel reads a contiguous table of the rank's heads
+            bias_table = full_table[:, head_offset:head_offset + H].contiguous()
+        else:
+            extra["table_rows"] = (full_table, head_offset)
+    if general:
+        extra["general"] = True
 
     def launch():
         return _launch(q, k, v, bias, bias_table, n, ptrs, strides, **extra)
@@ -297,19 +324,30 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor | None,
             bias_table: torch.Tensor | None, n: int, ptrs: list[int], strides: list[int],
             prev: list[int] | None = None, left_edge: int = 0,
-            table_rows: tuple[torch.Tensor, int] | None = None) -> torch.Tensor:
+            table_rows: tuple[torch.Tensor, int] | None = None,
+            general: bool = False) -> torch.Tensor:
     """The kernel of q's dtype on operands :func:`local_attention` checked
     (``ptrs`` / ``strides`` of q, k, v and kp when given; ``prev`` the
     addresses of prev_k and prev_v, contiguous (B, H, n, D), or None) ->
     (B, T, H, D). ``table_rows``: the TP mode's (whole table, first head),
-    whose prepared rows the bf16 kernel reads in place."""
+    whose prepared rows the bf16 kernel reads in place. ``general``: the
+    general route of ``csrc/general.cu`` (either dtype)."""
     B, H, T, D = q.shape
     out = torch.empty((B, T, H, D), device=q.device, dtype=q.dtype)
     pk, pv = prev if prev is not None else (None, None)
     kp = ptrs[3] if len(ptrs) > 3 else None
     args = (*ptrs[:3], kp, pk, pv)
     kp_strides = strides[9:12] if kp is not None else [0, 0, 0]
-    if q.dtype == torch.bfloat16:
+    if general:
+        bf16 = q.dtype == torch.bfloat16
+        st = (ctypes.c_longlong * 12)(*strides[:9], *kp_strides)
+        fn = _build.function("l3ac_general_attention", _GENERAL_ARGTYPES)
+        err = fn(*args, _build.ptr(bias), _build.ptr(bias_table), out.data_ptr(), B, H, T, n, D,
+                 left_edge, st, int(bf16), _bf16_scale(D) if bf16 else D ** -0.5,
+                 _build.stream_ptr())
+        _build.check(err, "local_attention")
+        ROUTES["general"] += 1
+    elif q.dtype == torch.bfloat16:
         prev_strides = [H * n * D if B > 1 else 0, n * D if H > 1 else 0, D] * 2 \
             if prev is not None else []
         route = route_for(strides + prev_strides, ptrs + list(prev or []))

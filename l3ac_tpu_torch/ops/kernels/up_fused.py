@@ -33,11 +33,19 @@ failure:
   statistics in registers); the bf16 instance of ``up_fused.cu`` serves only
   the (B, T, C) input at stream shapes (:func:`stream_buffer`).
 
-A shape that neither takes raises on a CUDA tensor; the plain version runs
-only for a CPU tensor. The decoder hands them no such shape: its (B, C, T)
-stages have inputs of at most 96 channels, and the streaming kernel takes
-their outputs up to 128 (wider ones run into ``conv_unit_ct``'s C <= 96
-first, ROADMAP C3).
+- ``csrc/general.cu`` (route ``"general"``): every other shape, as the JAX
+  kernels take any Ci and Co (``l3ac_tpu/ops/pallas/upsample.py:159-160``;
+  ROADMAP C3): the (B, C, T) stages past 128 channels and the (B, T, C) ones
+  past Ci 1024 or Co 512, both layouts, both dtypes and ``phase_split``. Its
+  tiled SIMT GEMM writes z = W x + b (fp32) for every input row, x read in
+  place in either layout; then one block per output row blends the phase
+  from z's rows t - 1, t, t + 1 (the plain version's products and sum),
+  takes ChannelNorm's statistics over the whole Co row in a first pass and
+  stores the row at its interleaved (or phase) address, rounded once to x's
+  dtype. Its weights are the ``"general"`` buffer (W as it is, contiguous)
+  and the ``"general_vec"`` one (b, norm_w, norm_b in fp32).
+
+The plain version runs only for a CPU tensor.
 
 bf16 (x bf16 with bf16 weights): each kernel's bf16 variant, one bf16
 tensor-core pass with fp32 sums; the bias, the blend and the norm in fp32
@@ -70,16 +78,16 @@ import torch.nn.functional as F
 
 from .. import kernels as K
 from ..norms import channel_norm
-from ..resample import interleave, upsample_phases
+from ..resample import interleave, phase_weights, upsample_phases
 from . import _build, autograd
-from .conv_unit import cached_prepare
+from .conv_unit import cached_prepare, general_gemm
 
 MAX_SCALE = 16
 TC_MAX_CO = 256                        # up_fused_tc.cu at Co % 32 == 0, Ci % 4 == 0 ...
 TC_WIDE_MAX_CI, TC_WIDE_MAX_CO = 1024, 512  # ... and at any other Ci, Co up to these
 STREAM_MAX_CI, STREAM_MAX_CO = 128, 128  # up_fused.cu
 TC_OWN_ROWS = 62                        # up_fused_tc.cu: rows a block stores (64 z rows)
-ROUTES: dict[str, int] = {"wgmma": 0, "tc": 0, "stream": 0}  # launches by kernel
+ROUTES: dict[str, int] = {"wgmma": 0, "tc": 0, "stream": 0, "general": 0}  # launches by kernel
 
 
 class UpWeights(NamedTuple):
@@ -144,7 +152,10 @@ def route_for(Ci: int, Co: int, channels_last: bool, bf16: bool = False,
     """The kernel that takes this shape (and dtype: ``bf16``; and x's data
     address ``x_ptr``: the TMA of ``"wgmma"`` reads x from a 16-byte aligned
     base, an unaligned x takes ``"tc"``, whose copies of x go element by
-    element there): ``"wgmma"``, ``"tc"``, ``"stream"``, or None."""
+    element there): ``"wgmma"``, ``"tc"``, ``"stream"``, ``"general"`` (any
+    other Ci, Co >= 1), or None for Ci or Co < 1."""
+    if Ci < 1 or Co < 1:
+        return None
     if bf16 and channels_last and Ci % 8 == 0 and 8 <= Ci <= TC_WIDE_MAX_CI and \
             Co % 32 == 0 and 32 <= Co <= TC_MAX_CO and x_ptr % 16 == 0:
         return "wgmma"
@@ -154,7 +165,7 @@ def route_for(Ci: int, Co: int, channels_last: bool, bf16: bool = False,
         return "stream"
     if channels_last and 1 <= Ci <= TC_WIDE_MAX_CI and 1 <= Co <= TC_WIDE_MAX_CO:
         return "tc"
-    return None
+    return "general"
 
 
 def stream_buffer(dtype: torch.dtype, channels_last: bool) -> str:
@@ -191,7 +202,8 @@ def prepare_up(w: UpWeights, route: str) -> torch.Tensor:
     exact). ``"stream_bf16"`` (``up_fused_bf16.cu``): W zero-padded to (Co,
     Ci) rounded up to 16 in the A-fragment order of mma.sync m16n8k16
     (:func:`stream_bf16_fragments`), then b, norm_w and norm_b zero-padded to
-    the same Co; all bf16."""
+    the same Co; all bf16. ``"general"``: W (Co, Ci) as it is, contiguous,
+    in its dtype; ``"general_vec"``: b, norm_w, norm_b in fp32."""
     with torch.no_grad():
         Co, Ci = w.w.shape
         vec = lambda v: v
@@ -208,6 +220,11 @@ def prepare_up(w: UpWeights, route: str) -> torch.Tensor:
             wk = stream_bf16_fragments(w.w)
             dtype = torch.bfloat16
             vec = lambda v: F.pad(v, (0, Mp - Co))
+        elif route == "general":
+            return w.w.contiguous()
+        elif route == "general_vec":
+            return torch.cat([v.float().reshape(-1) for v in (w.b, w.norm_w, w.norm_b)
+                              if v is not None])
         else:
             raise ValueError(f"prepare_up: unknown route {route!r}")
         parts = [wk] + [vec(v) for v in (w.b, w.norm_w, w.norm_b) if v is not None]
@@ -255,6 +272,18 @@ _TC_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _TC_BF16_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _WGMMA_ARGTYPES = _TC_BF16_ARGTYPES
 _CT_BF16_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_GENERAL_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 5 + \
+    [ctypes.c_void_p]
+_TAPS: dict[tuple, torch.Tensor] = {}
+
+
+def phase_taps(scale: int, device: torch.device) -> torch.Tensor:
+    """The (scale, 3) fp32 (prev, cur, next) weights of each phase
+    (``ops.resample.phase_weights``) on ``device``, cached."""
+    key = (scale, str(device))
+    if key not in _TAPS:
+        _TAPS[key] = torch.tensor(phase_weights(scale), dtype=torch.float32, device=device)
+    return _TAPS[key]
 ORDER_TIME, ORDER_CHANNEL, ORDER_PHASE = 0, 1, 2  # fastest axis of the stores
 
 
@@ -274,23 +303,34 @@ def _launch(x: torch.Tensor, w: UpWeights, scale: int, *, channels_last: bool,
     bf16 = x.dtype == torch.bfloat16
     route = route_for(Ci, Co, channels_last, bf16, x.data_ptr())
     if route is None:
-        raise ValueError(
-            f"{name}: no kernel takes Ci = {Ci}, Co = {Co} "
-            f"({'(B, T, C)' if channels_last else '(B, C, T)'}): the tensor-core kernel "
-            f"takes (B, T, C) with Ci <= {TC_WIDE_MAX_CI} and Co <= {TC_WIDE_MAX_CO}, "
-            f"the streaming one Ci <= {STREAM_MAX_CI} and Co <= {STREAM_MAX_CO}")
-    kind = stream_buffer(x.dtype, channels_last) if route == "stream" else "tc"
+        raise ValueError(f"{name}: Ci = {Ci}, Co = {Co} is not a width")
+    kind = stream_buffer(x.dtype, channels_last) if route == "stream" else \
+        "general" if route == "general" else "tc"
     buf = (prepared if prepared is not None else prepared_up(w)).buffer(kind, w)
     K.check_cuda({"x": x}, x.device, dtype=K.DTYPES)
     K.check_cuda({"prepared": buf}, x.device,
                  dtype=torch.bfloat16 if bf16 and kind != "stream" else torch.float32)
     if phase_split:
         out = torch.empty((scale, B, Co, T), device=x.device, dtype=x.dtype)
+        os_ = (Co * T, T, 1, B * Co * T)
     elif channels_last:
         out = torch.empty((B, T * scale, Co), device=x.device, dtype=x.dtype)
+        os_ = (T * scale * Co, 1, scale * Co, Co)
     else:
         out = torch.empty((B, Co, T * scale), device=x.device, dtype=x.dtype)
-    if route in ("tc", "wgmma"):
+        os_ = (Co * T * scale, T * scale, scale, 1)
+    if route == "general":
+        vec = (prepared if prepared is not None else prepared_up(w)).buffer("general_vec", w)
+        K.check_cuda({"general_vec": vec}, x.device)
+        z = torch.empty((B * T, Co), device=x.device)
+        a_map = (T, x.stride(0), Ci, 1) if channels_last else (T, x.stride(0), 1, T)
+        general_gemm(x, a_map, buf, None, vec[:Co], z, (B * T, 0, Co, 1), B * T)
+        p_nw, p_nb = (None, None) if w.norm_w is None else (vec[Co:2 * Co], vec[2 * Co:])
+        fn = _build.function("l3ac_general_up", _GENERAL_ARGTYPES)
+        err = fn(z.data_ptr(), phase_taps(scale, x.device).data_ptr(), _build.ptr(p_nw),
+                 _build.ptr(p_nb), out.data_ptr(), *os_, B, T, Co, scale, int(bf16),
+                 _build.stream_ptr())
+    elif route in ("tc", "wgmma"):
         Cp, es = tc_padded_co(Co), buf.element_size()
         p_b = buf.data_ptr() + es * Cp * tc_row_elems(Ci, buf.dtype)
         p_nw, p_nb = (None, None) if w.norm_w is None else (p_b + es * Cp, p_b + 2 * es * Cp)
@@ -311,12 +351,7 @@ def _launch(x: torch.Tensor, w: UpWeights, scale: int, *, channels_last: bool,
         err = fn(x.data_ptr(), buf.data_ptr(), out.data_ptr(), int(w.norm_w is not None), B, Ci,
                  Co, T, scale, int(phase_split), _build.stream_ptr())
     else:
-        if phase_split:
-            os_, order = (Co * T, T, 1, B * Co * T), ORDER_PHASE
-        elif channels_last:
-            os_, order = (T * scale * Co, 1, scale * Co, Co), ORDER_CHANNEL
-        else:
-            os_, order = (Co * T * scale, T * scale, scale, 1), ORDER_TIME
+        order = ORDER_PHASE if phase_split else ORDER_CHANNEL if channels_last else ORDER_TIME
         xs = (x.stride(0), 1, Ci) if channels_last else (x.stride(0), T, 1)
         fn = _build.function("l3ac_up_fused_bf16" if bf16 else "l3ac_up_fused", _ARGTYPES)
         err = fn(x.data_ptr(), buf.data_ptr(), out.data_ptr(), int(w.norm_w is not None),

@@ -216,6 +216,15 @@ def _local_trans(sd, prefix: str, depth: int) -> dict:
     return p
 
 
+def convert_up_trans_v1(sd, depth: int, rate: int) -> dict:
+    """Torch ``UpTransV1`` (``l3ac/local_trans.py:97-111``) state dict ->
+    the port's ``models.local_transformer.UpTransV1`` tree (JAX
+    ``convert_up_trans_v1``): ``compressed_tokens.{i}`` (rate - 1 learned
+    (1, 1, C) tokens) stacked as ``tokens`` (rate - 1, C), and ``trans.*``."""
+    tokens = np.stack([_np(sd[f"compressed_tokens.{i}"]).reshape(-1) for i in range(rate - 1)])
+    return {"tokens": tokens, "trans": _local_trans(sd, "trans", depth)}
+
+
 def convert_en_encoder(sd, mc: ModelConfig) -> dict:
     if not mc.uses_compressed_transformer:
         # plain LocalEncoder(depth=1) (l3ac/en_codec.py:27-29)

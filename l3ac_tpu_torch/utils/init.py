@@ -25,6 +25,12 @@ def trunc_normal_(t: torch.Tensor, gen: torch.Generator, std: float = 0.02) -> N
 
 
 @torch.no_grad()
+def normal_(t: torch.Tensor, gen: torch.Generator) -> None:
+    """Standard normal, as ``torch.randn`` initialises a learned token."""
+    t.copy_(torch.randn(t.shape, generator=gen))
+
+
+@torch.no_grad()
 def uniform_(t: torch.Tensor, gen: torch.Generator, bound: float) -> None:
     t.copy_((torch.rand(t.shape, generator=gen) * 2.0 - 1.0) * bound)
 

@@ -106,6 +106,16 @@ def convert_subtree(tree, prefix: str = "") -> dict[str, np.ndarray]:
     return {k: _convert(k, v) for k, v in flat.items()}
 
 
+def up_trans_v1_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """JAX ``init_up_trans_v1`` params -> the state dict of the port's
+    ``models.local_transformer.UpTransV1``: ``tokens`` (rate - 1, C) as it
+    is (its rows are tokens, not a linear's (Cin, Cout) weight), ``trans``
+    through :func:`convert_subtree`."""
+    flat = {"tokens": np.asarray(tree["tokens"], np.float32),
+            **convert_subtree(tree["trans"], "trans.")}
+    return {k: torch.from_numpy(np.array(v, order="C")) for k, v in flat.items()}
+
+
 def _expected(mc: ModelConfig, quantized: bool) -> dict[str, torch.Tensor]:
     """The state dict (meta tensors) of the port's ``Codec`` for ``mc``,
     quantized by ``quantize_params`` when ``quantized``."""

@@ -193,8 +193,9 @@ def test_conv_unit_ct_narrow_kernel(dev, C, T, dilation, norm, snake):
 def test_conv_unit_ct_runs_only_the_narrow_kernel(dev, monkeypatch):
     """conv_unit_ct never reaches conv_unit.cu: with the SIMT launch refused it
     still runs, with the narrow one refused it raises; one count per call;
-    C above NARROW_MAX_C raises, and a unit's prepared operands are passed
-    through."""
+    C above NARROW_MAX_C runs conv_unit's rule on the transposed x (C = 100:
+    the SIMT kernel; it raised before ROADMAP C3 closed), and a unit's
+    prepared operands are passed through."""
     from l3ac_tpu_torch.ops import kernels as K
     from l3ac_tpu_torch.ops.kernels import conv_unit as cu
     rng = np.random.default_rng(11)
@@ -217,8 +218,10 @@ def test_conv_unit_ct_runs_only_the_narrow_kernel(dev, monkeypatch):
             cu.conv_unit_ct(x, w)
     assert K.LAUNCHES["conv_unit_ct"] == before + 2
     w100 = _unit_weights(rng, 100, True, True, dev)
-    with pytest.raises(ValueError, match="outside 1..96"):
-        cu.conv_unit_ct(_t(rng, (1, 100, 40), 1.0, dev), w100)
+    x100 = _t(rng, (1, 100, 40), 1.0, dev)
+    routes = dict(cu.ROUTES)
+    _check(cu.conv_unit_ct(x100, w100), cu.conv_unit_plain(x100, w100, channel_dim=1))
+    assert cu.ROUTES["channels_last"] == routes["channels_last"] + 1
     with pytest.raises(ValueError, match="contiguous"):
         cu.conv_unit_ct(torch.zeros(2, 24, 600, device=dev)[..., ::2], w)
 
@@ -301,15 +304,16 @@ def test_first_block_kernel_at_large_weights_and_from_a_module(dev):
 
 
 def test_first_block_kernel_raises_on_cout_above_64(dev):
-    """Above 64 channels the kernel walks 64-channel tiles (65 runs); it
-    raises above MAX_COUT (256)."""
+    """Above 64 channels the kernel walks 64-channel tiles (65 runs), at any
+    Cout (ROADMAP C3: 257 and 600 run where the kernel raised above 256);
+    weight shapes that do not match raise."""
     from l3ac_tpu_torch.ops.kernels import first_block as fb
     x = _t(np.random.default_rng(1), (1, 300), 0.3, dev)
-    w = _stem_weights(np.random.default_rng(0), 65, dev)
-    _check(fb.first_block(x, w), fb.first_block_plain(x, w))
-    w = _stem_weights(np.random.default_rng(0), fb.MAX_COUT + 1, dev)
+    for cout in (65, 257, 600):
+        w = _stem_weights(np.random.default_rng(0), cout, dev)
+        _check(fb.first_block(x, w), fb.first_block_plain(x, w))
     with pytest.raises(ValueError, match="weight shapes"):
-        fb.first_block(x, w)
+        fb.first_block(x, w._replace(b2=w.b2[:-1]))
 
 
 @pytest.mark.parametrize("n,W,D,bias,strided,B,H", [
@@ -443,7 +447,8 @@ def test_up_fused_without_norm_at_scale_one_on_both_kernels(dev, channels_last):
 def test_up_fused_route_is_a_shape_rule(dev):
     """(B, T, C) with Co a multiple of 32 takes the tensor-core kernel; other
     (B, T, C) shapes that the streaming kernel takes run there; (B, C, T)
-    always streams; what neither takes raises and launches nothing."""
+    streams up to 128 channels; what neither takes runs the general route
+    (it raised before ROADMAP C3 closed), one launch a call."""
     from l3ac_tpu_torch.ops import kernels as K
     from l3ac_tpu_torch.ops.kernels import up_fused as uf
     for Ci, Co, cl, route in ((256, 96, True, "tc"), (100, 20, True, "stream"),
@@ -457,11 +462,13 @@ def test_up_fused_route_is_a_shape_rule(dev):
             sum(before.values()) + 1, (Ci, Co, cl)
         _check(got, uf.up_fused_plain(x, w, scale=3, channel_dim=2 if cl else 1))
     K.reset_launches()
+    before = uf.ROUTES["general"]
     for Ci, Co, cl in ((1100, 100, True), (256, 513, True), (96, 130, False), (200, 48, False)):
         w, x = _up_case(dev, Ci, Co, 20, cl)
-        with pytest.raises(ValueError, match="no kernel takes"):
-            (uf.up_fused if cl else uf.up_fused_ct)(x, w, scale=2)
-    assert K.LAUNCHES["up_fused"] == K.LAUNCHES["up_fused_ct"] == 0
+        _check((uf.up_fused if cl else uf.up_fused_ct)(x, w, scale=2),
+               uf.up_fused_plain(x, w, scale=2, channel_dim=2 if cl else 1))
+    assert K.LAUNCHES["up_fused"] == K.LAUNCHES["up_fused_ct"] == 2
+    assert uf.ROUTES["general"] == before + 4
 
 
 def test_up_fused_reuses_prepared_weights_until_they_change(dev):
@@ -495,33 +502,42 @@ def test_legacy_tail_kernel(dev, C, T, poly):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
+    """What no kernel takes raises (T off the window grid, both biases, a
+    non-contiguous head dim); the widths and views the fast kernels do not
+    take (D = 132, unaligned rows, an up path to 136, a tail of 22) run the
+    general route, where they raised before ROADMAP C3 closed."""
     from l3ac_tpu_torch.ops.kernels import local_attention as la
-    q = torch.zeros(1, 2, 32, 132, device=dev)
-    with pytest.raises(ValueError, match="D <= 128"):
-        la.local_attention(q, q, q, window_size=16)
+    rng = np.random.default_rng(5)
+    general = la.ROUTES["general"]
+    q = _t(rng, (1, 2, 32, 132), 1.0, dev)
+    _check(la.local_attention(q, q, q, window_size=16),
+           la.local_attention_plain(q, q, q, window_size=16))
     q = torch.zeros(1, 2, 30, 32, device=dev)
     with pytest.raises(ValueError, match="multiple"):
         la.local_attention(q, q, q, window_size=16)
-    q = torch.zeros(1, 2, 32, 32, device=dev)
-    odd_stride = torch.zeros(1, 2, 32, 33, device=dev)[..., 1:]
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        la.local_attention(odd_stride, q, q, window_size=16)
-    shifted = torch.zeros(2 * 32 * 32 + 1, device=dev)[1:].view(1, 2, 32, 32)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        la.local_attention(q, shifted, q, window_size=16)
+    q = _t(rng, (1, 2, 32, 32), 1.0, dev)
+    odd_stride = _t(rng, (1, 2, 32, 33), 1.0, dev)[..., 1:]
+    _check(la.local_attention(odd_stride, q, q, window_size=16),
+           la.local_attention_plain(odd_stride, q, q, window_size=16))
+    shifted = _t(rng, (2 * 32 * 32 + 1,), 1.0, dev)[1:].view(1, 2, 32, 32)
+    _check(la.local_attention(q, shifted, q, window_size=16),
+           la.local_attention_plain(q, shifted, q, window_size=16))
+    assert la.ROUTES["general"] == general + 3
+    with pytest.raises(ValueError, match="not contiguous"):
+        la.local_attention(q.transpose(2, 3), q, q, window_size=16)
     with pytest.raises(ValueError, match="not both"):
         la.local_attention(q, q, q, window_size=16, bias=torch.zeros(2, 16, 32, device=dev),
                            bias_table=torch.zeros(32, 2, device=dev))
     from l3ac_tpu_torch.ops.kernels import legacy_tail as lt
     from l3ac_tpu_torch.ops.kernels import up_fused as uf
-    w = uf.UpWeights(torch.zeros(136, 8, device=dev), torch.zeros(136, device=dev), None, None)
-    with pytest.raises(ValueError, match="no kernel takes"):
-        uf.up_fused_ct(torch.zeros(1, 8, 10, device=dev), w, scale=2)
-    tw = lt.TailWeights(*(torch.zeros(s, device=dev) for s in
+    w = uf.UpWeights(_t(rng, (136, 8), 0.3, dev), _t(rng, (136,), 0.1, dev), None, None)
+    x = _t(rng, (1, 8, 10), 1.0, dev)
+    _check(uf.up_fused_ct(x, w, scale=2), uf.up_fused_plain(x, w, scale=2, channel_dim=1))
+    tw = lt.TailWeights(*(_t(rng, s, 0.1, dev) for s in
                           ((3, 22), (3, 22, 22, 7), (3, 22), (3, 22), (3, 22, 22), (3, 22),
                            (22,), (1, 22, 7), (1,))))
-    with pytest.raises(ValueError, match="multiple of 4"):
-        lt.legacy_tail_ct(torch.zeros(1, 22, 10, device=dev), tw)
+    x = _t(rng, (1, 22, 10), 1.0, dev)
+    _check(lt.legacy_tail_ct(x, tw), lt.legacy_tail_plain(x, tw))
 
 
 @pytest.mark.parametrize("M,K,N,bias", [(1, 1, 1, True), (5, 64, 32, True), (300, 341, 128, False),
@@ -758,15 +774,18 @@ def test_conv_unit_ct_bf16_wide_halo_and_unaligned_x(bf16_products, C, T, dilati
 
 
 def test_conv_unit_bf16_raises_off_the_tensor_core_widths(bf16_products):
+    """bf16 off the tensor-core widths (C = 12) runs the general route, where
+    it raised before ROADMAP C3 closed; one launch."""
     from l3ac_tpu_torch.ops import kernels as K
     from l3ac_tpu_torch.ops.kernels import conv_unit as cu
     dev = bf16_products
     rng = np.random.default_rng(1)
     w = cu.ConvUnitWeights(*(t.bfloat16() for t in _unit_weights(rng, 12, True, True, dev)))
     K.reset_launches()
-    with pytest.raises(ValueError, match="tensor-core route only"):
-        cu.conv_unit(_t(rng, (1, 20, 12), 1.0, dev).bfloat16(), w)
-    assert K.LAUNCHES["conv_unit"] == 0
+    general = cu.ROUTES["general"]
+    x = _t(rng, (1, 20, 12), 1.0, dev).bfloat16()
+    _check_bf16(cu.conv_unit(x, w), cu.conv_unit_plain_bf16(x, w, channel_dim=2))
+    assert K.LAUNCHES["conv_unit"] == 1 and cu.ROUTES["general"] == general + 1
 
 
 @pytest.mark.parametrize("D,n,bias", [(32, 250, "table"), (8, 16, "full"), (64, 64, "table"),

@@ -236,11 +236,22 @@ def test_pack_holds_the_weights_in_fragment_order(Cout):
 
 def test_pack_rejects_cout_above_64():
     """Above 64 output channels the pack pads Cout to whole tiles of 64 (the
-    kernel's third grid axis walks them); above MAX_COUT (256) it raises."""
+    kernel's third grid axis walks them), at any Cout (ROADMAP C3: the cap of
+    256 it raised above is gone); a bf16 stem above 256 channels packs its
+    chunks of 256, each the pack of that chunk's stem. Weight shapes that do
+    not match still raise."""
     assert fb.pack(_weights(np.random.default_rng(0), 65)).shape == (fb.packed_floats(65),)
     assert fb.padded_cout(65) == 128 and fb.padded_cout(64) == 64
+    w = _weights(np.random.default_rng(0), 257)
+    assert fb.pack(w).shape == (fb.packed_floats(257),)
+    wb = fb.FirstBlockWeights(*(t.bfloat16() for t in _weights(np.random.default_rng(1), 600)))
+    got = fb.pack(wb)
+    parts = [fb.pack(wb._replace(w2=wb.w2[c0:c1], b2=wb.b2[c0:c1]))
+             for c0, c1 in ((0, 256), (256, 512), (512, 600))]
+    assert got.shape == (fb.packed_floats(600, True),) == (sum(p.numel() for p in parts),)
+    assert torch.equal(got, torch.cat(parts))
     with pytest.raises(ValueError, match="weight shapes"):
-        fb.pack(_weights(np.random.default_rng(0), fb.MAX_COUT + 1))
+        fb.pack(w._replace(b2=w.b2[:-1]))
 
 
 def _stem(seed=0, Cout=24):

@@ -36,7 +36,7 @@ def test_import_pulls_in_no_jax():
             "l3ac_tpu_torch.ops.kernels.autograd, l3ac_tpu_torch.parallel.mesh, "
             "l3ac_tpu_torch.parallel.distributed, l3ac_tpu_torch.parallel.sp, "
             "l3ac_tpu_torch.parallel.halo, l3ac_tpu_torch.ops.codebook, "
-            "l3ac_tpu_torch.models.codec; "
+            "l3ac_tpu_torch.models.codec, l3ac_tpu_torch.demo; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'l3ac_tpu' or m.startswith('l3ac_tpu.')]; "
             "assert not bad, bad; print('clean')")
@@ -163,3 +163,13 @@ def test_sp_and_codebook_entry_points_run_where_asked(tmp_path):
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0 and "ran" in out.stdout, out.stderr
+
+
+def test_demo_runs_on_the_card_unless_asked():
+    """``python -m l3ac_tpu_torch.demo`` defaults to CUDA: without a card it
+    raises, and only ``--device cpu`` runs the plain path."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the demo's default device runs")
+    from l3ac_tpu_torch import demo
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        demo.main(["--model", "debug", "--random"])

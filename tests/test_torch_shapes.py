@@ -100,20 +100,35 @@ def test_every_wrapper_admits_the_shapes_the_model_hands_it(monkeypatch, overrid
 
 
 def test_the_widths_before_c3_stay_admitted():
-    """Every released config's widths, and the limits themselves."""
+    """Every released config's widths keep their fast routes; the widths past
+    the former limits (refused before the general routes of
+    ``csrc/general.cu``, ROADMAP C3) are admitted now, on the general
+    route."""
     for C in (24, 48, 96):
         assert cu.admits("conv_unit_ct", C) is None
-    assert cu.admits("conv_unit_ct", 97) is not None
+        assert cu.route_for("conv_unit_ct", C) == "narrow"
+    assert cu.admits("conv_unit_ct", 97) is None
     for C in (16, 192, 256, 512, 768, 1024):
         assert cu.admits("conv_unit", C) is None, C
-    assert cu.admits("conv_unit", 1088) is not None and cu.admits("conv_unit", 520) is not None
+    for C in (192, 256, 512, 768, 1024):
+        assert cu.route_for("conv_unit", C) == "tc", C
+    assert cu.route_for("conv_unit", 16) == "simt"
+    assert cu.admits("conv_unit", 1088) is None and cu.admits("conv_unit", 520) is None
+    assert cu.route_for("conv_unit", 1088) == cu.route_for("conv_unit", 520) == "general"
     assert cu.admits("conv_unit", 16, torch.bfloat16) is None           # bf16: C % 8 == 0
-    assert cu.admits("conv_unit", 12, torch.bfloat16) is not None
-    assert fb.admits(24) is None and fb.admits(256) is None and fb.admits(257) is not None
+    assert cu.route_for("conv_unit", 16, torch.bfloat16) == "tc"
+    assert cu.admits("conv_unit", 12, torch.bfloat16) is None
+    assert cu.route_for("conv_unit", 12, torch.bfloat16) == "general"
+    assert fb.admits(24) is None and fb.admits(256) is None and fb.admits(257) is None
     assert la.admits(32) is None and la.admits(128) is None
-    assert la.admits(132) is not None and la.admits(30) is not None
+    assert la.admits(132) is None and la.admits(30) is None
+    assert la.fast_takes(32, [0, 32, 3 * 6 * 32], [0], 4)
+    assert not la.fast_takes(132, [0, 132, 3 * 6 * 132], [0], 4)
+    assert not la.fast_takes(30, [0, 30, 3 * 6 * 30], [0], 4)
     assert lt.admits(24) is None and lt.admits(64) is None
-    assert lt.admits(68) is not None and lt.admits(22) is not None
+    assert lt.route_for(24) == lt.route_for(64) == "tc"
+    assert lt.admits(68) is None and lt.admits(22) is None
+    assert lt.route_for(68) == lt.route_for(22) == "general"
 
 
 def test_plain_path_at_head_dim_64_matches_jnp():

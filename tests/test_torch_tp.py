@@ -418,8 +418,10 @@ def test_c3_wide_channels_first_unit_matches_jax(c3):
 
 
 def test_c3_route_sends_a_wide_channels_first_unit_to_the_channels_last_kernel(monkeypatch):
-    """The shape rule: C <= 96 the narrow kernel, above it (C % 64 in fp32,
-    C % 8 in bf16) conv_unit's kernel on the transposed x; other C raise."""
+    """The shape rule: C <= 96 the narrow kernel, above it conv_unit's rule
+    on the transposed x (C % 64 in fp32, C % 8 in bf16: the tensor-core
+    kernel; the other widths, which raised before ROADMAP C3 closed, the SIMT
+    kernel or the general route)."""
     rng = np.random.default_rng(3)
     calls = []
 
@@ -447,6 +449,9 @@ def test_c3_route_sends_a_wide_channels_first_unit_to_the_channels_last_kernel(m
         key = "narrow" if C <= cu.NARROW_MAX_C else "channels_last"
         assert cu.ROUTES[key] == before[key] + 1
     assert calls == [("narrow", (2, 96, 50)), ("tc", (2, 50, 128))]
-    assert cu.admits("conv_unit_ct", 100) is not None          # fp32: C % 64 above 96
+    assert cu.admits("conv_unit_ct", 100) is None              # fp32: C % 64 above 96
+    assert cu.route_for("conv_unit_ct", 100) == "simt"
     assert cu.admits("conv_unit_ct", 104, torch.bfloat16) is None
-    assert cu.admits("conv_unit_ct", 2048) is not None
+    assert cu.route_for("conv_unit_ct", 104, torch.bfloat16) == "tc"
+    assert cu.admits("conv_unit_ct", 2048) is None
+    assert cu.route_for("conv_unit_ct", 2048) == "general"

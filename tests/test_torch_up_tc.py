@@ -417,7 +417,7 @@ def test_bf16_route_is_a_shape_rule():
     assert uf.route_for(1024, 512, True, bf16=True) == "tc"
     assert uf.route_for(512, 100, True, bf16=True) == "tc"          # Co % 32 != 0
     assert uf.route_for(100, 20, True, bf16=True) == "stream"
-    assert uf.route_for(256, 96, False, bf16=True) is None
+    assert uf.route_for(256, 96, False, bf16=True) == "general"  # refused before C3 closed
     assert uf.route_for(96, 48, False, bf16=True) == "stream"
     assert [uf.route_for(512, 256, True, bf16=True) for _ in range(3)] == ["wgmma"] * 3
 
@@ -439,17 +439,20 @@ def test_bf16_route_sends_unaligned_x_to_tc():
 def test_route_is_a_shape_rule():
     assert uf.route_for(512, 256, True) == uf.route_for(256, 96, True) == "tc"
     assert uf.route_for(36, 32, True) == uf.route_for(512, 160, True) == "tc"
-    assert uf.route_for(256, 96, False) is None          # (B, C, T) never takes the tensor cores
+    # (B, C, T) never takes the tensor cores; past the stream it takes the
+    # general route (it raised before ROADMAP C3 closed)
+    assert uf.route_for(256, 96, False) == "general"
     assert uf.route_for(96, 48, False) == uf.route_for(48, 24, False) == "stream"
     assert uf.route_for(100, 20, True) == "stream"       # Co % 32 != 0
     assert uf.route_for(16, 12, False) == uf.route_for(8, 8, False) == "stream"
     assert uf.route_for(512, 100, True) == "tc"          # Ci > 128, Co % 32 != 0: Co padded
-    assert uf.route_for(1025, 100, True) is None and uf.route_for(512, 513, True) is None
+    assert uf.route_for(1025, 100, True) == uf.route_for(512, 513, True) == "general"
     assert uf.route_for(96, 61, False) == uf.route_for(128, 60, True) == "stream"
     # the streaming kernel takes (B, C, T) outputs up to 128 wide
     assert uf.route_for(96, 65, False) == uf.route_for(12, 80, False) == "stream"
     assert uf.route_for(128, 128, False) == "stream"
-    assert uf.route_for(96, 129, False) is None and uf.route_for(129, 48, False) is None
+    assert uf.route_for(96, 129, False) == uf.route_for(129, 48, False) == "general"
+    assert uf.route_for(0, 48, False) is None and uf.route_for(96, 0, True) is None
 
 
 def test_prepare_up_lays_the_weights_out_as_the_kernels_read_them():
