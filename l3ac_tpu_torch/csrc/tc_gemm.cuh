@@ -301,9 +301,12 @@ __global__ void __launch_bounds__(T::kThreads, 1) gemm_kernel(const Params p) {
     float* st = smem + (s % kStages) * kStage;
     if constexpr (kVecA) load_rows16<kThreads>(st, p.a, m0, p.M, s * kBK, p.K, tid);
     else load_rows4<kThreads>(st, p.a, m0, p.M, s * kBK, p.K, tid);
-    if constexpr (!kInt8) {
+    if constexpr (!kInt8 && kVecB) {
       load_rows16<kThreads>(st + kTile, p.b_hi, n0, p.N, s * kBK, p.K, tid);
       load_rows16<kThreads>(st + 2 * kTile, p.b_lo, n0, p.N, s * kBK, p.K, tid);
+    } else if constexpr (!kInt8) {  // any K (general.cu's unit products)
+      load_rows4<kThreads>(st + kTile, p.b_hi, n0, p.N, s * kBK, p.K, tid);
+      load_rows4<kThreads>(st + 2 * kTile, p.b_lo, n0, p.N, s * kBK, p.K, tid);
     }
   };
 

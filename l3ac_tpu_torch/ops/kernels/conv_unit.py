@@ -31,12 +31,15 @@ Every other width (fp32 C > 512 not a multiple of 64, any C > 1024, bf16
 C % 8 != 0, the TP mode off the tensor-core widths) runs the general route
 of ``csrc/general.cu``: a depthwise conv + ChannelNorm pass of one block per
 row looping over C (the statistics in a first pass), then both products on
-its tiled SIMT GEMM (fp32 sums, exact fp32 or bf16 operands) with the
-activation, the residual or the TP share in their epilogues, from the same
-prepared operands (fp32: the TF32 hi + lo of :class:`PreparedWeights`, whose
-sum is the weight within 2^-21 relative; bf16: :class:`PreparedBf16`),
-rounding where the bf16 plain version does. ``ROUTES["general"]`` counts its
-launches (of both wrappers).
+the tensor cores through :func:`general_gemm` (its K-major flat operands on
+the fast GEMM cores: fp32 ``csrc/tc_gemm.cuh``, 3xTF32 from the TF32 hi / lo
+of :class:`PreparedWeights`, any K; bf16 ``csrc/gemm_sm90.cuh`` from
+:class:`PreparedBf16`) with the activation, the residual or the TP share in
+their epilogues, rounding where the bf16 plain version does.
+``ROUTES["general"]`` counts its launches (of both wrappers),
+``GEMM_ROUTES`` the general products by core (:func:`gemm_route`: the fast
+cores, or ``general.cu``'s own tensor-core product for strided operands, k7
+taps, tanh and ``round_mid``).
 
 bf16 (the encode half of ROADMAP A6): both wrappers take bf16 x with a bf16
 unit. ``conv_unit_ct`` runs ``csrc/conv_unit_narrow_bf16.cu`` (a persistent
@@ -655,9 +658,45 @@ _GEMM_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_int] *
                   [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p] +
                   [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong] +
                   [ctypes.c_int] * 2 + [ctypes.c_void_p])
+_TC_GEMM_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _DW_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 6 +
                 [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p])
-ACT_NONE, ACT_SNAKE, ACT_GELU = 0, 1, 2
+ACT_NONE, ACT_SNAKE, ACT_GELU, ACT_TANH = 0, 1, 2, 3
+# the general routes' products by the core that ran them (:func:`gemm_route`;
+# the general tail's seven products a launch count under "mma")
+GEMM_ROUTES: dict[str, int] = {"tc_gemm": 0, "gemm_sm90": 0, "mma": 0}
+_INT_MAX = 2 ** 31 - 1
+TC_GEMM_BM = 128   # tc_gemm.cuh's rows a block; its grid holds at most 65535 of them
+
+
+def _flat(a_map: tuple[int, int, int, int], M: int, width: int) -> bool:
+    """Whether rows m = (b, t) at ``b sb + t st`` with inner stride ``sk``,
+    ``a_map = (rows, sb, st, sk)``, are the rows of one contiguous (M,
+    width) matrix."""
+    rows, sb, st, sk = a_map
+    return sk == 1 and st == width and (M <= rows or sb == rows * width)
+
+
+def gemm_route(a_map: tuple[int, int, int, int], a_dtype: torch.dtype, split: bool,
+               K: int, o_map: tuple[int, int, int, int], N: int, M: int,
+               out_dtype: torch.dtype, *, act: int = ACT_NONE, res: bool = False,
+               round_mid: bool = False) -> str:
+    """The core that runs :func:`general_gemm`'s product, a shape and layout
+    rule: where A is a flat K-major (M, K) matrix, the output (and the
+    residual) a flat (M, N) one and the epilogue one the core has,
+    ``"tc_gemm"`` (fp32 with a TF32 hi / lo B, ``split``: ``csrc/tc_gemm.cuh``)
+    or ``"gemm_sm90"`` (bf16: ``csrc/gemm_sm90.cuh``, bf16 out, or fp32 out
+    with the bias alone); else ``"mma"`` (``csrc/general.cu``'s tensor-core
+    product: any strides, k7 taps, tanh, ``round_mid``)."""
+    if not (_flat(a_map, M, K) and _flat(o_map, M, N)) or round_mid or act == ACT_TANH or \
+            (res and act != ACT_NONE) or max(M * K, M * N, N * K) > _INT_MAX:
+        return "mma"
+    if a_dtype == torch.float32:
+        ok = split and out_dtype == torch.float32 and -(-M // TC_GEMM_BM) <= 65535
+        return "tc_gemm" if ok else "mma"
+    if out_dtype == torch.float32 and (act != ACT_NONE or res):
+        return "mma"
+    return "gemm_sm90"
 
 
 def general_gemm(a: torch.Tensor, a_map: tuple[int, int, int, int], b: torch.Tensor,
@@ -665,19 +704,40 @@ def general_gemm(a: torch.Tensor, a_map: tuple[int, int, int, int], b: torch.Ten
                  o_map: tuple[int, int, int, int], M: int, *, alpha: torch.Tensor | None = None,
                  act: int = ACT_NONE, res: torch.Tensor | None = None,
                  round_mid: bool = False) -> None:
-    """``csrc/general.cu``'s product, out = act(A B^T + bias) (+ res): A's
-    row m at ``a[(m // rows) sb + (m % rows) st]`` with ``a_map = (rows, sb,
-    st, sk)`` (sk the stride of K), B (N, K) contiguous (plus ``b_lo``, fp32,
-    where B is a TF32 hi / lo pair), out and res at ``o_map = (rows, sb, st,
-    sn)``; fp32 sums, bf16 or fp32 operands and output. Counts nothing."""
+    """The general routes' product on the tensor cores, out = act(A B^T +
+    bias) (+ res): A's row m at ``a[(m // rows) sb + (m % rows) st]`` with
+    ``a_map = (rows, sb, st, sk)`` (sk the stride of K), B (N, K) contiguous
+    (plus ``b_lo``, fp32, where B is a TF32 hi / lo pair), out and res at
+    ``o_map = (rows, sb, st, sn)``; fp32 sums, bf16 or fp32 operands and
+    output. The core is :func:`gemm_route`'s, counted in
+    :data:`GEMM_ROUTES` (and the wgmma core's loader in
+    ``gemm_sm90.ROUTES``)."""
     N, Kd = b.shape
-    bf = lambda t: int(t.dtype == torch.bfloat16)
-    fn = _build.function("l3ac_general_gemm", _GEMM_ARGTYPES)
-    err = fn(a.data_ptr(), a_map[1], a_map[2], a_map[3], a_map[0], bf(a), b.data_ptr(),
-             _build.ptr(b_lo), bf(b), _build.ptr(bias), _build.ptr(alpha), act, _build.ptr(res),
-             0 if res is None else bf(res), int(round_mid), out.data_ptr(), o_map[1], o_map[2],
-             o_map[3], o_map[0], bf(out), M, N, Kd, _build.stream_ptr())
-    _build.check(err, "general gemm")
+    route = gemm_route(a_map, a.dtype, b_lo is not None, Kd, o_map, N, M, out.dtype, act=act,
+                       res=res is not None, round_mid=round_mid)
+    if route == "tc_gemm":
+        fn = _build.function("l3ac_tc_gemm_fp32", _TC_GEMM_ARGTYPES)
+        err = fn(a.data_ptr(), b.data_ptr(), b_lo.data_ptr(), _build.ptr(bias),
+                 _build.ptr(alpha), _build.ptr(res), out.data_ptr(), M, N, Kd,
+                 3 if res is not None else act, _build.stream_ptr())
+    elif route == "gemm_sm90":
+        r = gemm_sm90.route_for(M, N, Kd, int8=False, a_ptr=a.data_ptr(), b_ptr=b.data_ptr())
+        wmap = gemm_sm90.weight_map(b) if r == "tma" else None  # alive across the launch
+        epi = 4 if out.dtype == torch.float32 else 3 if res is not None else act
+        fn = _build.function("l3ac_gemm_sm90_bf16", gemm_sm90.ARGTYPES)
+        err = fn(a.data_ptr(), b.data_ptr(), gemm_sm90.map_ptr(wmap), _build.ptr(bias),
+                 _build.ptr(alpha), _build.ptr(res), out.data_ptr(), M, N, Kd, epi,
+                 gemm_sm90.ROUTE_CODE[r], _build.stream_ptr())
+        gemm_sm90.ROUTES[r] += 1
+    else:
+        bf = lambda t: int(t.dtype == torch.bfloat16)
+        fn = _build.function("l3ac_general_gemm", _GEMM_ARGTYPES)
+        err = fn(a.data_ptr(), a_map[1], a_map[2], a_map[3], a_map[0], bf(a), b.data_ptr(),
+                 _build.ptr(b_lo), bf(b), _build.ptr(bias), _build.ptr(alpha), act,
+                 _build.ptr(res), 0 if res is None else bf(res), int(round_mid), out.data_ptr(),
+                 o_map[1], o_map[2], o_map[3], o_map[0], bf(out), M, N, Kd, _build.stream_ptr())
+    _build.check(err, f"general gemm ({route})")
+    GEMM_ROUTES[route] += 1
 
 
 def _launch_general(x: torch.Tensor, w: ConvUnitWeights, p: PreparedWeights | PreparedBf16,

@@ -244,7 +244,7 @@ def gemm_plain_bf16(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None 
     return y.to(torch.bfloat16)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def gemm_bf16(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
@@ -273,7 +273,7 @@ def gemm_bf16(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None
     route = route_for(M, N, Kd, int8=False, a_ptr=a.data_ptr(), b_ptr=w.data_ptr())
     wmap = weight_map(w) if route == "tma" else None  # alive across the launch
     out = torch.empty(M, N, device=a.device, dtype=torch.bfloat16)
-    fn = _build.function("l3ac_gemm_sm90_bf16", _ARGTYPES)
+    fn = _build.function("l3ac_gemm_sm90_bf16", ARGTYPES)
     err = fn(a.data_ptr(), w.data_ptr(), map_ptr(wmap), _build.ptr(bias), _build.ptr(alpha),
              _build.ptr(res), out.data_ptr(), M, N, Kd,
              EPI_CODE["residual" if res is not None else act], ROUTE_CODE[route],

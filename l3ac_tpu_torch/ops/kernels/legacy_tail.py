@@ -31,9 +31,11 @@ channels they keep every weight in shared memory, wider they read the
 matrices from device memory. Every other C runs the general route of
 ``csrc/general.cu`` (``l3ac_general_tail``): each snake an elementwise pass
 into a scratch buffer (the phase pair and the interleaved input read in
-place), each conv one product of its tiled SIMT GEMM (a k7 conv by im2col
-addresses, the residual, the bf16 roundings and the closing tanh in the
-epilogue), rounding where the bf16 plain version does; its operands are the
+place), each conv one product of its tensor-core GEMM (``general.cu``'s
+mma.sync product, 3xTF32 in fp32; a k7 conv by im2col addresses, the
+residual, the bf16 roundings and the closing tanh in the epilogue;
+``GENERAL_PRODUCTS`` a launch, counted in ``conv_unit.GEMM_ROUTES["mma"]``),
+rounding where the bf16 plain version does; its operands are the
 weights as they are and :func:`general_vectors` (cached like the pack).
 ``ROUTES`` counts the launches of each route.
 
@@ -67,7 +69,7 @@ from .. import kernels as K
 from ..activations import EPS, snake
 from ..resample import interleave
 from . import _build, autograd
-from .conv_unit import cached_prepare
+from .conv_unit import GEMM_ROUTES, cached_prepare
 from .tc_gemm import split_tf32
 
 DILATIONS = (1, 3, 9)
@@ -76,6 +78,7 @@ PHALO = 21      # ... of each phase of the polyphase input
 MAX_C = 64      # the tensor-core kernels: C a multiple of 4 up to this (released: 24)
 ALIGN_C = 4
 ROUTES: dict[str, int] = {"tc": 0, "general": 0}  # launches of either entry point by route
+GENERAL_PRODUCTS = 7  # the general tail's convs: 3 k7, 3 1x1, the output conv
 
 
 def admits(C: int) -> str | None:
@@ -309,6 +312,7 @@ def _launch(x0: torch.Tensor, x1: torch.Tensor | None, w: TailWeights | Prepared
         out = _launch_general(x0, x1, _plain_weights(w), T, name)
         K.LAUNCHES[name] += 1
         ROUTES["general"] += 1
+        GEMM_ROUTES["mma"] += GENERAL_PRODUCTS
         return out
     if isinstance(w, PreparedTail):
         wp = w.packed

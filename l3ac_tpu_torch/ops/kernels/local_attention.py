@@ -44,16 +44,19 @@ multiples of 4 elements and whose data is 16-byte (fp32) or 8-byte (bf16)
 aligned. Every other head dim and view, as the JAX kernel takes them (its
 BlockSpecs hold the whole D, ``l3ac_tpu/ops/pallas/local_attention.py:
 178-187``), runs the general route of ``csrc/general.cu``
-(``l3ac_general_attention``): one warp per query row, q and O in shared
-memory, the scores of 32 keys at a time by lanes over the head dim and a
-transpose through shared memory, the softmax's max and sum in a first
-pass, P in a second and O by lanes over the head dim, each element loaded
-alone, so any D and any element strides, with the same operands (bias or
-table, ``kp``, ``prev_k`` / ``prev_v``, ``left_edge``, ``head_offset``; the
-TP mode reads a contiguous copy of its heads' table columns in both
-dtypes there) and the plain version's rounding points in bf16 (the
-normalized P rounded to bf16). ``ROUTES["general"]`` counts its launches.
-:func:`admits` refuses only D < 1.
+(``l3ac_general_attention``): the fast kernels' design without their
+instantiation limits, both products on the tensor cores (fp32 3xTF32,
+bf16 one m16n8k16 pass), an online softmax, S over D in chunks of
+64 columns and O in registers up to 256 columns (wider: slabs of O's
+columns, one block each, :func:`general_slabs`), rows staged by 16-byte
+or 4-byte cp.async or, for bf16 at odd offsets, element by element, so any
+D and any element strides, with the same operands (bias or table, ``kp``,
+``prev_k`` / ``prev_v``, ``left_edge``, ``head_offset``; the TP mode reads
+a contiguous copy of its heads' table columns in both dtypes there). In
+bf16 it takes a first pass over the keys for each row's max and sum, and
+rounds the normalized P to bf16 where the bf16 plain version does.
+``ROUTES["general"]`` counts its launches, ``GENERAL_INSTANCES`` them by
+O's tiles. :func:`admits` refuses only D < 1.
 
 bf16: bf16 q / k / v (and a bias or table in bf16) run
 ``csrc/local_attention_bf16.cu``, designed for the H100: a persistent grid of
@@ -110,6 +113,12 @@ ROUTE_CODE = {"tma": 0, "cp_async": 1}
 # per instantiation (the columns of the padded head dim it runs, :func:`instance_for`)
 ROUTES: dict[str, int] = dict.fromkeys((*ROUTE_CODE, "kp", "prev_k", "general"), 0)
 INSTANCES: dict[int, int] = dict.fromkeys((16, 32, 64, 128), 0)
+# the general route (csrc/general.cu): O's n8 tiles a block holds in
+# registers, at most GENERAL_MAX_TILES (256 columns); its launches per
+# instantiation
+GENERAL_TILES = (2, 4, 8, 16, 24, 32)
+GENERAL_MAX_TILES = GENERAL_TILES[-1]
+GENERAL_INSTANCES: dict[int, int] = dict.fromkeys(GENERAL_TILES, 0)
 
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12 +
              [ctypes.c_float, ctypes.c_void_p])
@@ -172,6 +181,36 @@ def instance_for(D: int) -> int:
     (``local_attention_bf16.cu``'s dispatch): D zero-padded to 16, 32, 64
     or 128."""
     return 16 if D <= 16 else 32 if D <= 32 else 64 if D <= 64 else 128
+
+
+def general_slabs(D: int) -> tuple[int, int]:
+    """(n8 tiles of O a block holds, slabs of O's columns) of the general
+    attention at head dim D, the host twin of ``general.cu:launch_attention``:
+    D's n8 tiles split into the fewest slabs of at most GENERAL_MAX_TILES, the
+    instantiation at or above a slab's share; one block per slab (S is
+    computed once per slab: more than one only past D = 256)."""
+    d8 = -(-D // 8)
+    slabs = -(-d8 // GENERAL_MAX_TILES)
+    per = -(-d8 // slabs)
+    tiles = next(t for t in GENERAL_TILES if per <= t)
+    return tiles, -(-d8 // tiles)
+
+
+def general_work_item(idx: int, n: int, W: int, BH: int, slabs: int) -> tuple[int, int, int, int]:
+    """Host twin of the general attention's block order (``general.cu``:
+    ``attention_kernel``): block idx as (first query row, window, slab,
+    batch * head), longest first: the windows w >= 1, then window 0, each
+    from the last query tile of 64 rows to the first."""
+    nq = -(-n // 64)
+    per = slabs * BH
+    rest = (W - 1) * per
+    if idx < nq * rest:
+        qt, r = nq - 1 - idx // rest, idx % rest
+        w, r = 1 + r // per, r % per
+    else:
+        j = idx - nq * rest
+        qt, r, w = nq - 1 - j // per, j % per, 0
+    return 64 * qt, w, r // BH, r % BH
 
 
 def prepare_table(table: torch.Tensor) -> torch.Tensor:
@@ -347,6 +386,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tenso
                  _build.stream_ptr())
         _build.check(err, "local_attention")
         ROUTES["general"] += 1
+        GENERAL_INSTANCES[general_slabs(D)[0]] += 1
     elif q.dtype == torch.bfloat16:
         prev_strides = [H * n * D if B > 1 else 0, n * D if H > 1 else 0, D] * 2 \
             if prev is not None else []

@@ -36,14 +36,18 @@ failure:
 - ``csrc/general.cu`` (route ``"general"``): every other shape, as the JAX
   kernels take any Ci and Co (``l3ac_tpu/ops/pallas/upsample.py:159-160``;
   ROADMAP C3): the (B, C, T) stages past 128 channels and the (B, T, C) ones
-  past Ci 1024 or Co 512, both layouts, both dtypes and ``phase_split``. Its
-  tiled SIMT GEMM writes z = W x + b (fp32) for every input row, x read in
-  place in either layout; then one block per output row blends the phase
+  past Ci 1024 or Co 512, both layouts, both dtypes and ``phase_split``.
+  The general product (``conv_unit.general_gemm``, on the tensor cores)
+  writes z = W x + b (fp32) for every input row, x read in place in either
+  layout (a contiguous (B, T, C) x on the fast GEMM cores, (B, C, T) on
+  ``general.cu``'s product; ``conv_unit.GEMM_ROUTES`` counts which); then
+  one block per output row blends the phase
   from z's rows t - 1, t, t + 1 (the plain version's products and sum),
   takes ChannelNorm's statistics over the whole Co row in a first pass and
   stores the row at its interleaved (or phase) address, rounded once to x's
-  dtype. Its weights are the ``"general"`` buffer (W as it is, contiguous)
-  and the ``"general_vec"`` one (b, norm_w, norm_b in fp32).
+  dtype. Its weights are the ``"general"`` buffer (W as it is, contiguous;
+  fp32: ``"general_split"``, its TF32 hi / lo) and the ``"general_vec"`` one
+  (b, norm_w, norm_b in fp32).
 
 The plain version runs only for a CPU tensor.
 
@@ -81,6 +85,7 @@ from ..norms import channel_norm
 from ..resample import interleave, phase_weights, upsample_phases
 from . import _build, autograd
 from .conv_unit import cached_prepare, general_gemm
+from .tc_gemm import split_tf32
 
 MAX_SCALE = 16
 TC_MAX_CO = 256                        # up_fused_tc.cu at Co % 32 == 0, Ci % 4 == 0 ...
@@ -203,7 +208,8 @@ def prepare_up(w: UpWeights, route: str) -> torch.Tensor:
     Ci) rounded up to 16 in the A-fragment order of mma.sync m16n8k16
     (:func:`stream_bf16_fragments`), then b, norm_w and norm_b zero-padded to
     the same Co; all bf16. ``"general"``: W (Co, Ci) as it is, contiguous,
-    in its dtype; ``"general_vec"``: b, norm_w, norm_b in fp32."""
+    in its dtype; ``"general_split"``: fp32 W split into TF32 hi / lo, (2,
+    Co, Ci); ``"general_vec"``: b, norm_w, norm_b in fp32."""
     with torch.no_grad():
         Co, Ci = w.w.shape
         vec = lambda v: v
@@ -222,6 +228,8 @@ def prepare_up(w: UpWeights, route: str) -> torch.Tensor:
             vec = lambda v: F.pad(v, (0, Mp - Co))
         elif route == "general":
             return w.w.contiguous()
+        elif route == "general_split":
+            return torch.stack(split_tf32(w.w.float().contiguous()))
         elif route == "general_vec":
             return torch.cat([v.float().reshape(-1) for v in (w.b, w.norm_w, w.norm_b)
                               if v is not None])
@@ -324,7 +332,12 @@ def _launch(x: torch.Tensor, w: UpWeights, scale: int, *, channels_last: bool,
         K.check_cuda({"general_vec": vec}, x.device)
         z = torch.empty((B * T, Co), device=x.device)
         a_map = (T, x.stride(0), Ci, 1) if channels_last else (T, x.stride(0), 1, T)
-        general_gemm(x, a_map, buf, None, vec[:Co], z, (B * T, 0, Co, 1), B * T)
+        if bf16:
+            b, b_lo = buf, None
+        else:  # the TF32 hi / lo pair, as the fp32 tensor-core product reads B
+            b, b_lo = (prepared if prepared is not None else prepared_up(w)).buffer(
+                "general_split", w)
+        general_gemm(x, a_map, b, b_lo, vec[:Co], z, (B * T, 0, Co, 1), B * T)
         p_nw, p_nb = (None, None) if w.norm_w is None else (vec[Co:2 * Co], vec[2 * Co:])
         fn = _build.function("l3ac_general_up", _GENERAL_ARGTYPES)
         err = fn(z.data_ptr(), phase_taps(scale, x.device).data_ptr(), _build.ptr(p_nw),
