@@ -3,7 +3,7 @@
 
 Replaces ``l3ac_tpu/ops/pallas/conv_unit.py:conv_unit_ct`` (body
 ``_kernel_t``, (B, C, T)) and ``:conv_unit`` (body ``_kernel``, (B, T, C))
-with three kernels, chosen by a shape rule, never by a retry:
+with three routes, chosen by a shape rule, never by a retry:
 
 - ``csrc/conv_unit_narrow.cu`` for ``conv_unit_ct`` at every C up to
   ``NARROW_MAX_C`` (96): the codec's (B, C, T) widths 24, 48, 96 and
@@ -16,24 +16,23 @@ with three kernels, chosen by a shape rule, never by a retry:
   256, 512). Three launches: depthwise conv + ChannelNorm, then the two
   products on the tensor-core GEMM core (``csrc/tc_gemm.cuh``, 3xTF32) with
   the activation and the residual in their epilogues.
-- ``csrc/conv_unit.cu``, one fused SIMT kernel, for ``conv_unit`` at any
-  other C (``debug``'s 16). ``conv_unit_simt`` also runs it on (B, C, T),
-  where it is only timed beside the narrow kernel.
+- the general route (below) for ``conv_unit`` at any other C (``debug``'s
+  16, ROADMAP C3's widths).
 
 Widths: every C >= 1, as the JAX kernels take (their tile budget scales
 with C, ``l3ac_tpu/ops/pallas/conv_unit.py:170-177``; ROADMAP C3).
 :func:`route_for` is the one shape rule, for the launch and for a walk of a
 model (:func:`admits` refuses only C < 1). The fast routes above take
 ``conv_unit`` at C % 64 == 0 up to ``TC_MAX_C`` (1024) on the tensor cores
-(bf16: C % 8 == 0), the rest of fp32 up to ``MAX_C`` (512) on the SIMT
-kernel, and ``conv_unit_ct`` up to ``NARROW_MAX_C`` on the narrow kernels.
-Every other width (fp32 C > 512 not a multiple of 64, any C > 1024, bf16
-C % 8 != 0, the TP mode off the tensor-core widths) runs the general route
-of ``csrc/general.cu``: a depthwise conv + ChannelNorm pass of one block per
-row looping over C (the statistics in a first pass), then both products on
-the tensor cores through :func:`general_gemm` (its K-major flat operands on
-the fast GEMM cores: fp32 ``csrc/tc_gemm.cuh``, 3xTF32 from the TF32 hi / lo
-of :class:`PreparedWeights`, any K; bf16 ``csrc/gemm_sm90.cuh`` from
+(bf16: C % 8 == 0) and ``conv_unit_ct`` up to ``NARROW_MAX_C`` on the narrow
+kernels. Every other width (fp32 C not a multiple of 64, any C > 1024, bf16
+C % 8 != 0) runs the general route: the depthwise conv + ChannelNorm pass of
+``csrc/general_rows.cu`` (persistent blocks over tiles of time rows staged
+once in shared memory, a row on two warps, the statistics by warp shuffles;
+over C in chunks where a row does not fit), then both products on the tensor cores
+through :func:`general_gemm` (its K-major flat operands on the fast GEMM
+cores: fp32 ``csrc/tc_gemm.cuh``, 3xTF32 from the TF32 hi / lo of
+:class:`PreparedWeights`, any K; bf16 ``csrc/gemm_sm90.cuh`` from
 :class:`PreparedBf16`) with the activation, the residual or the TP share in
 their epilogues, rounding where the bf16 plain version does.
 ``ROUTES["general"]`` counts its launches (of both wrappers),
@@ -121,9 +120,8 @@ from ..norms import channel_norm, grn
 from . import _build, autograd, gemm_sm90
 from .tc_gemm import split_tf32
 
-MAX_C = 512        # conv_unit, SIMT route: conv_unit.cu's accumulators and shared memory
 TC_MAX_C = 1024    # conv_unit, tensor-core route: conv_unit_tc.cu's 32 channels per lane
-TC_MULTIPLE = 64   # conv_unit at C % 64 == 0 runs conv_unit_tc.cu, other C conv_unit.cu
+TC_MULTIPLE = 64   # conv_unit at C % 64 == 0 runs conv_unit_tc.cu, other C the general route
 BF16_MULTIPLE = 8  # bf16 conv_unit: conv_unit_tc.cu's bf16 path at every C % 8 == 0
 NARROW_MAX_C = 96  # conv_unit_ct: conv_unit_narrow.cu's 12 n8 tiles of the second product
 TP_HIDDEN_MULTIPLE = 8  # a TP shard's hidden units padded to this (W2' rows of 16 / 32 bytes)
@@ -439,8 +437,8 @@ def route_for(name: str, C: int, dtype: torch.dtype = torch.float32,
               partial: bool = False) -> str:
     """The kernel that runs width C: ``"narrow"`` (``conv_unit_ct`` up to
     NARROW_MAX_C), ``"tc"`` (the tensor-core kernels: fp32 C % 64 == 0, bf16
-    C % 8 == 0, up to TC_MAX_C), ``"simt"`` (fp32 up to MAX_C, not in the TP
-    mode) or ``"general"`` (``csrc/general.cu``: every other C).
+    C % 8 == 0, up to TC_MAX_C) or ``"general"`` (``csrc/general_rows.cu``'s
+    dw + norm pass and the general products: every other C).
     ``conv_unit_ct`` above NARROW_MAX_C runs on the transposed x, by
     ``conv_unit``'s rule (the channels-last route)."""
     if name == "conv_unit_ct" and C <= NARROW_MAX_C:
@@ -448,12 +446,10 @@ def route_for(name: str, C: int, dtype: torch.dtype = torch.float32,
     mult = BF16_MULTIPLE if dtype == torch.bfloat16 else TC_MULTIPLE
     if C % mult == 0 and C <= TC_MAX_C:
         return "tc"
-    if dtype != torch.bfloat16 and not partial and C <= MAX_C:
-        return "simt"
     return "general"
 
 
-def _check_weights(w: ConvUnitWeights, C: int, name: str, max_c: int = MAX_C) -> int:
+def _check_weights(w: ConvUnitWeights, C: int, name: str, max_c: int) -> int:
     """The kernel size; raises on shapes that do not match C (the products'
     where ``w`` holds them)."""
     ksz = w.dw_w.shape[-1]
@@ -466,40 +462,6 @@ def _check_weights(w: ConvUnitWeights, C: int, name: str, max_c: int = MAX_C) ->
     if (w.norm_w is None) != (w.norm_b is None):
         raise ValueError(f"{name}: norm weight and bias go together")
     return ksz
-
-
-_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 +
-             [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
-
-
-def conv_unit_simt(x: torch.Tensor, w: ConvUnitWeights, dilation: int = 1, *,
-                   channels_last: bool, name: str = "conv_unit") -> torch.Tensor:
-    """Launch ``csrc/conv_unit.cu`` on a CUDA tensor, (B, T, C) or (B, C, T);
-    counts no launch (the wrapper counts). ``conv_unit``'s kernel at C not a
-    multiple of 64; on (B, C, T) it is only timed beside the narrow kernel."""
-    B = x.shape[0]
-    C, T = (x.shape[2], x.shape[1]) if channels_last else (x.shape[1], x.shape[2])
-    ksz = _check_weights(w, C, name)
-    if w.pw1_w.shape[0] != 4 * C:
-        raise ValueError(f"{name}: the SIMT kernel takes 4C hidden units")
-    dw = w.dw_w[:, 0, :].contiguous()                          # (C, K)
-    w1t = w.pw1_w.t().contiguous()                             # (C, 4C)
-    w2f, b2f = fold_grn(w)
-    ops = {"x": x, "dw": dw, "dw_b": w.dw_b, "norm_w": w.norm_w,
-           "norm_b": w.norm_b, "w1t": w1t, "pw1_b": w.pw1_b,
-           "alpha": w.alpha, "w2f": w2f, "b2f": b2f}
-    K.check_cuda(ops, x.device)
-    out = torch.empty_like(x)
-    sB = x.stride(0)
-    sC, sT = (1, C) if channels_last else (T, 1)
-    fn = _build.function("l3ac_conv_unit", _ARGTYPES)
-    err = fn(x.data_ptr(), out.data_ptr(), dw.data_ptr(), w.dw_b.data_ptr(),
-             _build.ptr(w.norm_w), _build.ptr(w.norm_b), w1t.data_ptr(),
-             w.pw1_b.data_ptr(), _build.ptr(w.alpha), w2f.data_ptr(),
-             b2f.data_ptr(), B, C, T, ksz, dilation, sB, sC, sT,
-             _build.stream_ptr())
-    _build.check(err, name)
-    return out
 
 
 _TC_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -742,8 +704,8 @@ def general_gemm(a: torch.Tensor, a_map: tuple[int, int, int, int], b: torch.Ten
 
 def _launch_general(x: torch.Tensor, w: ConvUnitWeights, p: PreparedWeights | PreparedBf16,
                     dilation: int, partial: bool, name: str) -> torch.Tensor:
-    """The general route (``csrc/general.cu``) on (B, T, C) x of any C: the
-    depthwise conv + ChannelNorm pass into a (B T, C) buffer of x's dtype,
+    """The general route on (B, T, C) x of any C: the depthwise conv +
+    ChannelNorm pass (``csrc/general_rows.cu``) into a (B T, C) buffer of x's dtype,
     pw1 with the activation into (B T, H), pw2 with the residual (TP mode:
     the fp32 share, no residual). Operands from ``p`` (bf16: every one;
     fp32: the products and a TP shard's padded b1 / alpha, the rest from
@@ -867,8 +829,8 @@ def conv_unit(x: torch.Tensor, w: ConvUnitWeights, *, dilation: int = 1,
               lh: torch.Tensor | None = None, rh: torch.Tensor | None = None,
               partial: bool = False) -> torch.Tensor:
     """Residual ConvUnit on (B, T, C), fp32 or bf16. On CUDA the kernel
-    :func:`route_for` names (the tensor-core path, the SIMT kernel or the
-    general route); one count either way; under autograd through
+    :func:`route_for` names (the tensor-core path or the general route); one
+    count either way; under autograd through
     ``autograd.call``. Plain on CPU. ``lh`` / ``rh``: SP halo blocks (B,
     3 * dilation, C), staged as :func:`conv_unit_ct` stages them.
     ``partial``: the tensor-parallel operand mode (the tensor-core or the
@@ -894,19 +856,16 @@ def _channels_last(x: torch.Tensor, w: ConvUnitWeights, dilation: int, lh, rh, p
         raise ValueError(why)
     _check_trainable(x, w, "conv_unit")
     route = route_for("conv_unit", x.shape[2], x.dtype, partial)
-    p = (prepared() if prepared is not None else prepared_weights(w, partial)) \
-        if route != "simt" else None
-    if p is not None and bf16 != isinstance(p, PreparedBf16):
+    p = prepared() if prepared is not None else prepared_weights(w, partial)
+    if bf16 != isinstance(p, PreparedBf16):
         raise TypeError(f"conv_unit: x is {x.dtype} but the unit's weights are not")
     if route == "general":
         run = lambda x: _launch_general(x, w, p, dilation, partial, "conv_unit")
     elif bf16:
         run = lambda x: _launch_bf16(x, p, dilation, channels_last=True, partial=partial)
-    elif route == "tc":
+    else:
         tp_kw = {"partial": True} if partial else {}
         run = lambda x: _launch_tc(x, w, dilation, p=p, **tp_kw)
-    else:
-        run = lambda x: conv_unit_simt(x, w, dilation, channels_last=True)
     launch = lambda: K.halo_call(run, x, lh, rh, axis=1, out_axis=1)
     out = autograd.call("conv_unit", launch, _plain(2, dilation, partial), x, lh, rh, *w)
     if route == "general":

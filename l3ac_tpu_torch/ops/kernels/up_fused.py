@@ -33,7 +33,8 @@ failure:
   statistics in registers); the bf16 instance of ``up_fused.cu`` serves only
   the (B, T, C) input at stream shapes (:func:`stream_buffer`).
 
-- ``csrc/general.cu`` (route ``"general"``): every other shape, as the JAX
+- ``csrc/general.cu`` and ``csrc/general_rows.cu`` (route ``"general"``):
+  every other shape, as the JAX
   kernels take any Ci and Co (``l3ac_tpu/ops/pallas/upsample.py:159-160``;
   ROADMAP C3): the (B, C, T) stages past 128 channels and the (B, T, C) ones
   past Ci 1024 or Co 512, both layouts, both dtypes and ``phase_split``.
@@ -41,13 +42,16 @@ failure:
   writes z = W x + b (fp32) for every input row, x read in place in either
   layout (a contiguous (B, T, C) x on the fast GEMM cores, (B, C, T) on
   ``general.cu``'s product; ``conv_unit.GEMM_ROUTES`` counts which); then
-  one block per output row blends the phase
-  from z's rows t - 1, t, t + 1 (the plain version's products and sum),
-  takes ChannelNorm's statistics over the whole Co row in a first pass and
-  stores the row at its interleaved (or phase) address, rounded once to x's
-  dtype. Its weights are the ``"general"`` buffer (W as it is, contiguous;
-  fp32: ``"general_split"``, its TF32 hi / lo) and the ``"general_vec"`` one
-  (b, norm_w, norm_b in fp32).
+  the blend + norm pass of ``csrc/general_rows.cu``: a block per tile of z
+  rows (staged once in shared memory, the edge frame repeated) blends each
+  phase from z's rows t - 1, t, t + 1 (the plain version's products and
+  sum), takes ChannelNorm's statistics one warp per output row (over Co in
+  chunks where a row does not fit) and stores at the interleaved (or phase)
+  address, rounded once to x's dtype: channels-last rows as they are, the
+  channels-first and ``phase_split`` outputs as each channel's contiguous
+  run of time samples. Its weights are the ``"general"`` buffer (W as it
+  is, contiguous; fp32: ``"general_split"``, its TF32 hi / lo) and the
+  ``"general_vec"`` one (b, norm_w, norm_b in fp32).
 
 The plain version runs only for a CPU tensor.
 

@@ -63,10 +63,11 @@ FAMILIES = (
     ("local_attention bf16: TMA + wgmma, ex2 softmax", ("attention_bf16_kernel",)),
     ("first_block bf16: a block per tile, GELU behind a warp vote (1 bf16 pass)",
      ("first_block_bf16",)),
+    ("general routes (C3 widths): dw conv + ChannelNorm, up blend + ChannelNorm",
+     ("general_dw_norm_kernel", "general_up_kernel")),
     ("conv_unit (C % 64 == 0): tc_gemm fp32 (3xTF32)", ("gemm_kernel<false",)),
     ("conv_unit (C % 64 == 0): dw conv + ChannelNorm", ("dw_norm_kernel",)),
     ("conv_unit_ct: narrow fused, tensor cores (3xTF32)", ("narrow_kernel",)),
-    ("conv_unit (C % 64 != 0): SIMT", ("conv_unit_kernel",)),
     ("local_attention: tensor cores (3xTF32)", ("attention_kernel",)),
     ("up_fused (B, T, C): tensor cores (3xTF32)", ("up_fused_tc_kernel",)),
     ("up_fused_ct (B, C, T): streaming, tensor cores (3xTF32)", ("up_fused_stream_kernel",)),

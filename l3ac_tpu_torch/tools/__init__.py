@@ -8,8 +8,9 @@ Each runs on CUDA unless given ``--device cpu``, where the kernel wrappers run
 their plain versions and the times are host-clock times of those.
 
 The variant tools (``narrow_variants``, ``attention_variants``,
-``tail_variants``, ``up_variants``; card only) time a kernel beside text
-substitutions of its source, built by :func:`build_variants`.
+``tail_variants``, ``up_variants``, ``rows_variants``; card only) time a
+kernel beside text substitutions of its source, built by
+:func:`build_variants`.
 """
 
 from __future__ import annotations
@@ -58,6 +59,35 @@ def time_ms(fn: Callable, dev: torch.device, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn: Callable, iters: int, repeats: int = 3) -> float:
+    """The card's time for one call of ``fn``, ms, without the host's: CUDA
+    events around ``iters`` calls (after two warm-up calls) that the host
+    enqueues while a sleeping kernel (``torch.cuda._sleep``, twice the host's
+    enqueue time long) keeps the card busy, so that the calls run back to
+    back; the least of ``repeats`` such measurements (a host stall longer
+    than the sleep lets a gap in). A loop of launches shorter than the host's
+    work per launch reads as host time under :func:`time_ms`."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_s = time.perf_counter() - t0  # enqueue time of the calls (at least)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2 * host_s * 2e9))  # cycles: twice that at 2 GHz
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
 
 
 def variant_source(path: Path, subs, tool: str) -> str:

@@ -36,6 +36,7 @@ from l3ac_tpu_torch.config import get_config
 from l3ac_tpu_torch.models import decoder as mdec
 from l3ac_tpu_torch.models import tconv
 from l3ac_tpu_torch.models.codec import Codec
+from l3ac_tpu_torch.models.layers import ConvUnit
 from l3ac_tpu_torch.ops.attention import local_attention as attention_plain
 from l3ac_tpu_torch.ops.kernels import autograd as ag
 from l3ac_tpu_torch.ops.kernels import conv_unit as cu
@@ -71,6 +72,10 @@ def force(m):
         return cu.conv_unit_plain(x, w, channel_dim=2, dilation=dilation)
 
     @torch.no_grad()
+    def general(x, w, p, dilation, partial, name):
+        return cu.conv_unit_plain(x, w, channel_dim=2, dilation=dilation, partial=partial)
+
+    @torch.no_grad()
     def stem(x, w):
         _count("first_block")
         return fb.first_block_plain(x, w.weights if isinstance(w, fb.PreparedStem) else w)
@@ -95,7 +100,7 @@ def force(m):
 
     m.setattr(cu, "_launch_narrow", narrow)
     m.setattr(cu, "_launch_tc", wide)
-    m.setattr(cu, "conv_unit_simt", wide)
+    m.setattr(cu, "_launch_general", general)
     m.setattr(fb, "_launch", stem)
     m.setattr(la, "_launch", attention)
     m.setattr(uf, "_launch", up)
@@ -227,7 +232,7 @@ def test_a_training_step_through_the_forced_kernels(monkeypatch):
             q, _ = codec.encode(audio)
             codec.decode(q)
         roundtrip = dict(K.LAUNCHES)
-        assert builds["unit"].calls == n_units_narrow(codec) > 0
+        assert builds["unit"].calls == n_units(codec) > 0
         assert builds["stem"].calls == 1 and builds["tail"].calls == 1
 
         optimizer = torch.optim.Adam(codec.parameters(), lr=1e-3)
@@ -246,7 +251,7 @@ def test_a_training_step_through_the_forced_kernels(monkeypatch):
             # change; after an optimizer step each is rebuilt once
             want_builds = 0 if step == 0 else 1
             assert builds["stem"].calls == want_builds and builds["tail"].calls == want_builds
-            assert builds["unit"].calls == want_builds * n_units_narrow(codec)
+            assert builds["unit"].calls == want_builds * n_units(codec)
             if step == 0:
                 assert torch.equal(loss, loss_p)
                 for n, p in codec.named_parameters():
@@ -255,11 +260,8 @@ def test_a_training_step_through_the_forced_kernels(monkeypatch):
             optimizer.step()
 
 
-def n_units_narrow(codec):
-    """ConvUnits of the (B, C, T) layout: those whose forward asks for the
-    prepared operands (``conv_unit_ct``)."""
-    enc, dec = codec.encoder, codec.decoder
-    n = sum(len(st.units) for st in enc.stages if st.down.in_channels <= cu.NARROW_MAX_C)
-    n += sum(len(st.units) for st, i_d in zip(dec.stages, codec.mc.decoder_dims[:-1])
-             if i_d <= cu.NARROW_MAX_C)
-    return n
+def n_units(codec):
+    """The ConvUnits: each one's forward asks for its prepared operands
+    (``conv_unit_ct``'s narrow kernel, ``conv_unit``'s tensor-core or
+    general route)."""
+    return sum(isinstance(m, ConvUnit) for m in codec.modules())

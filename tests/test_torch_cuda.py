@@ -125,7 +125,7 @@ def test_conv_unit_tensor_core_path(dev, C, dilation, norm, snake):
 
 
 def test_conv_unit_dispatch_is_a_shape_rule(dev, monkeypatch):
-    """C % 64 == 0 takes the tensor-core path, any other C the SIMT kernel;
+    """C % 64 == 0 takes the tensor-core path, any other C the general route;
     one count per call either way, and a refused path raises."""
     from l3ac_tpu_torch.ops import kernels as K
     from l3ac_tpu_torch.ops.kernels import conv_unit as cu
@@ -143,7 +143,7 @@ def test_conv_unit_dispatch_is_a_shape_rule(dev, monkeypatch):
         with pytest.raises(RuntimeError, match="refused"):
             cu.conv_unit(x64, w64)
     with monkeypatch.context() as m:
-        m.setattr(cu, "conv_unit_simt", refuse)
+        m.setattr(cu, "_launch_general", refuse)
         _check(cu.conv_unit(x64, w64), cu.conv_unit_plain(x64, w64, channel_dim=2))
     assert K.LAUNCHES["conv_unit"] == before + 2
 
@@ -191,11 +191,11 @@ def test_conv_unit_ct_narrow_kernel(dev, C, T, dilation, norm, snake):
 
 
 def test_conv_unit_ct_runs_only_the_narrow_kernel(dev, monkeypatch):
-    """conv_unit_ct never reaches conv_unit.cu: with the SIMT launch refused it
-    still runs, with the narrow one refused it raises; one count per call;
-    C above NARROW_MAX_C runs conv_unit's rule on the transposed x (C = 100:
-    the SIMT kernel; it raised before ROADMAP C3 closed), and a unit's
-    prepared operands are passed through."""
+    """conv_unit_ct at C <= NARROW_MAX_C never reaches the general route: with
+    its launch refused it still runs, with the narrow one refused it raises;
+    one count per call; C above NARROW_MAX_C runs conv_unit's rule on the
+    transposed x (C = 100: the general route; it raised before ROADMAP C3
+    closed), and a unit's prepared operands are passed through."""
     from l3ac_tpu_torch.ops import kernels as K
     from l3ac_tpu_torch.ops.kernels import conv_unit as cu
     rng = np.random.default_rng(11)
@@ -206,7 +206,7 @@ def test_conv_unit_ct_runs_only_the_narrow_kernel(dev, monkeypatch):
     w, x = _unit_weights(rng, 24, True, True, dev), _t(rng, (2, 24, 300), 1.0, dev)
     before = K.LAUNCHES["conv_unit_ct"]
     with monkeypatch.context() as m:
-        m.setattr(cu, "conv_unit_simt", refuse)
+        m.setattr(cu, "_launch_general", refuse)
         _check(cu.conv_unit_ct(x, w), cu.conv_unit_plain(x, w, channel_dim=1))
         p = cu.prepare_weights(w)
         no_products = w._replace(pw1_w=None, pw2_w=None)

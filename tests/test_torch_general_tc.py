@@ -26,6 +26,11 @@ and the attention) and their route rules, on the CPU.
   of its route with the epilogue's code.
 - The fp32 up path's TF32 hi / lo buffer is ``split_tf32`` of W bit for
   bit; the staged hi + lo carries W to 2^-22.
+- The row passes' sums (``csrc/general_rows.cu``, emulated by
+  ``tests/_torch_rows.py``; held against the port's plain versions in
+  ``tests/test_torch_general_rows.py``) against the JAX package's jnp
+  ChannelNorm and upsample at C3 widths: the unit at C = 1280, the up path
+  to Co = 200 at s = 2.
 
 The kernels themselves run on the card in ``chip_smoke.py`` phase 12.
 """
@@ -38,6 +43,8 @@ import torch
 import torch.nn.functional as F
 
 from l3ac_tpu.ops import attention as jattn
+from l3ac_tpu.ops.norms import channel_norm as jax_channel_norm
+from l3ac_tpu.ops.resample import upsample_linear as jax_upsample
 from l3ac_tpu_torch.ops import attention as tattn
 from l3ac_tpu_torch.ops.activations import gelu, snake
 from l3ac_tpu_torch.ops.kernels import _build
@@ -48,6 +55,7 @@ from l3ac_tpu_torch.ops.kernels import local_attention as la
 from l3ac_tpu_torch.ops.kernels import up_fused as uf
 from l3ac_tpu_torch.ops.kernels.tc_gemm import (K_STEP, MMA_K, _add_rz, gemm_emulated, split_tf32,
                                                 tf32_rna)
+from _torch_rows import dw_norm_emulated, up_blend_norm_emulated
 from _torch_threads import one_thread  # noqa: F401
 
 TOL = 1e-4          # chip_smoke.py: fp32 max abs error <= TOL * max(1, max |plain|)
@@ -477,3 +485,26 @@ def test_attention_blocks_run_longest_first_and_cover_every_item(n, W, BH, D):
                                    for sl in range(slabs) for bh in range(BH))
     tiles = [-(-(n + min(64, n - i0) + i0 - (n if w == 0 else 0)) // 64) for i0, w, _, _ in items]
     assert tiles == sorted(tiles, reverse=True)
+
+
+def test_row_passes_match_the_jax_channel_norm():
+    """The dw + norm pass at C = 1280 (the C override's unit) and the blend
+    + norm pass at 12 -> 200, s = 2 (the D override's up path), as the
+    kernels sum, against JAX's jnp ChannelNorm on the same conv and
+    JAX's upsample (fp32, 1e-4 x max(1, max |JAX|))."""
+    rng = np.random.default_rng(23)
+    C = 1280
+    x = _t(rng, (2, 9, C))
+    dw, dw_b = _t(rng, (C, 7), 7 ** -0.5), _t(rng, (C,), 0.1)
+    nw, nb = 1.0 + _t(rng, (C,), 0.1), _t(rng, (C,), 0.1)
+    y = cu._depthwise(x.transpose(1, 2), dw[:, None, :], dw_b, 3, None, None).transpose(1, 2)
+    want = np.array(jax_channel_norm(jnp.asarray(y.numpy()), jnp.asarray(nw.numpy()),
+                                       jnp.asarray(nb.numpy())))
+    _held(dw_norm_emulated(x, dw, dw_b, nw, nb, 3), torch.from_numpy(want), TOL)
+    Co = 200
+    z = _t(rng, (2, 9, Co))
+    nw, nb = 1.0 + _t(rng, (Co,), 0.2), _t(rng, (Co,), 0.2)
+    want = np.array(jax_channel_norm(jax_upsample(jnp.asarray(z.numpy()), 2),
+                                       jnp.asarray(nw.numpy()), jnp.asarray(nb.numpy())))
+    got = up_blend_norm_emulated(z, uf.phase_weights(2), nw, nb, "cl", torch.float32)
+    _held(got, torch.from_numpy(want), TOL)

@@ -112,7 +112,7 @@ def test_the_widths_before_c3_stay_admitted():
         assert cu.admits("conv_unit", C) is None, C
     for C in (192, 256, 512, 768, 1024):
         assert cu.route_for("conv_unit", C) == "tc", C
-    assert cu.route_for("conv_unit", 16) == "simt"
+    assert cu.route_for("conv_unit", 16) == "general"
     assert cu.admits("conv_unit", 1088) is None and cu.admits("conv_unit", 520) is None
     assert cu.route_for("conv_unit", 1088) == cu.route_for("conv_unit", 520) == "general"
     assert cu.admits("conv_unit", 16, torch.bfloat16) is None           # bf16: C % 8 == 0

@@ -194,7 +194,7 @@ def test_conv_unit_tensor_core_scheme_matches_jax(C, use_norm, dilation):
 
 def test_released_channels_last_widths_take_the_tensor_core_path():
     """The shape rule of ``conv_unit``: every released config runs its (B, T, C)
-    units at multiples of 64; debug's C = 16 keeps the SIMT kernel."""
+    units at multiples of 64; debug's C = 16 takes the general route."""
     for name in ("0k75bps", "1k5bps", "1kbps", "3kbps"):
         nc = get_config(name).network_config
         wide = [c for c in (*nc.encoder_dims, *nc.decoder_dims) if c > NARROW_MAX_C]

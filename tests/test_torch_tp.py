@@ -420,8 +420,8 @@ def test_c3_wide_channels_first_unit_matches_jax(c3):
 def test_c3_route_sends_a_wide_channels_first_unit_to_the_channels_last_kernel(monkeypatch):
     """The shape rule: C <= 96 the narrow kernel, above it conv_unit's rule
     on the transposed x (C % 64 in fp32, C % 8 in bf16: the tensor-core
-    kernel; the other widths, which raised before ROADMAP C3 closed, the SIMT
-    kernel or the general route)."""
+    kernel; the other widths, which raised before ROADMAP C3 closed, the
+    general route)."""
     rng = np.random.default_rng(3)
     calls = []
 
@@ -450,7 +450,7 @@ def test_c3_route_sends_a_wide_channels_first_unit_to_the_channels_last_kernel(m
         assert cu.ROUTES[key] == before[key] + 1
     assert calls == [("narrow", (2, 96, 50)), ("tc", (2, 50, 128))]
     assert cu.admits("conv_unit_ct", 100) is None              # fp32: C % 64 above 96
-    assert cu.route_for("conv_unit_ct", 100) == "simt"
+    assert cu.route_for("conv_unit_ct", 100) == "general"
     assert cu.admits("conv_unit_ct", 104, torch.bfloat16) is None
     assert cu.route_for("conv_unit_ct", 104, torch.bfloat16) == "tc"
     assert cu.admits("conv_unit_ct", 2048) is None

@@ -84,8 +84,8 @@ def test_the_c3_overrides_reach_every_former_ceiling():
     assert _general("conv_unit", 1280, fp32) and _general("conv_unit", 1280, bf16)
     assert _general("conv_unit", 600, fp32) and not _general("conv_unit", 600, bf16)
     # (B, C, T) above 96 takes conv_unit's rule on the transposed x: fp32 C = 200
-    # its SIMT kernel (refused there before), bf16 C = 100 the general route
-    assert cu.route_for("conv_unit_ct", 200, fp32) == "simt" and _general("conv_unit", 100, bf16)
+    # (refused there before) and bf16 C = 100 the general route
+    assert cu.route_for("conv_unit_ct", 200, fp32) == "general" and _general("conv_unit", 100, bf16)
     assert _general("up_fused", (1280, 600, True), fp32)
     assert _general("up_fused_ct", (12, 200, False), fp32)
     assert _general("up_fused_ct", (200, 96, False), bf16)
@@ -106,7 +106,7 @@ def test_every_width_is_admitted(fn):
                     for C in WIDTHS:
                         assert cu.admits(name, C, dtype, partial) is None, (name, C, dtype)
                         assert cu.route_for(name, C, dtype, partial) in (
-                            "narrow", "tc", "simt", "general")
+                            "narrow", "tc", "general")
         assert cu.admits("conv_unit", 0) is not None
     elif fn == "local_attention":
         assert all(la.admits(D) is None for D in range(1, 513))
