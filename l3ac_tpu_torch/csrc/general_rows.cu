@@ -1,5 +1,5 @@
-// The general routes' two row passes (ROADMAP C3; the rest of the general
-// routes is csrc/general.cu). ops/kernels/conv_unit.py:_launch_general and
+// The general routes' two row passes (ROADMAP C3; their product is
+// csrc/general_gemm.cu, their attention csrc/general.cu). ops/kernels/conv_unit.py:_launch_general and
 // ops/kernels/up_fused.py's general route call them.
 //
 // - dw_norm: the ConvUnit's depthwise conv (K odd, dilation d, SAME zero

@@ -304,7 +304,7 @@ __global__ void __launch_bounds__(T::kThreads, 1) gemm_kernel(const Params p) {
     if constexpr (!kInt8 && kVecB) {
       load_rows16<kThreads>(st + kTile, p.b_hi, n0, p.N, s * kBK, p.K, tid);
       load_rows16<kThreads>(st + 2 * kTile, p.b_lo, n0, p.N, s * kBK, p.K, tid);
-    } else if constexpr (!kInt8) {  // any K (general.cu's unit products)
+    } else if constexpr (!kInt8) {  // any K (the general route's unit products)
       load_rows4<kThreads>(st + kTile, p.b_hi, n0, p.N, s * kBK, p.K, tid);
       load_rows4<kThreads>(st + 2 * kTile, p.b_lo, n0, p.N, s * kBK, p.K, tid);
     }

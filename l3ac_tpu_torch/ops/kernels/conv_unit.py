@@ -37,8 +37,9 @@ cores: fp32 ``csrc/tc_gemm.cuh``, 3xTF32 from the TF32 hi / lo of
 their epilogues, rounding where the bf16 plain version does.
 ``ROUTES["general"]`` counts its launches (of both wrappers),
 ``GEMM_ROUTES`` the general products by core (:func:`gemm_route`: the fast
-cores, or ``general.cu``'s own tensor-core product for strided operands, k7
-taps, tanh and ``round_mid``).
+cores, or ``csrc/general_gemm.cu``'s own tensor-core product,
+:func:`window_gemm`, for strided operands, k7 taps, a prologue snake, tanh
+and ``round_mid``; ``GEMM_STAGING`` how it staged A).
 
 bf16 (the encode half of ROADMAP A6): both wrappers take bf16 x with a bf16
 unit. ``conv_unit_ct`` runs ``csrc/conv_unit_narrow_bf16.cu`` (a persistent
@@ -615,18 +616,26 @@ def _launch_bf16(x: torch.Tensor, p: PreparedBf16, dilation: int, *,
     return out
 
 
-_GEMM_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2 +
-                  [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2 +
-                  [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p] +
-                  [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong] +
-                  [ctypes.c_int] * 2 + [ctypes.c_void_p])
+# l3ac_general_gemm's arguments (csrc/general_gemm.cu), in order
+GEMM_ARGS = ("a", "a1", "a_sb", "a_st", "a_sk", "a_rows", "C", "taps", "dil", "a_bf", "pro",
+             "stage", "b", "b_lo", "ldb", "bias", "alpha", "act", "res", "res1", "r_sb", "r_st",
+             "r_sn", "res_bf", "round_mid", "out", "o_sb", "o_st", "o_sn", "o_rows", "o_bf", "M",
+             "N", "stream")
+_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_GEMM_ARGTYPES = ([_P] * 2 + [_L] * 3 + [_I] * 5 + [_P, _I] + [_P] * 2 + [_I] + [_P] * 2 +
+                  [_I] + [_P] * 2 + [_L] * 3 + [_I] * 2 + [_P] + [_L] * 3 + [_I] * 2 + [_L, _I, _P])
+assert len(_GEMM_ARGTYPES) == len(GEMM_ARGS)
 _TC_GEMM_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _DW_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 6 +
                 [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p])
 ACT_NONE, ACT_SNAKE, ACT_GELU, ACT_TANH = 0, 1, 2, 3
 # the general routes' products by the core that ran them (:func:`gemm_route`;
-# the general tail's seven products a launch count under "mma")
+# "mma": csrc/general_gemm.cu, also the general tail's seven products a launch)
 GEMM_ROUTES: dict[str, int] = {"tc_gemm": 0, "gemm_sm90": 0, "mma": 0}
+# general_gemm.cu's launches by how they staged A (:func:`gemm_staging`): a
+# window of 16-byte blocks along A's contiguous axis, or element loads
+GEMM_STAGING: dict[str, int] = {"window": 0, "element": 0}
+STAGE_ELEMENT, STAGE_TIME, STAGE_CHANNEL = 0, 1, 2
 _INT_MAX = 2 ** 31 - 1
 TC_GEMM_BM = 128   # tc_gemm.cuh's rows a block; its grid holds at most 65535 of them
 
@@ -648,8 +657,9 @@ def gemm_route(a_map: tuple[int, int, int, int], a_dtype: torch.dtype, split: bo
     residual) a flat (M, N) one and the epilogue one the core has,
     ``"tc_gemm"`` (fp32 with a TF32 hi / lo B, ``split``: ``csrc/tc_gemm.cuh``)
     or ``"gemm_sm90"`` (bf16: ``csrc/gemm_sm90.cuh``, bf16 out, or fp32 out
-    with the bias alone); else ``"mma"`` (``csrc/general.cu``'s tensor-core
-    product: any strides, k7 taps, tanh, ``round_mid``)."""
+    with the bias alone); else ``"mma"`` (``csrc/general_gemm.cu``'s
+    tensor-core product, :func:`window_gemm`: any strides, k7 taps, a
+    prologue snake, tanh, ``round_mid``)."""
     if not (_flat(a_map, M, K) and _flat(o_map, M, N)) or round_mid or act == ACT_TANH or \
             (res and act != ACT_NONE) or max(M * K, M * N, N * K) > _INT_MAX:
         return "mma"
@@ -692,14 +702,69 @@ def general_gemm(a: torch.Tensor, a_map: tuple[int, int, int, int], b: torch.Ten
                  gemm_sm90.ROUTE_CODE[r], _build.stream_ptr())
         gemm_sm90.ROUTES[r] += 1
     else:
-        bf = lambda t: int(t.dtype == torch.bfloat16)
-        fn = _build.function("l3ac_general_gemm", _GEMM_ARGTYPES)
-        err = fn(a.data_ptr(), a_map[1], a_map[2], a_map[3], a_map[0], bf(a), b.data_ptr(),
-                 _build.ptr(b_lo), bf(b), _build.ptr(bias), _build.ptr(alpha), act,
-                 _build.ptr(res), 0 if res is None else bf(res), int(round_mid), out.data_ptr(),
-                 o_map[1], o_map[2], o_map[3], o_map[0], bf(out), M, N, Kd, _build.stream_ptr())
+        window_gemm(a, a_map, Kd, b, out, o_map, M, N, b_lo=b_lo, bias=bias, alpha=alpha,
+                    act=act, res=res, round_mid=round_mid)
+        return
     _build.check(err, f"general gemm ({route})")
     GEMM_ROUTES[route] += 1
+
+
+def gemm_staging(a_map: tuple[int, int, int, int], pair: bool = False) -> int:
+    """How ``csrc/general_gemm.cu`` stages A, a layout rule: 16-byte blocks
+    along time where time is contiguous (``STAGE_TIME``: the (B, C, T)
+    layouts and the phase pair), along channels where they are
+    (``STAGE_CHANNEL``), else element loads (``STAGE_ELEMENT``: a view with
+    neither axis contiguous). ``a_map = (rows, sb, st, sk)``."""
+    _, _, st, sk = a_map
+    if st == 1:
+        return STAGE_TIME
+    return STAGE_CHANNEL if sk == 1 and not pair else STAGE_ELEMENT
+
+
+def gemm_args(a: torch.Tensor, a_map: tuple[int, int, int, int], C: int, b: torch.Tensor,
+              out: torch.Tensor, o_map: tuple[int, int, int, int], M: int, N: int, *,
+              a1: torch.Tensor | None = None, taps: int = 1, dil: int = 1,
+              pro: torch.Tensor | None = None, b_lo: torch.Tensor | None = None,
+              bias: torch.Tensor | None = None, alpha: torch.Tensor | None = None,
+              act: int = ACT_NONE, res: torch.Tensor | None = None,
+              res1: torch.Tensor | None = None, r_map: tuple | None = None,
+              round_mid: bool = False) -> tuple:
+    """:func:`window_gemm`'s arguments as ``l3ac_general_gemm`` takes them
+    (in :data:`GEMM_ARGS` order)."""
+    ldb = b.shape[-1]
+    if b.numel() != taps * N * ldb or ldb < C or (b_lo is not None and b_lo.shape != b.shape):
+        raise ValueError(f"general gemm: B {tuple(b.shape)} is not ({taps}, {N}, >= {C})")
+    r_map = o_map if r_map is None else r_map
+    ptr = _build.ptr
+    bf = lambda t: int(t is not None and t.dtype == torch.bfloat16)
+    # in GEMM_ARGS order (a tuple: the general tail builds seven a call)
+    return (a.data_ptr(), ptr(a1), a_map[1], a_map[2], a_map[3], a_map[0], C, taps, dil, bf(a),
+            ptr(pro), gemm_staging(a_map, a1 is not None), b.data_ptr(), ptr(b_lo), ldb,
+            ptr(bias), ptr(alpha), act, ptr(res), ptr(res1), r_map[1], r_map[2], r_map[3],
+            bf(res), int(round_mid), out.data_ptr(), o_map[1], o_map[2], o_map[3], o_map[0],
+            bf(out), M, N, _build.stream_ptr())
+
+
+def window_gemm(a: torch.Tensor, a_map: tuple[int, int, int, int], C: int, b: torch.Tensor,
+                out: torch.Tensor, o_map: tuple[int, int, int, int], M: int, N: int,
+                **options) -> None:
+    """``csrc/general_gemm.cu``'s product, out = act(pro(A) B^T + bias) (+
+    res): A's element (b, t, c) at ``a[b sb + t st + c sk]`` with ``a_map =
+    (rows, sb, st, sk)`` (with ``a1``, the phase pair: ``(a if t even else
+    a1)[b sb + (t // 2) st + c sk]``), C channels, ``taps`` 1 or 7 at
+    dilation ``dil`` (zero outside [0, rows)); ``pro``: the prologue snake's
+    (C,) alpha; B ``(taps, N, ldb)`` (or (N, ldb) at one tap), ``ldb >= C``;
+    ``b_lo`` fp32's TF32 lo term; ``bias``, ``act`` (``alpha``: the
+    epilogue's snake); out at ``o_map``, ``res`` at ``r_map`` (default
+    ``o_map``; ``res1``: its pair), ``round_mid`` (:func:`gemm_args` names
+    them). One launch, counted in ``GEMM_ROUTES["mma"]`` and
+    ``GEMM_STAGING`` (:func:`gemm_staging`)."""
+    args = gemm_args(a, a_map, C, b, out, o_map, M, N, **options)
+    fn = _build.function("l3ac_general_gemm", _GEMM_ARGTYPES)
+    _build.check(fn(*args), "general gemm (mma)")
+    GEMM_ROUTES["mma"] += 1
+    GEMM_STAGING["element" if args[GEMM_ARGS.index("stage")] == STAGE_ELEMENT
+                 else "window"] += 1
 
 
 def _launch_general(x: torch.Tensor, w: ConvUnitWeights, p: PreparedWeights | PreparedBf16,

@@ -28,16 +28,22 @@ whole C, ``l3ac_tpu/ops/pallas/legacy_tail.py:245``; ROADMAP C3).
 :func:`route_for` is the rule (:func:`admits` refuses only C < 1). The
 tensor-core kernels take C a multiple of 4 up to ``MAX_C`` (64); up to 24
 channels they keep every weight in shared memory, wider they read the
-matrices from device memory. Every other C runs the general route of
-``csrc/general.cu`` (``l3ac_general_tail``): each snake an elementwise pass
-into a scratch buffer (the phase pair and the interleaved input read in
-place), each conv one product of its tensor-core GEMM (``general.cu``'s
-mma.sync product, 3xTF32 in fp32; a k7 conv by im2col addresses, the
-residual, the bf16 roundings and the closing tanh in the epilogue;
-``GENERAL_PRODUCTS`` a launch, counted in ``conv_unit.GEMM_ROUTES["mma"]``),
-rounding where the bf16 plain version does; its operands are the
-weights as they are and :func:`general_vectors` (cached like the pack).
-``ROUTES`` counts the launches of each route.
+matrices from device memory. Every other C runs the general route: seven
+launches of the general product, ``csrc/general_gemm.cu``
+(``conv_unit.window_gemm``; ``GENERAL_PRODUCTS``, each counted in
+``conv_unit.GEMM_ROUTES["mma"]``), and no elementwise pass: per unit the k7
+conv and the 1x1 conv, then the output conv. Each snake is the prologue of
+the product that reads its output, applied once per staged element of the
+product's window (a k7 conv is seven products on row-shifted views of one
+window, all of C up to 256 channels where shared memory allows); the first
+unit reads the phase pair or the
+interleaved input in place, for its k7 conv's window and, through the
+same address map, for the residual of its 1x1 conv. Each 1x1 conv adds the
+residual in its epilogue (rounding the product + bias first where bf16
+rounds, ``round_mid``), the output conv applies tanh there. Scratch: the
+residual stream and the k7 convs' output, two (B, C, T) buffers. Its
+operands are :func:`prepared_general`'s tap-major weights and fp32 vectors
+(cached like the pack). ``ROUTES`` counts the launches of each route.
 
 bf16 (x bf16 with bf16 weights): ``csrc/legacy_tail_bf16.cu``, one bf16
 tensor-core pass per product (m16n8k16, the k7 conv's taps folded into one K),
@@ -69,7 +75,7 @@ from .. import kernels as K
 from ..activations import EPS, snake
 from ..resample import interleave
 from . import _build, autograd
-from .conv_unit import GEMM_ROUTES, cached_prepare
+from .conv_unit import ACT_TANH, cached_prepare, window_gemm
 from .tc_gemm import split_tf32
 
 DILATIONS = (1, 3, 9)
@@ -78,7 +84,7 @@ PHALO = 21      # ... of each phase of the polyphase input
 MAX_C = 64      # the tensor-core kernels: C a multiple of 4 up to this (released: 24)
 ALIGN_C = 4
 ROUTES: dict[str, int] = {"tc": 0, "general": 0}  # launches of either entry point by route
-GENERAL_PRODUCTS = 7  # the general tail's convs: 3 k7, 3 1x1, the output conv
+GENERAL_PRODUCTS = 7  # the general tail's launches: 3 k7, 3 1x1, the output conv
 
 
 def admits(C: int) -> str | None:
@@ -261,37 +267,79 @@ def general_vectors(w: TailWeights) -> torch.Tensor:
         return torch.cat([t.float().reshape(-1) for t in (w.a1, w.b1, w.a2, w.b2, w.ao, w.bo)])
 
 
+def general_ldb(C: int) -> int:
+    """The row of the general route's tap-major weights: C rounded up to 8
+    (16-byte rows for the product's cp.async, fp32 and bf16)."""
+    return -(-C // 8) * 8
+
+
+def tap_major(w: torch.Tensor) -> torch.Tensor:
+    """A k7 conv's weight (..., N, C, 7) as the general product reads it:
+    (..., 7, N, ldb), B[tap][n][c] = w[n, c, tap], zero past C."""
+    C = w.shape[-2]
+    t = w.movedim(-1, -3)
+    return F.pad(t, (0, general_ldb(C) - C)).contiguous()
+
+
 _GENERAL: dict[int, tuple] = {}
 
 
 def prepared_general(w: TailWeights) -> tuple[torch.Tensor, ...]:
-    """(w1, w2, wo contiguous, :func:`general_vectors`), cached on ``w``'s
-    tensors by ``cached_prepare``."""
+    """The general route's operands, cached on ``w``'s tensors by
+    ``cached_prepare``: w1 (3, 7, C, ldb) and wo (7, 1, ldb) tap-major
+    (:func:`tap_major`), w2 (3, C, ldb), all zero past C, in the weights'
+    dtype; :func:`general_vectors`."""
     def build():
         with torch.no_grad():
-            return (w.w1.contiguous(), w.w2.contiguous(), w.wo.contiguous(), general_vectors(w))
+            C = w.ao.shape[0]
+            w2 = F.pad(w.w2, (0, general_ldb(C) - C)).contiguous()
+            return tap_major(w.w1), w2, tap_major(w.wo), general_vectors(w)
     return cached_prepare(w.w1, tuple(w), build, store=_GENERAL)
 
 
-_GENERAL_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 8 + \
-    [ctypes.c_int] * 4 + [ctypes.c_void_p]
+def general_plan(x0: torch.Tensor, x1: torch.Tensor | None, w: TailWeights, T: int,
+                 xbuf: torch.Tensor, hbuf: torch.Tensor, out: torch.Tensor) -> list[dict]:
+    """The general tail's seven products as ``conv_unit.window_gemm``
+    arguments, in order: per unit u the k7 conv (A: the residual stream,
+    with a1[u]'s snake as its prologue, into hbuf) and the 1x1 conv (A:
+    hbuf with a2[u]'s snake, + b2[u], the residual added into xbuf; bf16:
+    the product + bias rounded first), then the output conv (A: xbuf with
+    ao's snake, tanh, into out (B, T)). The first unit reads x0 (and x1,
+    the phase pair) in place for its k7 conv's window and for its residual;
+    xbuf is the residual stream after it."""
+    B, C = x0.shape[:2]
+    w1, w2, wo, vec = prepared_general(w)
+    a1, b1, a2, b2 = vec[:12 * C].view(4, 3, C)
+    ao, bo = vec[12 * C:13 * C], vec[13 * C:]
+    ct = (T, C * T, 1, T)  # (rows, sb, st, sk) of a contiguous (B, C, T) buffer
+    src = (x0, x1, (T, x0.stride(0), x0.stride(2), x0.stride(1)))
+    bf16 = x0.dtype == torch.bfloat16
+    plan = []
+    for u, d in enumerate(DILATIONS):
+        a, a_1, a_map = src if u == 0 else (xbuf, None, ct)
+        common = dict(C=C, M=B * T, N=C)
+        plan.append(dict(a=a, a_map=a_map, b=w1[u], out=hbuf, o_map=ct, a1=a_1, taps=7, dil=d,
+                         pro=a1[u], bias=b1[u], **common))
+        plan.append(dict(a=hbuf, a_map=ct, b=w2[u], out=xbuf, o_map=ct, pro=a2[u], bias=b2[u],
+                         res=a, res1=a_1, r_map=a_map, round_mid=bf16, **common))
+    plan.append(dict(a=xbuf, a_map=ct, C=C, b=wo, out=out, o_map=(T, T, 1, 0), M=B * T, N=1,
+                     taps=7, dil=1, pro=ao, bias=bo, act=ACT_TANH))
+    return plan
 
 
 def _launch_general(x0: torch.Tensor, x1: torch.Tensor | None, w: TailWeights, T: int,
                     name: str) -> torch.Tensor:
-    """``csrc/general.cu``'s tail on x0 (and x1: the phase pair), any C."""
+    """The general tail on x0 (and x1: the phase pair), any C: the seven
+    products of :func:`general_plan`, ``csrc/general_gemm.cu``."""
     B, C = x0.shape[:2]
     _check_shapes(w, C, name)
     w1, w2, wo, vec = prepared_general(w)
     K.check_cuda({"x0": x0, "x1": x1, "w1": w1, "w2": w2, "wo": wo}, x0.device, dtype=x0.dtype)
     K.check_cuda({"vectors": vec}, x0.device)
-    bufs = [torch.empty((B, C, T), device=x0.device, dtype=x0.dtype) for _ in range(3)]
+    xbuf, hbuf = (torch.empty((B, C, T), device=x0.device, dtype=x0.dtype) for _ in range(2))
     out = torch.empty((B, T), device=x0.device, dtype=x0.dtype)
-    fn = _build.function("l3ac_general_tail", _GENERAL_ARGTYPES)
-    err = fn(x0.data_ptr(), _build.ptr(x1), x0.stride(0), x0.stride(1), w1.data_ptr(),
-             w2.data_ptr(), wo.data_ptr(), vec.data_ptr(), *(b.data_ptr() for b in bufs),
-             out.data_ptr(), B, C, T, int(x0.dtype == torch.bfloat16), _build.stream_ptr())
-    _build.check(err, name)
+    for p in general_plan(x0, x1, w, T, xbuf, hbuf, out):
+        window_gemm(**p)
     return out
 
 
@@ -312,7 +360,6 @@ def _launch(x0: torch.Tensor, x1: torch.Tensor | None, w: TailWeights | Prepared
         out = _launch_general(x0, x1, _plain_weights(w), T, name)
         K.LAUNCHES[name] += 1
         ROUTES["general"] += 1
-        GEMM_ROUTES["mma"] += GENERAL_PRODUCTS
         return out
     if isinstance(w, PreparedTail):
         wp = w.packed

@@ -33,7 +33,7 @@ failure:
   statistics in registers); the bf16 instance of ``up_fused.cu`` serves only
   the (B, T, C) input at stream shapes (:func:`stream_buffer`).
 
-- ``csrc/general.cu`` and ``csrc/general_rows.cu`` (route ``"general"``):
+- ``csrc/general_gemm.cu`` and ``csrc/general_rows.cu`` (route ``"general"``):
   every other shape, as the JAX
   kernels take any Ci and Co (``l3ac_tpu/ops/pallas/upsample.py:159-160``;
   ROADMAP C3): the (B, C, T) stages past 128 channels and the (B, T, C) ones
@@ -41,7 +41,8 @@ failure:
   The general product (``conv_unit.general_gemm``, on the tensor cores)
   writes z = W x + b (fp32) for every input row, x read in place in either
   layout (a contiguous (B, T, C) x on the fast GEMM cores, (B, C, T) on
-  ``general.cu``'s product; ``conv_unit.GEMM_ROUTES`` counts which); then
+  ``general_gemm.cu``'s product, x's time rows staged by 16-byte blocks at
+  any offset; ``conv_unit.GEMM_ROUTES`` counts which); then
   the blend + norm pass of ``csrc/general_rows.cu``: a block per tile of z
   rows (staged once in shared memory, the edge frame repeated) blends each
   phase from z's rows t - 1, t, t + 1 (the plain version's products and

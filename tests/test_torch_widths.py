@@ -153,8 +153,9 @@ def _t(rng, shape, std=1.0):
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_general_buffers_unpack_to_the_weights(dtype):
-    """The general routes' buffers: the tail's fp32 vectors and weights, the
-    up path's W and fp32 vectors; each part equals its plain weight."""
+    """The general routes' buffers: the tail's fp32 vectors and weights (the
+    convs tap-major), the up path's W and fp32 vectors; each part equals its
+    plain weight."""
     rng = np.random.default_rng(7)
     dt = DTYPES[dtype]
     C = 22
@@ -162,7 +163,10 @@ def test_general_buffers_unpack_to_the_weights(dtype):
         _t(rng, (3, C)), _t(rng, (3, C, C, 7)), _t(rng, (3, C)), _t(rng, (3, C)),
         _t(rng, (3, C, C)), _t(rng, (3, C)), _t(rng, (C,)), _t(rng, (1, C, 7)), _t(rng, (1,)))))
     w1, w2, wo, vec = lt.prepared_general(w)
-    assert torch.equal(w1, w.w1) and torch.equal(w2, w.w2) and torch.equal(wo, w.wo)
+    # the general product reads the convs tap-major, rows zero-filled past C
+    assert torch.equal(w1[..., :C], w.w1.permute(0, 3, 1, 2)) and \
+        torch.equal(w2[..., :C], w.w2) and torch.equal(wo[..., :C], w.wo.permute(2, 0, 1))
+    assert not (w1[..., C:].any() or w2[..., C:].any() or wo[..., C:].any())
     assert vec.dtype == torch.float32 and vec.shape == (13 * C + 1,)
     parts = torch.split(vec, [3 * C] * 4 + [C, 1])
     for got, want in zip(parts, (w.a1, w.b1, w.a2, w.b2, w.ao, w.bo)):
